@@ -1,0 +1,323 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (maua_tpu_torch) once on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each printed as one JSON line with its elapsed seconds:
+
+1. device: the card's name and power limit (nvidia-smi), torch and CUDA.
+2. build: nvcc builds every CUDA kernel of the path from the sources
+   under maua_tpu_torch/csrc into maua_tpu_torch/_build.
+3. kernel: the modulated-conv epilogue kernel against its plain PyTorch
+   version at every epilogue shape of a 1024^2 StyleGAN2 frame batch of
+   8, in each layer's dtype, plus its option cases at one shape; CUDA
+   event times beside the memory-bytes bound and the plain version.
+4. e2e: the audio-reactive video (ExampleSG2Patch, memmap renderer) of a
+   3 s synthetic wav made from a seed, at 24 fps, through a random-init
+   full-width StyleGAN2 (config-f, 1024^2, bf16 top resolutions), with
+   the launch counts reset just before and read just after.
+5. profile: one render batch under torch.profiler, device time by
+   kernel and the device's idle share.
+6. reference: one frame of the same net in f32 with TF32 off, on the
+   card with the kernel and on the CPU with the plain version, PSNR.
+
+Any failure exits non-zero. It needs one CUDA card and writes only to a
+temporary directory and to the kernel build directory. The last two
+lines are the kernels' JSON record and
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
+FPS = 24
+SECONDS = 3.0
+SR = 22050
+BATCH = 8
+
+
+def phase(name, fn):
+    t0 = time.perf_counter()
+    out = fn()
+    print(json.dumps({"phase": name, "seconds": round(time.perf_counter() - t0, 3), **(out or {})}), flush=True)
+    return out
+
+
+def synth_wav(path: str, seconds: float = SECONDS, sr: int = SR, seed: int = 0) -> None:
+    """A kick / snare / bass / tone mix, made from a seed."""
+    import numpy as np
+    from scipy.io import wavfile
+
+    rs = np.random.RandomState(seed)
+    t = np.arange(int(sr * seconds)) / sr
+    y = 0.25 * np.sin(2 * np.pi * 440 * t) * (1 + 0.5 * np.sin(2 * np.pi * 0.5 * t))
+    y += 0.15 * np.sin(2 * np.pi * 220 * 1.5 * t)
+    y += 0.3 * np.sin(2 * np.pi * 55 * t) * (0.6 + 0.4 * np.sin(2 * np.pi * 1.0 * t))
+    n = int(0.12 * sr)
+    env = np.exp(-np.arange(n) / (0.025 * sr))
+    for beat in np.arange(0, seconds, 0.5):
+        i = int(beat * sr)
+        kick = np.sin(2 * np.pi * (50 + 80 * env) * np.arange(n) / sr) * env
+        y[i : i + n] += 0.9 * kick[: len(y) - i]
+        j = int((beat + 0.25) * sr)
+        if j + n <= len(y):
+            y[j : j + n] += 0.4 * rs.randn(n) * env
+    wavfile.write(path, sr, (y / np.abs(y).max() * 0.9).astype(np.float32))
+
+
+def nvidia_smi() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def cuda_time_ms(fn, iters: int = 20) -> float:
+    import torch
+
+    for _ in range(3):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def epilogue_cases():
+    """(label, B, C, H, W, dtype, noise batch or 0, groups, pre_next, clamp) of
+    every epilogue launch of one 1024^2 frame batch, then the option cases."""
+    import torch
+
+    from maua_tpu_torch.gan.stylegan2 import SG2Config
+
+    cfg = SG2Config(dtype="bfloat16")
+    cases = []
+    for res in cfg.block_resolutions:
+        # the example patch gives per-frame noise to b4..b64 and the rest keep noise_const
+        nb = BATCH if res <= 64 else 1
+        cases.append((f"b{res}", BATCH, cfg.channels(res), res, res, cfg.compute_dtype(res), nb, 1, False, 256.0))
+    for label, nb, g, pre, clamp in [("no-noise", 0, 1, False, 256.0), ("shared-noise", 1, 1, False, 256.0),
+                                     ("groups-8", BATCH, 8, False, 256.0), ("pre-next", BATCH, 1, True, 256.0),
+                                     ("clamp-none", BATCH, 1, False, None)]:
+        cases.append((label, BATCH, 128, 256, 256, torch.bfloat16, nb, g, pre, clamp))
+    cases.append(("f32-groups-4", BATCH, 512, 32, 32, torch.float32, BATCH, 4, True, 256.0))
+    return cfg, cases
+
+
+def check_epilogue():
+    import torch
+
+    from maua_tpu_torch.kernels import epilogue as E
+
+    cfg, cases = epilogue_cases()
+    num_conv = {res: cfg.block_num_conv(res) for res in cfg.block_resolutions}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows, batch_ms, batch_plain_ms, batch_bound_ms = [], 0.0, 0.0, 0.0
+    worst = 0.0
+    for label, b, c, h, w, dtype, nb, g, pre, clamp in cases:
+        def rnd(*shape):
+            return torch.randn(*shape, generator=gen, device="cuda")
+
+        z = (rnd(b, c, h, w) * 4).to(dtype)
+        post = rnd(b, c).abs() + 0.1
+        noise = rnd(nb, g, h, w) if nb else None
+        bias = rnd(c) * 0.1
+        pre_next = rnd(b, c).abs() + 0.5 if pre else None
+        args = (z, post, noise, bias, 0.2, math.sqrt(2.0), clamp, pre_next)
+        out = E.modconv_epilogue(*args)
+        ref = E.modconv_epilogue_plain(*args)
+        torch.cuda.synchronize()
+        # both sides compute in f32 and round once; bf16 storage allows one bf16 ulp
+        rtol = 2.0**-7 if dtype == torch.bfloat16 else 1e-5
+        diff = (out.float() - ref.float()).abs()
+        ok = bool((diff <= rtol * ref.float().abs() + 1e-6).all())
+        err = float(diff.max())
+        worst = max(worst, err)
+        if not ok:
+            raise AssertionError(f"epilogue {label} disagrees with its plain version: max abs err {err}")
+        nbytes = 2 * z.numel() * z.element_size() + (noise.numel() * 4 if noise is not None else 0) \
+            + 4 * (post.numel() + bias.numel() + (pre_next.numel() if pre else 0))
+        bound_ms = max(nbytes / HBM_BYTES_PER_S, 8 * z.numel() / F32_FLOPS) * 1e3
+        ms = cuda_time_ms(lambda: E.modconv_epilogue(*args))
+        plain_ms = cuda_time_ms(lambda: E.modconv_epilogue_plain(*args))
+        rows.append({"case": label, "shape": [b, c, h, w], "dtype": str(dtype).split(".")[-1],
+                     "noise": None if not nb else [nb, g], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bytes": nbytes})
+        if label.startswith("b") and label[1:].isdigit():
+            reps = num_conv[int(label[1:])]
+            batch_ms += reps * ms
+            batch_plain_ms += reps * plain_ms
+            batch_bound_ms += reps * bound_ms
+    E.reset_launches()  # the comparison launches do not count
+    for r in rows:
+        print(json.dumps({"epilogue": r}), flush=True)
+    return {"max_abs_err": worst, "frame_batch_ms": batch_ms, "frame_batch_plain_ms": batch_plain_ms,
+            "frame_batch_bound_ms": batch_bound_ms}
+
+
+def run_e2e(tmp: str, repo: str):
+    import numpy as np
+    import torch
+
+    from maua_tpu_torch.audiovisual.generate import generate_audiovisual_from_patch
+    from maua_tpu_torch.kernels import epilogue as E
+
+    wav = os.path.join(tmp, "mix.wav")
+    synth_wav(wav)
+    patch_file = os.path.join(repo, "maua_tpu_torch", "audiovisual", "patches", "examples", "stylegan2.py")
+    stages = {}
+    E.reset_launches()
+    video, _ = generate_audiovisual_from_patch(
+        wav, None, patch_file, renderer="memmap", renderer_kwargs={"batch_size": BATCH}, fps=FPS,
+        out_size=(1024, 1024), device="cuda", stylegan_kwargs={"seed": 0}, stage_times=stages)
+    launches = E.launches
+    n_frames = round(SECONDS * FPS)
+    if video.shape != (n_frames, 1024, 1024, 3) or video.dtype != np.uint8:
+        raise AssertionError(f"frames {video.shape} {video.dtype}, want ({n_frames}, 1024, 1024, 3) uint8")
+    if video.min() == video.max():
+        raise AssertionError("the rendered frames are constant")
+    if np.all(video[0] == video[-1]):
+        raise AssertionError("the first and last frames are identical: no modulation reached the frames")
+    batches = math.ceil(n_frames / BATCH)
+    if launches != 17 * batches:
+        raise AssertionError(f"epilogue launched {launches} times, want 17 x {batches} render batches")
+    return {"frames": list(video.shape), "render_batches": batches, "epilogue_launches": launches,
+            "stage_seconds": stages, "render_fps": n_frames / stages["render"],
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def profile_render_batch():
+    """One render batch (8 frames at 1024^2, with noise and motion) under
+    torch.profiler: device time by kernel, the epilogue's share, and the
+    device's idle share of the batch's wall time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from maua_tpu_torch.gan.wrappers import StyleGAN2
+
+    model = StyleGAN2(device="cuda", seed=0)
+    ws = model.get_w_latents(f"0-{BATCH}")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    noises = model.make_noise_pyramid(torch.randn(BATCH, 1, 64, 64, generator=gen, device="cuda"))
+    motion = dict(translation=torch.full((BATCH, 2), 0.05, device="cuda"),
+                  zoom=torch.full((BATCH,), 0.9, device="cuda"), rotation=torch.full((BATCH,), 3.0, device="cuda"))
+
+    def batch():
+        img = model.synthesizer(ws, noises=noises, **motion)
+        return ((img + 1.0) * 127.5).clamp(0, 255).to(torch.uint8).permute(0, 2, 3, 1).cpu()
+
+    batch()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        batch()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device-side events only (kernels, copies): an operator's row repeats its kernels' time
+    kernels = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    device_ms = sum(ms for _, ms, _ in kernels)
+    if device_ms == 0:
+        return {"wall_ms": wall_ms, "device_ms": "not measured"}
+    kernels.sort(key=lambda k: -k[1])
+    epilogue_ms = sum(ms for name, ms, _ in kernels if "epilogue" in name)
+    return {"wall_ms": wall_ms, "device_ms": device_ms, "idle_share": max(0.0, 1 - device_ms / wall_ms),
+            "epilogue_ms": epilogue_ms, "epilogue_share": epilogue_ms / device_ms,
+            "top": [{"kernel": name[:90], "ms": ms, "count": n, "share": ms / device_ms}
+                    for name, ms, n in kernels[:12]]}
+
+
+def card_vs_cpu():
+    import numpy as np
+    import torch
+
+    from maua_tpu_torch.gan.stylegan2 import SG2Config
+    from maua_tpu_torch.gan.wrappers import StyleGAN2
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    cfg = SG2Config(dtype="float32")
+    card = StyleGAN2(cfg=cfg, device="cuda", seed=0)
+    cpu = StyleGAN2(cfg=cfg, params=card.params, device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    noise = torch.randn(1, 1, 64, 64, generator=gen)
+    inputs = dict(translation=torch.tensor([[0.05, 0.0]]), zoom=torch.tensor([0.9]), rotation=torch.tensor([3.0]))
+
+    def frame(model):
+        dev = model.device
+        ws = model.get_w_latents("7")
+        kw = {k: v.to(dev) for k, v in inputs.items()}
+        noises = model.make_noise_pyramid(noise.to(dev))
+        img = model.synthesizer(ws, noises=noises, **kw)
+        return ((img + 1) * 127.5).clamp(0, 255).to(torch.uint8).cpu().numpy().astype(np.float64)
+
+    a, b = frame(card), frame(cpu)
+    mse = float(np.mean((a - b) ** 2))
+    psnr = 10 * math.log10(255.0**2 / max(mse, 1e-12))
+    if psnr < 40.0:
+        raise AssertionError(f"card vs CPU frame PSNR {psnr:.2f} dB < 40 dB")
+    return {"psnr_db": psnr, "max_abs_diff": float(np.abs(a - b).max())}
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    repo = os.path.dirname(os.path.abspath(__file__))
+    try:
+        from maua_tpu_torch.kernels import build
+    except ImportError as e:
+        print(f"chip_smoke: the maua_tpu_torch package is missing beside this script ({e})", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
+        return 2
+
+    card = nvidia_smi()
+    kind = torch.cuda.get_device_name(0)
+    phase("device", lambda: {"nvidia_smi": card, "torch": torch.__version__, "cuda": torch.version.cuda,
+                             "count": torch.cuda.device_count()})
+    phase("build", lambda: {"library": str(build.build("epilogue")), "ptxas": build.PTXAS_REPORT.get("epilogue", "")})
+    kernel = phase("kernel", check_epilogue)
+    with tempfile.TemporaryDirectory() as tmp:
+        e2e = phase("e2e", lambda: run_e2e(tmp, repo))
+    phase("profile", profile_render_batch)
+    phase("reference", card_vs_cpu)
+
+    record = {"kernels": [{
+        "name": "modconv_epilogue",
+        "route": "cuda",
+        "source": "maua_tpu_torch/csrc/epilogue.cu",
+        "replaces": "maua_tpu/kernels/epilogue.py:112",
+        "launches": e2e["epilogue_launches"],
+        "max_abs_err": kernel["max_abs_err"],
+        "ms": kernel["frame_batch_ms"],
+        "plain_ms": kernel["frame_batch_plain_ms"],
+        "bound_ms": kernel["frame_batch_bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "scope": f"the 17 launches of one 1024^2 frame batch of {BATCH}",
+    }]}
+    print(card)
+    print(json.dumps(record))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,84 @@
+"""Chromagrams from the CQT and their nearest-neighbour smoothing.
+
+Port of `maua_tpu/audio/chroma.py` (chroma_cqt, chroma_cens,
+nn_filter_cosine_median) with librosa's semantics.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .constantq import cqt
+from .convert import cq_to_chroma, note_to_hz
+
+
+def _normalize_cols(x: torch.Tensor, norm: float = np.inf, dim: int = 0) -> torch.Tensor:
+    if norm == np.inf:
+        mag = x.abs().amax(dim=dim, keepdim=True)
+    elif norm == 1:
+        mag = x.abs().sum(dim=dim, keepdim=True)
+    else:
+        mag = x.square().sum(dim=dim, keepdim=True).sqrt()
+    return x / mag.clamp_min(1e-10)
+
+
+def chroma_cqt(y: torch.Tensor, sr: float = 22050, hop_length: int = 512, fmin: Optional[float] = None,
+               n_chroma: int = 12, n_octaves: int = 7, bins_per_octave: int = 36) -> torch.Tensor:
+    """CQT chromagram (n_chroma, T)."""
+    if fmin is None:
+        fmin = note_to_hz("C1")
+    n_bins = n_octaves * bins_per_octave
+    C = cqt(y, sr=sr, hop_length=hop_length, fmin=fmin, n_bins=n_bins, bins_per_octave=bins_per_octave).abs()
+    proj = torch.as_tensor(cq_to_chroma(n_bins, bins_per_octave=bins_per_octave, n_chroma=n_chroma, fmin=fmin),
+                           device=y.device)
+    return _normalize_cols(proj @ C)
+
+
+def chroma_cens(y: torch.Tensor, sr: float = 22050, hop_length: int = 512, fmin: Optional[float] = None,
+                n_chroma: int = 12, n_octaves: int = 7, bins_per_octave: int = 36,
+                win_len_smooth: int = 41) -> torch.Tensor:
+    """Chroma Energy Normalized Statistics: l1-normalize, quantize, smooth with Hann."""
+    chroma = chroma_cqt(y, sr=sr, hop_length=hop_length, fmin=fmin, n_chroma=n_chroma,
+                        n_octaves=n_octaves, bins_per_octave=bins_per_octave)
+    chroma = _normalize_cols(chroma, norm=1)
+    steps = torch.tensor([0.4, 0.2, 0.1, 0.05], device=y.device)
+    quant = ((chroma[None] > steps[:, None, None]) * 0.25).sum(dim=0)
+    win = np.hanning(win_len_smooth + 2)[1:-1]
+    win = win / win.sum()
+    r = len(win) // 2
+    qp = F.pad(quant, (r, len(win) - 1 - r))
+    # the same sum as the JAX function, window tap by tap, in its order
+    smoothed = sum(qp[:, i : i + quant.shape[1]] * float(win[i]) for i in range(len(win)))
+    return _normalize_cols(smoothed, norm=2)
+
+
+def _median_last(x: torch.Tensor) -> torch.Tensor:
+    """Median over the last axis; an even count averages the two middle values."""
+    k = x.shape[-1]
+    srt = x.sort(dim=-1).values
+    if k % 2:
+        return srt[..., k // 2]
+    return 0.5 * (srt[..., k // 2 - 1] + srt[..., k // 2])
+
+
+def nn_filter_cosine_median(x: torch.Tensor, k: Optional[int] = None, chunk: int = 2048) -> torch.Tensor:
+    """Replace each frame of x (d, T) by the median of its k most
+    cosine-similar other frames (librosa.decompose.nn_filter), in row
+    chunks so the (T, T) similarity never exists whole."""
+    d, t = x.shape
+    if k is None:
+        k = min(t - 1, int(2 * np.ceil(np.sqrt(t))))
+    xn = x / x.norm(dim=0, keepdim=True).clamp_min(1e-10)
+    out = []
+    for r0 in range(0, t, chunk):
+        rows = xn[:, r0 : r0 + chunk].t()  # (c, d)
+        sim = rows @ xn  # (c, T)
+        idx = torch.arange(rows.shape[0], device=x.device)
+        sim[idx, r0 + idx] -= 2.0  # exclude self
+        nbr = sim.topk(k, dim=1).indices  # (c, k)
+        out.append(_median_last(x[:, nbr]))  # (d, c)
+    return torch.cat(out, dim=1)

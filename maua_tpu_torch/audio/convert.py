@@ -1,0 +1,103 @@
+"""Unit conversions and filterbanks used by the audio features.
+
+Port of the parts of `maua_tpu/audio/convert.py` that the audio-reactive
+path needs: power_to_db / amplitude_to_db, hz_to_octs, hz_to_midi,
+note_to_hz, fft_frequencies, cqt_frequencies and the chroma
+filterbanks. Filterbanks are numpy (host constants).
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Optional
+
+import numpy as np
+import torch
+
+
+def power_to_db(magnitude: torch.Tensor, ref_value=1.0, amin=1e-10, top_db: Optional[float] = 80.0) -> torch.Tensor:
+    log_spec = 10.0 * torch.log10(magnitude.clamp_min(amin))
+    log_spec = log_spec - 10.0 * np.log10(max(amin, ref_value))
+    if top_db is not None:
+        log_spec = torch.maximum(log_spec, log_spec.max() - top_db)
+    return log_spec
+
+
+def amplitude_to_db(magnitude: torch.Tensor, ref_value=1.0, amin=1e-5, top_db: Optional[float] = 80.0) -> torch.Tensor:
+    return power_to_db(magnitude.square(), ref_value=ref_value**2, amin=amin**2, top_db=top_db)
+
+
+def hz_to_octs(frequencies, tuning: float = 0.0, bins_per_octave: int = 12) -> np.ndarray:
+    A440 = 440.0 * 2.0 ** (tuning / bins_per_octave)
+    return np.log2(np.asarray(frequencies, np.float64) / (A440 / 16.0))
+
+
+def hz_to_midi(frequencies):
+    return 12.0 * (np.log2(np.asarray(frequencies, np.float64)) - np.log2(440.0)) + 69.0
+
+
+def midi_to_hz(notes):
+    return 440.0 * 2.0 ** ((np.asarray(notes, np.float64) - 69.0) / 12.0)
+
+
+_NOTE_MAP = {"C": 0, "D": 2, "E": 4, "F": 5, "G": 7, "A": 9, "B": 11}
+
+
+def note_to_midi(note: str) -> float:
+    """Parse notes like 'C1', 'A#4', 'Db3' (octave -1 starts at midi 0)."""
+    m = re.match(r"^([A-Ga-g])([#b♯♭!]*)(-?\d+)?$", note)
+    if not m:
+        raise ValueError(f"bad note {note!r}")
+    pitch = _NOTE_MAP[m.group(1).upper()]
+    for acc in m.group(2):
+        pitch += 1 if acc in "#♯" else -1
+    octave = int(m.group(3)) if m.group(3) is not None else 0
+    return 12 * (octave + 1) + pitch
+
+
+def note_to_hz(note: str) -> float:
+    return float(midi_to_hz(note_to_midi(note)))
+
+
+def fft_frequencies(sr: float, n_fft: int) -> np.ndarray:
+    return np.linspace(0, sr / 2, 1 + n_fft // 2)
+
+
+def cqt_frequencies(n_bins: int, fmin: float, bins_per_octave: int = 12, tuning: float = 0.0) -> np.ndarray:
+    correction = 2.0 ** (tuning / bins_per_octave)
+    return correction * fmin * 2.0 ** (np.arange(n_bins) / bins_per_octave)
+
+
+def chroma_filterbank(sr: float, n_fft: int, n_chroma: int = 12, tuning: float = 0.0, ctroct: float = 5.0,
+                      octwidth: float = 2.0, base_c: bool = True) -> np.ndarray:
+    """STFT-bin -> chroma projection (librosa.filters.chroma)."""
+    frequencies = np.linspace(0, sr, n_fft, endpoint=False)[1:]
+    frqbins = n_chroma * hz_to_octs(frequencies, tuning=tuning, bins_per_octave=n_chroma)
+    frqbins = np.concatenate(([frqbins[0] - 1.5 * n_chroma], frqbins))
+    binwidthbins = np.concatenate((np.maximum(frqbins[1:] - frqbins[:-1], 1.0), [1]))
+    D = np.subtract.outer(frqbins, np.arange(0, n_chroma, dtype="d")).T
+    n_chroma2 = np.round(float(n_chroma) / 2)
+    D = np.remainder(D + n_chroma2 + 10 * n_chroma, n_chroma) - n_chroma2
+    wts = np.exp(-0.5 * (2 * D / np.tile(binwidthbins, (n_chroma, 1))) ** 2)
+    wts /= np.sqrt(np.sum(wts**2, axis=0, keepdims=True))
+    if octwidth is not None:
+        wts *= np.tile(np.exp(-0.5 * (((frqbins / n_chroma - ctroct) / octwidth) ** 2)), (n_chroma, 1))
+    if base_c:
+        wts = np.roll(wts, -3 * (n_chroma // 12), axis=0)
+    return np.ascontiguousarray(wts[:, : int(1 + n_fft / 2)], dtype=np.float32)
+
+
+def cq_to_chroma(n_input: int, bins_per_octave: int = 12, n_chroma: int = 12, fmin: Optional[float] = None,
+                 base_c: bool = True) -> np.ndarray:
+    """CQT-bin -> chroma aggregation matrix."""
+    n_merge = float(bins_per_octave) / n_chroma
+    if fmin is None:
+        fmin = note_to_hz("C1")
+    cq_to_ch = np.repeat(np.eye(n_chroma), int(round(n_merge)), axis=1)
+    cq_to_ch = np.roll(cq_to_ch, -int(n_merge // 2), axis=1)
+    n_octaves = int(np.ceil(float(n_input) / bins_per_octave))
+    cq_to_ch = np.tile(cq_to_ch, (1, n_octaves))[:, :n_input]
+    midi_0 = hz_to_midi(fmin) % 12
+    roll = midi_0 if base_c else midi_0 - 9
+    roll = int(np.round(roll * (n_chroma / 12.0)))
+    return np.roll(cq_to_ch, roll, axis=0).astype(np.float32)

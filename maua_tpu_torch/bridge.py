@@ -1,0 +1,47 @@
+"""Convert StyleGAN2 parameters between the JAX package's pytree and the port.
+
+The JAX pytree (numpy arrays, as `maua_tpu.gan.stylegan2.init_params`
+makes them and `jax.device_get` returns them) keeps conv weights HWIO,
+fc weights (in, out) and the 4x4 const (H, W, C). The port keeps conv
+weights OIHW, fc weights (out, in) and the const (C, H, W). Noise
+buffers (`noise_const` (H, W), `noise_strength` ()), biases and
+`w_avg` carry over unchanged. Neither direction imports JAX.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+# leaf name -> axis permutation from the JAX layout to the port's
+_TO_TORCH = {"weight": (3, 2, 0, 1), "w": (1, 0), "const": (2, 0, 1)}
+
+
+def _walk(tree: Dict, fn) -> Dict:
+    return {k: _walk(v, fn) if isinstance(v, dict) else fn(k, v) for k, v in tree.items()}
+
+
+def params_to_torch(jax_params: Dict, device: Optional[torch.device | str] = None) -> Dict:
+    """JAX SG2 pytree (numpy or array-likes) -> the port's dict of f32 tensors."""
+
+    def conv(name, v):
+        a = np.asarray(v, dtype=np.float32)
+        if name in _TO_TORCH:
+            a = a.transpose(_TO_TORCH[name])
+        return torch.from_numpy(np.array(a, order="C")).to(device)
+
+    return _walk(jax_params, conv)
+
+
+def params_to_jax(torch_params: Dict) -> Dict:
+    """The port's dict of tensors -> a JAX-layout pytree of numpy arrays."""
+
+    def conv(name, v):
+        a = v.detach().float().cpu().numpy()
+        if name in _TO_TORCH:
+            a = a.transpose(np.argsort(_TO_TORCH[name]))
+        return np.array(a, order="C")
+
+    return _walk(torch_params, conv)

@@ -1,0 +1,71 @@
+"""Build the package's CUDA sources into shared libraries, bound with ctypes.
+
+Each source under `maua_tpu_torch/csrc/` exports plain C functions and
+includes no PyTorch header, so `nvcc` compiles it in seconds. The
+library is built at first use into `maua_tpu_torch/_build/` (listed in
+`.gitignore`), named by a hash of the source and the flags, so an edited
+source is rebuilt and an unchanged one is loaded as it is.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17", "-shared",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_LOCK = threading.Lock()
+_LIBS: Dict[str, ctypes.CDLL] = {}
+# nvcc's register/shared-memory report (-Xptxas -v) of each build, by source name
+PTXAS_REPORT: Dict[str, str] = {}
+
+
+def find_nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and os.path.exists(os.path.join(cand, "bin", "nvcc")):
+            return os.path.join(cand, "bin", "nvcc")
+    nvcc = shutil.which("nvcc")
+    if nvcc is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH to build the CUDA kernels")
+    return nvcc
+
+
+def library_path(name: str) -> Path:
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
+
+
+def build(name: str) -> Path:
+    """Compile csrc/<name>.cu unless the library for this source exists."""
+    out = library_path(name)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}\n{proc.stderr}")
+    PTXAS_REPORT[name] = "\n".join(
+        line for line in (proc.stdout + proc.stderr).splitlines() if "ptxas" in line)
+    os.replace(tmp, out)
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load csrc/<name>.cu once per process."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build(name)))
+            _LIBS[name] = lib
+        return lib

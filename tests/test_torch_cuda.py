@@ -1,0 +1,62 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+
+Every test here carries the `cuda` marker and skips, from a fixture,
+where there is no CUDA device. This file imports neither JAX nor
+maua_tpu, so it runs on a machine without them:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+Tolerances: one bf16 ulp (rtol 2^-7) for bf16 storage, since kernel and
+plain version compute in f32 and round once; rtol 1e-5 in f32, where
+only the kernel's fused multiply-add differs.
+"""
+
+import pytest
+import torch
+
+from maua_tpu_torch.kernels import epilogue as E
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,noise_shape,use_pre,clamp", [
+    ((8, 32, 64, 64), (1, 1, 64, 64), False, 256.0),
+    ((8, 32, 64, 64), (8, 1, 64, 64), True, None),
+    ((2, 128, 16, 16), (2, 8, 16, 16), True, 256.0),
+    ((3, 5, 7, 9), (3, 1, 7, 9), False, 256.0),  # H*W not a multiple of 8: the scalar path
+    ((2, 16, 8, 8), None, False, 256.0),
+])
+def test_epilogue_kernel_matches_plain(cuda_device, dtype, shape, noise_shape, use_pre, clamp):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    b, c = shape[:2]
+    z = (torch.randn(*shape, generator=gen, device=cuda_device) * 4).to(dtype)
+    post = torch.rand(b, c, generator=gen, device=cuda_device) + 0.5
+    noise = None if noise_shape is None else torch.randn(*noise_shape, generator=gen, device=cuda_device)
+    bias = torch.randn(c, generator=gen, device=cuda_device)
+    pre = torch.rand(b, c, generator=gen, device=cuda_device) + 0.5 if use_pre else None
+    E.reset_launches()
+    out = E.modconv_epilogue(z, post, noise, bias, clamp=clamp, pre_next=pre)
+    torch.cuda.synchronize()
+    assert E.launches == 1
+    ref = E.modconv_epilogue_plain(z, post, noise, bias, clamp=clamp, pre_next=pre)
+    rtol = 2.0**-7 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(out.float(), ref.float(), rtol=rtol, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_epilogue_kernel_rejects_what_it_does_not_take(cuda_device):
+    z = torch.randn(2, 4, 8, 8, device=cuda_device)
+    post, bias = torch.ones(2, 4, device=cuda_device), torch.zeros(4, device=cuda_device)
+    with pytest.raises(TypeError):
+        E.modconv_epilogue(z.half(), post, None, bias)
+    with pytest.raises(ValueError):
+        E.modconv_epilogue(z.transpose(2, 3), post, None, bias)
+    with pytest.raises(ValueError):
+        E.modconv_epilogue(z, post.cpu(), None, bias)

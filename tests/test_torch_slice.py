@@ -1,0 +1,249 @@
+"""The whole audio-reactive slice, the port against maua_tpu, and the
+port's isolation from JAX.
+
+A 2 s synthetic wav and a 64^2 StyleGAN2 with narrow channels (random
+parameters in the JAX package's pytree, brought over by the bridge) go through
+`generate_audiovisual_from_patch` with each package's `ExampleSG2Patch`
+and the memmap renderer. The JAX example draws its noise from
+`jax.random`; the same draws are injected into the port's example
+through its `base_noise` method. Envelopes agree to 2e-3 (onsets) and
+1e-4 (loudness, chroma); frames must reach 40 dB PSNR (measured ~68 dB
+here, the rest is f32 roundoff and uint8 rounding).
+"""
+
+import math
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+from scipy.io import wavfile
+
+from maua_tpu.gan import stylegan2
+
+REPO = Path(__file__).resolve().parents[1]
+KW = dict(img_resolution=64, channel_base=256, channel_max=32, z_dim=32, w_dim=32, mapping_layers=2)
+SR = 22050
+
+
+def random_jax_params(cfg, seed):
+    """Random SG2 parameters in maua_tpu's pytree: the shapes of
+    `init_params` (traced abstractly, nothing compiled or drawn by JAX)
+    filled from numpy, with nonzero biases, w_avg and noise strengths so
+    that every term of a layer is exercised."""
+    rs = np.random.RandomState(seed)
+    shapes = jax.eval_shape(lambda: stylegan2.init_params(jax.random.PRNGKey(0), cfg))
+
+    def fill(path, leaf):
+        keys = [p.key for p in path]
+        if keys[-1] == "noise_strength":
+            return np.float32(rs.uniform(0.5, 1.5))
+        a = rs.randn(*leaf.shape).astype(np.float32)
+        if keys[-1] in ("b", "bias", "w_avg"):
+            return a * np.float32(0.1) + np.float32(keys[-2] == "affine")
+        if keys[0] == "mapping" and keys[-1] == "w":
+            return a / np.float32(cfg.mapping_lr_multiplier)
+        return a
+
+    return jax.tree_util.tree_map_with_path(fill, shapes)
+
+
+def synth(seconds=2.0, sr=SR, seed=0):
+    rs = np.random.RandomState(seed)
+    t = np.arange(int(sr * seconds)) / sr
+    y = 0.3 * np.sin(2 * np.pi * 440 * t) + 0.2 * np.sin(2 * np.pi * 55 * t)
+    n = int(0.1 * sr)
+    env = np.exp(-np.arange(n) / (0.02 * sr))
+    for b in np.arange(0, seconds, 0.5):
+        i = int(b * sr)
+        y[i : i + n] += 0.8 * np.sin(2 * np.pi * 60 * np.arange(n) / sr) * env
+        j = int((b + 0.25) * sr)
+        if j + n <= len(y):
+            y[j : j + n] += 0.3 * rs.randn(n) * env
+    return (y / np.abs(y).max() * 0.9).astype(np.float32)
+
+
+INJECTED_PATCH = '''
+import numpy as np
+import torch
+
+from maua_tpu_torch.audiovisual.patches.examples.stylegan2 import ExampleSG2Patch
+
+
+class Injected(ExampleSG2Patch):
+    instances = []
+
+    def process_audio(self):
+        super().process_audio()
+        Injected.instances.append(self)
+
+    def base_noise(self, n):
+        z = np.load({path!r})
+        return [torch.from_numpy(z[k]).to(self.device) for k in ("slow", "fast", "jitter")]
+'''
+
+
+@pytest.fixture(scope="module")
+def slice_runs(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("slice")
+    wav = str(tmp / "mix.wav")
+    wavfile.write(wav, SR, synth())
+
+    from maua_tpu import utility
+    from maua_tpu.audio import io as jax_io
+    from maua_tpu.audiovisual import generate as jax_generate
+    from maua_tpu.audiovisual.patches import base as jax_base
+    from maua_tpu_torch import bridge
+    from maua_tpu_torch.audiovisual.generate import generate_audiovisual_from_patch
+    from maua_tpu_torch.gan.stylegan2 import SG2Config
+
+    cfg = stylegan2.SG2Config(**KW)
+    params = random_jax_params(cfg, 1)
+
+    # the JAX package caches decoded audio and synthesis plans under its
+    # workspace: point it at the test's directory
+    mp = pytest.MonkeyPatch()
+    jax_patches = []
+    try:
+        mp.setattr(utility, "WORKSPACE", str(tmp))
+        mp.setattr(jax_io, "WORKSPACE", str(tmp))
+        jax_sg2 = jax_base.StyleGAN2
+        mp.setattr(jax_base, "StyleGAN2", lambda *a, **k: jax_sg2(*a, cfg=cfg, params=params, **k))
+        get_patch = jax_generate.get_patch_from_file
+
+        def recording_patch(*a, **k):
+            cls = get_patch(*a, **k)
+
+            class Recorded(cls):
+                def process_audio(self):
+                    super().process_audio()
+                    jax_patches.append(self)
+
+            return Recorded
+
+        mp.setattr(jax_generate, "get_patch_from_file", recording_patch)
+        video_jax, _ = jax_generate.generate_audiovisual_from_patch(
+            wav, None, str(REPO / "maua_tpu/audiovisual/patches/examples/stylegan2.py"), renderer="memmap",
+            out_size=(64, 64))
+    finally:
+        mp.undo()
+
+    n = video_jax.shape[0]
+    k1, k2, k3 = jax.random.split(jax.random.PRNGKey(0), 3)
+    noise_path = str(tmp / "noise.npz")
+    np.savez(noise_path,
+             slow=np.asarray(jax.random.normal(k1, (n, 64, 64, 1))).transpose(0, 3, 1, 2),
+             fast=np.asarray(jax.random.normal(k2, (n, 64, 64, 1))).transpose(0, 3, 1, 2),
+             jitter=np.asarray(jax.random.normal(k3, (n,))))
+    patch_file = tmp / "injected.py"
+    patch_file.write_text(INJECTED_PATCH.format(path=noise_path))
+    stages = {}
+    video_torch, (audio, sr) = generate_audiovisual_from_patch(
+        wav, None, str(patch_file), patch_name="Injected", renderer="memmap", out_size=(64, 64), device="cpu",
+        stylegan_kwargs=dict(cfg=SG2Config(**KW), params=bridge.params_to_torch(params)), stage_times=stages)
+    torch_patch = sys.modules["maua_torch_user_patch_injected"].Injected.instances[-1]
+    return dict(video_jax=video_jax, video_torch=video_torch, jax_patch=jax_patches[-1], torch_patch=torch_patch,
+                stages=stages, audio=audio, sr=sr)
+
+
+def test_slice_frames_match_jax(slice_runs):
+    a = slice_runs["video_jax"].astype(np.float64)
+    b = slice_runs["video_torch"]
+    assert b.shape == a.shape == (48, 64, 64, 3) and b.dtype == np.uint8
+    mse = np.mean((a - b.astype(np.float64)) ** 2)
+    psnr = 10 * math.log10(255.0**2 / max(mse, 1e-12))
+    assert psnr >= 40.0, psnr
+    assert b.min() < b.max()
+
+
+@pytest.mark.parametrize("name,tol", [("kick_onsets", 2e-3), ("snare_onsets", 2e-3), ("drum_onsets", 2e-3),
+                                      ("bass_rms", 1e-4), ("vocal_rms", 1e-4), ("vocal_chroma", 1e-4),
+                                      ("other_chroma", 1e-4)])
+def test_slice_envelopes_match_jax(slice_runs, name, tol):
+    ref = np.asarray(getattr(slice_runs["jax_patch"], name))
+    out = getattr(slice_runs["torch_patch"], name).numpy()
+    assert out.shape == ref.shape
+    np.testing.assert_allclose(out, ref, rtol=0, atol=tol)
+
+
+def test_slice_records_stage_times(slice_runs):
+    assert set(slice_runs["stages"]) == {"audio_features", "mapper", "modulation", "render"}
+    assert slice_runs["sr"] == SR and isinstance(slice_runs["audio"], torch.Tensor)
+
+
+def test_cli_parses_the_reference_flags(tmp_path, monkeypatch, capsys):
+    from maua_tpu_torch.__main__ import main
+    from maua_tpu_torch.audiovisual import generate
+    from maua_tpu_torch.ops import video
+
+    calls = {}
+
+    def fake_generate(**kw):
+        calls.update(kw)
+        return np.zeros((2, 8, 8, 3), np.uint8), (None, SR)
+
+    monkeypatch.setattr(generate, "generate_audiovisual_from_patch", fake_generate)
+    monkeypatch.setattr(video, "write_video", lambda *a, **k: calls.setdefault("written", a[1]))
+    main(["audiovisual", "generate", "--audio_file", "song.wav", "--patch_file", "p.py", "--renderer", "memmap",
+          "--out_size", "64,32", "--out_dir", str(tmp_path), "--device", "cpu", "--fps", "12"])
+    assert calls["device"] == "cpu" and calls["out_size"] == (64, 32) and calls["fps"] == 12
+    assert calls["written"].endswith("song_None_stretch_64x32.mp4")
+    assert capsys.readouterr().out.strip() == calls["written"]
+    with pytest.raises(SystemExit):
+        main(["gan", "generate"])
+
+
+def test_generate_needs_a_card_unless_told_otherwise(monkeypatch):
+    from maua_tpu_torch.audiovisual.generate import generate_audiovisual_from_patch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        generate_audiovisual_from_patch("missing.wav", None, "missing.py", renderer="memmap")
+
+
+def test_port_imports_neither_jax_nor_maua_tpu():
+    """Import every module of the port, and chip_smoke.py, in a fresh
+    interpreter; neither jax nor any maua_tpu module may be loaded."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import maua_tpu_torch\n"
+        "for m in pkgutil.walk_packages(maua_tpu_torch.__path__, 'maua_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
+        "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.') or k == 'maua_tpu'"
+        " or k.startswith('maua_tpu.')]\n"
+        "assert not bad, bad\n"
+        "print(sum(k.startswith('maua_tpu_torch') for k in sys.modules))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 20
+
+
+def test_port_sources_name_no_jax():
+    files = list((REPO / "maua_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    for f in files:
+        for line in f.read_text().splitlines():
+            words = line.strip().split()
+            if words[:1] in (["import"], ["from"]) and len(words) > 1:
+                root = words[1].split(".")[0]
+                assert root not in ("jax", "jaxlib", "flax", "maua_tpu"), f"{f}: {line}"
+
+
+def test_chip_smoke_fails_without_a_card_or_without_the_package(tmp_path):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    if not torch.cuda.is_available():
+        out = subprocess.run([sys.executable, str(REPO / "chip_smoke.py")], cwd=REPO, env=env,
+                             capture_output=True, text=True, timeout=300)
+        assert out.returncode != 0 and out.stdout == "" and "CUDA" in out.stderr
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text((REPO / "chip_smoke.py").read_text())
+    out = subprocess.run([sys.executable, str(alone)], cwd=tmp_path, env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode != 0 and out.stdout == "" and "maua_tpu_torch" in out.stderr
