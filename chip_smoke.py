@@ -6,22 +6,32 @@
 Phases, each printed as one JSON line with its elapsed seconds:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA.
-2. build: nvcc builds every CUDA kernel of the path from the sources
-   under maua_tpu_torch/csrc into maua_tpu_torch/_build.
+2. build: nvcc builds every CUDA kernel of the paths from the sources
+   under maua_tpu_torch/csrc into maua_tpu_torch/_build, all at once.
 3. kernel: the modulated-conv epilogue kernel against its plain PyTorch
    version at every epilogue shape of a 1024^2 StyleGAN2 frame batch of
    8, in each layer's dtype, plus its option cases at one shape; CUDA
    event times beside the memory-bytes bound and the plain version.
-4. e2e: the audio-reactive video (ExampleSG2Patch, memmap renderer) of a
+4. flrelu: the filtered-lrelu kernel against its plain PyTorch version
+   at the 13 shapes of a 1024^2 StyleGAN3 frame batch, in bf16 at batch
+   8 with the affines synthesis passes and in f32 at batch 1, plus its
+   option cases; CUDA event times beside the bound and the plain version.
+5. e2e: the audio-reactive video (ExampleSG2Patch, memmap renderer) of a
    3 s synthetic wav made from a seed, at 24 fps, through a random-init
    full-width StyleGAN2 (config-f, 1024^2, bf16 top resolutions), with
-   the launch counts reset just before and read just after.
-5. profile: one render batch under torch.profiler, device time by
-   kernel and the device's idle share.
-6. reference: one frame of the same net in f32 with TF32 off, on the
-   card with the kernel and on the CPU with the plain version, PSNR.
+   the epilogue's launch count reset just before and read just after.
+6. sg3_e2e: the same wav through ExampleSG3Patch and a random-init
+   full-width StyleGAN3 (config T, 1024^2, bf16 trunk), with the
+   filtered-lrelu launch count reset just before and read just after.
+7. profile, sg3_profile: one render batch of each net under
+   torch.profiler, device time by kernel and the device's idle share.
+8. reference, sg3_reference: one frame of each net in f32 with TF32 off,
+   on the card with the kernels and on the CPU with the plain versions,
+   PSNR (StyleGAN3 at 256^2, to bound the CPU's time).
 
-Any failure exits non-zero. It needs one CUDA card and writes only to a
+`--phases a,b` runs only the named phases after device and build (for
+iterating on one kernel); with no arguments every phase runs. Any
+failure exits non-zero. It needs one CUDA card and writes only to a
 temporary directory and to the kernel build directory. The last two
 lines are the kernels' JSON record and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -166,22 +176,121 @@ def check_epilogue():
             "frame_batch_bound_ms": batch_bound_ms}
 
 
-def run_e2e(tmp: str, repo: str):
+def flrelu_macs(b: int, c: int, h: int, w: int, up: int) -> int:
+    """Multiply-adds of the direct separable polyphase form for one call:
+    up-FIR along H (6 per tmp row sample at the input width), along W (6
+    per tmp sample), down-FIR along W (12 per sample at the output width)
+    and along H (12 per output sample)."""
+    ht, wt, ho, wo = h * up, w * up, h * up // 2, w * up // 2
+    return b * c * (ht * w * 6 + ht * wt * 6 + ht * wo * 12 + ho * wo * 12)
+
+
+def flrelu_cases():
+    """(label, B, C, H, W, up, up_f, down_f, dtype, pre, post) of the 13
+    filtered-lrelu launches of one 1024^2 StyleGAN3 frame batch in bf16
+    at batch 8, the same 13 in f32 at batch 1, then the option cases."""
+    import torch
+
+    from maua_tpu_torch.gan.stylegan3 import SG3Config, resample_plan
+
+    cfg = SG3Config(dtype="bfloat16")
+    _, _, _, _, sizes, channels = cfg.layer_plan()
+    plan = resample_plan(cfg)
+    cases = []
+    for dtype, b in ((torch.bfloat16, BATCH), (torch.float32, 1)):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        for i, (up, _, up_f, down_f, _) in enumerate(plan):
+            s = int(sizes[i])
+            cases.append((f"L{i}-{tag}", b, int(channels[i + 1]), s, s, up, up_f, down_f, dtype, True, True))
+    up, _, up_f, down_f, _ = plan[8]  # 276^2 -> 552^2, 128 channels
+    for label, pre, post in (("no-affines", False, False), ("pre-only", True, False), ("post-only", False, True)):
+        cases.append((label, BATCH, 128, 276, 276, up, up_f, down_f, torch.bfloat16, pre, post))
+    for up in (2, 4):
+        _, _, up_f, down_f, _ = next(p for p in plan if p[0] == up)
+        cases.append((f"odd-up{up}", 3, 5, 37, 45, up, up_f, down_f, torch.float32, True, True))
+    return cases
+
+
+def check_flrelu():
+    """The filtered-lrelu kernel against its plain version. Tolerances:
+    f32 1e-4 absolute (summation order; outputs are O(10)); bf16 one bf16
+    ulp of the plain version's value (2^-7 relative) plus that f32
+    allowance, since both compute in f32 from the same input and round once."""
+    import torch
+
+    from maua_tpu_torch.kernels import filtered_lrelu as FL
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows, worst = [], 0.0
+    batch = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "ops_bound_ms": 0.0}
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):  # the plain version's convs in full f32
+        for label, b, c, h, w, up, up_f, down_f, dtype, pre, post in flrelu_cases():
+            def rnd(*shape):
+                return torch.randn(*shape, generator=gen, device="cuda")
+
+            x = (rnd(b, c, h, w) * 4).to(dtype)
+            kw = {}
+            if pre:
+                kw = dict(pre_scale=torch.rand(b, c, generator=gen, device="cuda") + 0.5, pre_add=rnd(b, c) * 0.1)
+            if post:
+                kw["post_scale"] = torch.rand(b, c, generator=gen, device="cuda") + 0.5
+            out = FL.filtered_lrelu(x, up_f, down_f, up, 2, **kw)
+            ref = FL.filtered_lrelu_plain(x, up_f, down_f, up, 2, **kw)
+            torch.cuda.synchronize()
+            if out.shape != ref.shape or out.dtype != ref.dtype:
+                raise AssertionError(f"flrelu {label}: {tuple(out.shape)} {out.dtype} vs {tuple(ref.shape)} {ref.dtype}")
+            diff = (out.float() - ref.float()).abs()
+            rtol = 2.0**-7 if dtype == torch.bfloat16 else 0.0
+            ok = bool((diff <= rtol * ref.float().abs() + 1e-4).all())
+            err = float(diff.max())
+            worst = max(worst, err)
+            if not ok:
+                raise AssertionError(f"flrelu {label} disagrees with its plain version: max abs err {err}")
+            del ref, diff, out
+            # read x once, write y (up^2 / 4 times x's size) once, and the per-plane scalars
+            nbytes = x.numel() * x.element_size() * (1 + up * up // 4) + 4 * b * c * len(kw)
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            macs = flrelu_macs(b, c, h, w, up)
+            ops_ms = 2 * macs / F32_FLOPS * 1e3
+            ms = cuda_time_ms(lambda: FL.filtered_lrelu(x, up_f, down_f, up, 2, **kw))
+            plain_ms = cuda_time_ms(lambda: FL.filtered_lrelu_plain(x, up_f, down_f, up, 2, **kw), iters=3)
+            bound_ms = max(bytes_ms, ops_ms)
+            rows.append({"case": label, "shape": [b, c, h, w], "up": up, "dtype": str(dtype).split(".")[-1],
+                         "affines": sorted(kw), "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                         "bytes": nbytes, "macs": macs})
+            if label.endswith("-bf16"):
+                batch["ms"] += ms
+                batch["plain_ms"] += plain_ms
+                batch["bound_ms"] += bound_ms
+                batch["ops_bound_ms"] += bound_ms if ops_ms > bytes_ms else 0.0
+            del x
+            torch.cuda.empty_cache()
+    FL.reset_launches()  # the comparison launches do not count
+    for r in rows:
+        print(json.dumps({"flrelu": r}), flush=True)
+    # the batch's bound is the sum of its calls' bounds; name the kind that makes up most of it
+    return {"max_abs_err": worst, **{f"frame_batch_{k}": v for k, v in batch.items()},
+            "bound_by": "operations" if 2 * batch["ops_bound_ms"] > batch["bound_ms"] else "bytes"}
+
+
+def render_video(wav: str, repo: str, example: str, kernel_module, per_batch: int, stylegan_kwargs: dict):
+    """Render the example patch over the wav on the card through the
+    normal entry point; the kernel's launch count is reset just before
+    and must be `per_batch` times the render batches just after."""
     import numpy as np
     import torch
 
     from maua_tpu_torch.audiovisual.generate import generate_audiovisual_from_patch
-    from maua_tpu_torch.kernels import epilogue as E
 
-    wav = os.path.join(tmp, "mix.wav")
-    synth_wav(wav)
-    patch_file = os.path.join(repo, "maua_tpu_torch", "audiovisual", "patches", "examples", "stylegan2.py")
+    patch_file = os.path.join(repo, "maua_tpu_torch", "audiovisual", "patches", "examples", example)
     stages = {}
-    E.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    kernel_module.reset_launches()
     video, _ = generate_audiovisual_from_patch(
         wav, None, patch_file, renderer="memmap", renderer_kwargs={"batch_size": BATCH}, fps=FPS,
-        out_size=(1024, 1024), device="cuda", stylegan_kwargs={"seed": 0}, stage_times=stages)
-    launches = E.launches
+        out_size=(1024, 1024), device="cuda", stylegan_kwargs=stylegan_kwargs, stage_times=stages)
+    launches = kernel_module.launches
     n_frames = round(SECONDS * FPS)
     if video.shape != (n_frames, 1024, 1024, 3) or video.dtype != np.uint8:
         raise AssertionError(f"frames {video.shape} {video.dtype}, want ({n_frames}, 1024, 1024, 3) uint8")
@@ -190,11 +299,26 @@ def run_e2e(tmp: str, repo: str):
     if np.all(video[0] == video[-1]):
         raise AssertionError("the first and last frames are identical: no modulation reached the frames")
     batches = math.ceil(n_frames / BATCH)
-    if launches != 17 * batches:
-        raise AssertionError(f"epilogue launched {launches} times, want 17 x {batches} render batches")
-    return {"frames": list(video.shape), "render_batches": batches, "epilogue_launches": launches,
+    if launches != per_batch * batches:
+        raise AssertionError(f"{kernel_module.__name__} launched {launches} times, "
+                             f"want {per_batch} x {batches} render batches")
+    return {"frames": list(video.shape), "render_batches": batches, "launches": launches,
             "stage_seconds": stages, "render_fps": n_frames / stages["render"],
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def run_e2e(wav: str, repo: str):
+    from maua_tpu_torch.kernels import epilogue as E
+
+    return render_video(wav, repo, "stylegan2.py", E, 17, {"seed": 0})
+
+
+def run_sg3_e2e(wav: str, repo: str):
+    from maua_tpu_torch.gan.stylegan3 import SG3Config
+    from maua_tpu_torch.kernels import filtered_lrelu as FL
+
+    cfg = SG3Config(img_resolution=1024, dtype="bfloat16")
+    return render_video(wav, repo, "stylegan3.py", FL, cfg.num_layers - 1, {"cfg": cfg, "seed": 0})
 
 
 def profile_render_batch():
@@ -202,8 +326,6 @@ def profile_render_batch():
     torch.profiler: device time by kernel, the epilogue's share, and the
     device's idle share of the batch's wall time."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from maua_tpu_torch.gan.wrappers import StyleGAN2
 
@@ -217,6 +339,36 @@ def profile_render_batch():
     def batch():
         img = model.synthesizer(ws, noises=noises, **motion)
         return ((img + 1.0) * 127.5).clamp(0, 255).to(torch.uint8).permute(0, 2, 3, 1).cpu()
+
+    return profile_batch(batch, "epilogue")
+
+
+def profile_sg3_render_batch():
+    """One StyleGAN3 render batch (8 frames at 1024^2, bf16 trunk, each
+    frame with its own translation and rotation) under torch.profiler."""
+    import numpy as np
+    import torch
+
+    from maua_tpu_torch.gan.stylegan3 import SG3Config, StyleGAN3
+
+    model = StyleGAN3(cfg=SG3Config(dtype="bfloat16"), device="cuda", seed=0)
+    ws = model.mapper(model.get_z_latents(f"0-{BATCH}"))
+    translation = torch.linspace(0, 0.1, BATCH)[:, None].repeat(1, 2)
+    rotation = torch.linspace(0, 10, BATCH)
+
+    def batch():
+        return np.stack(list(model.render(ws, translation, rotation, batch_size=BATCH)))
+
+    return profile_batch(batch, "flrelu")
+
+
+def profile_batch(batch, marker: str):
+    """Run `batch` once to warm up, then once under torch.profiler: device
+    time by kernel, the share of kernels whose name holds `marker`, and
+    the device's idle share of the batch's wall time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
     batch()
     torch.cuda.synchronize()
@@ -232,9 +384,9 @@ def profile_render_batch():
     if device_ms == 0:
         return {"wall_ms": wall_ms, "device_ms": "not measured"}
     kernels.sort(key=lambda k: -k[1])
-    epilogue_ms = sum(ms for name, ms, _ in kernels if "epilogue" in name)
+    marked_ms = sum(ms for name, ms, _ in kernels if marker in name)
     return {"wall_ms": wall_ms, "device_ms": device_ms, "idle_share": max(0.0, 1 - device_ms / wall_ms),
-            "epilogue_ms": epilogue_ms, "epilogue_share": epilogue_ms / device_ms,
+            f"{marker}_ms": marked_ms, f"{marker}_share": marked_ms / device_ms,
             "top": [{"kernel": name[:90], "ms": ms, "count": n, "share": ms / device_ms}
                     for name, ms, n in kernels[:12]]}
 
@@ -272,6 +424,41 @@ def card_vs_cpu():
     return {"psnr_db": psnr, "max_abs_diff": float(np.abs(a - b).max())}
 
 
+def sg3_card_vs_cpu():
+    """One f32 StyleGAN3 frame (256^2: both up kinds, a bounded CPU time)
+    with translation and rotation, on the card with the kernel and on
+    the CPU with the plain version, TF32 off."""
+    import numpy as np
+    import torch
+
+    from maua_tpu_torch.gan.stylegan3 import SG3Config, StyleGAN3
+    from maua_tpu_torch.kernels import filtered_lrelu as FL
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    cfg = SG3Config(img_resolution=256, dtype="float32")
+    card = StyleGAN3(cfg=cfg, device="cuda", seed=0)
+    cpu = StyleGAN3(cfg=cfg, params=card.params, device="cpu")
+    ws = card.mapper(card.get_z_latents("7"))
+
+    def frame(model):
+        img = model.synthesizer(ws.to(model.device), translation=(0.05, 0.0), rotation=3.0)
+        return ((img.clamp(-1, 1) + 1) * 127.5).clamp(0, 255).to(torch.uint8).cpu().numpy().astype(np.float64)
+
+    FL.reset_launches()
+    a = frame(card)
+    launches = FL.launches
+    b = frame(cpu)
+    if launches != cfg.num_layers - 1:
+        raise AssertionError(f"the card's frame launched filtered_lrelu {launches} times, want {cfg.num_layers - 1}")
+    mse = float(np.mean((a - b) ** 2))
+    psnr = 10 * math.log10(255.0**2 / max(mse, 1e-12))
+    if psnr < 40.0:
+        raise AssertionError(f"StyleGAN3 card vs CPU frame PSNR {psnr:.2f} dB < 40 dB")
+    return {"psnr_db": psnr, "max_abs_diff": float(np.abs(a - b).max()), "resolution": cfg.img_resolution}
+
+
 def main() -> int:
     try:
         import torch
@@ -288,30 +475,77 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
         return 2
 
+    phases = None
+    if sys.argv[1:2] == ["--phases"] and len(sys.argv) == 3:
+        phases = set(sys.argv[2].split(","))
+    elif sys.argv[1:]:
+        print("usage: chip_smoke.py [--phases kernel,flrelu,e2e,sg3_e2e,profile,sg3_profile,reference,"
+              "sg3_reference]", file=sys.stderr)
+        return 2
+
+    def want(name):
+        return phases is None or name in phases
+
     card = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
     phase("device", lambda: {"nvidia_smi": card, "torch": torch.__version__, "cuda": torch.version.cuda,
                              "count": torch.cuda.device_count()})
-    phase("build", lambda: {"library": str(build.build("epilogue")), "ptxas": build.PTXAS_REPORT.get("epilogue", "")})
-    kernel = phase("kernel", check_epilogue)
-    with tempfile.TemporaryDirectory() as tmp:
-        e2e = phase("e2e", lambda: run_e2e(tmp, repo))
-    phase("profile", profile_render_batch)
-    phase("reference", card_vs_cpu)
 
+    def build_all():
+        from concurrent.futures import ThreadPoolExecutor
+
+        names = ("epilogue", "filtered_lrelu")
+        with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source, all started together
+            libs = list(pool.map(build.build, names))
+        return {"libraries": [str(p) for p in libs], "ptxas": {n: build.PTXAS_REPORT.get(n, "") for n in names}}
+
+    phase("build", build_all)
+    results = {}
+    for name, fn in (("kernel", check_epilogue), ("flrelu", check_flrelu)):
+        if want(name):
+            results[name] = phase(name, fn)
+    with tempfile.TemporaryDirectory() as tmp:
+        wav = os.path.join(tmp, "mix.wav")
+        synth_wav(wav)
+        for name, fn in (("e2e", run_e2e), ("sg3_e2e", run_sg3_e2e)):
+            if want(name):
+                results[name] = phase(name, lambda: fn(wav, repo))
+                torch.cuda.empty_cache()
+    for name, fn in (("profile", profile_render_batch), ("sg3_profile", profile_sg3_render_batch),
+                     ("reference", card_vs_cpu), ("sg3_reference", sg3_card_vs_cpu)):
+        if want(name):
+            results[name] = phase(name, fn)
+            torch.cuda.empty_cache()
+    if phases is not None:
+        return 0  # a partial run prints no record
+
+    kernel, flrelu = results["kernel"], results["flrelu"]
     record = {"kernels": [{
         "name": "modconv_epilogue",
         "route": "cuda",
         "source": "maua_tpu_torch/csrc/epilogue.cu",
         "replaces": "maua_tpu/kernels/epilogue.py:112",
-        "launches": e2e["epilogue_launches"],
+        "launches": results["e2e"]["launches"],
         "max_abs_err": kernel["max_abs_err"],
         "ms": kernel["frame_batch_ms"],
         "plain_ms": kernel["frame_batch_plain_ms"],
         "bound_ms": kernel["frame_batch_bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
-        "scope": f"the 17 launches of one 1024^2 frame batch of {BATCH}",
+        "scope": f"the 17 launches of one 1024^2 StyleGAN2 frame batch of {BATCH}",
+    }, {
+        "name": "filtered_lrelu",
+        "route": "cuda",
+        "source": "maua_tpu_torch/csrc/filtered_lrelu.cu",
+        "replaces": "maua_tpu/kernels/filtered_lrelu.py:361",
+        "launches": results["sg3_e2e"]["launches"],
+        "max_abs_err": flrelu["max_abs_err"],
+        "ms": flrelu["frame_batch_ms"],
+        "plain_ms": flrelu["frame_batch_plain_ms"],
+        "bound_ms": flrelu["frame_batch_bound_ms"],
+        "bound_by": flrelu["bound_by"],
+        "library_ms": None,
+        "scope": f"the 13 launches of one 1024^2 StyleGAN3 frame batch of {BATCH} in bf16",
     }]}
     print(card)
     print(json.dumps(record))

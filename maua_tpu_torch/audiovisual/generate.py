@@ -39,10 +39,10 @@ def generate_audiovisual_from_patch(
     """Render a patch over an audio file. Returns (video, (audio, sr)):
     the frames array for "memmap", the output path for "ffmpeg".
 
-    `stylegan_kwargs` go to the patch's StyleGAN2 (cfg, params, dtype,
-    seed); `stage_times`, when given, receives the seconds of each stage
-    (audio_features, mapper, modulation, render), each ending in a
-    device synchronization."""
+    `stylegan_kwargs` go to the patch's StyleGAN2 or StyleGAN3 (cfg,
+    params, seed; dtype for StyleGAN2); `stage_times`, when given,
+    receives the seconds of each stage (audio_features, mapper,
+    modulation, render), each ending in a device synchronization."""
     device = resolve_device(device)
     renderer_kwargs = dict(renderer_kwargs or {})
     patch = get_patch_from_file(patch_file, patch_name)(
@@ -69,8 +69,9 @@ def generate_audiovisual_from_patch(
     renderer_kwargs.setdefault("fps", patch.fps)
     if renderer == "ffmpeg":
         renderer_kwargs.setdefault("audio_file", patch.audio_file)
+    model = getattr(patch, "stylegan2", None) or getattr(patch, "stylegan3", None)
     video = stage("render", lambda: get_output_class(renderer)(**renderer_kwargs)(
-        patch.stylegan2.render, synthesizer_inputs, patch.process_outputs))
+        model.render, synthesizer_inputs, patch.process_outputs))
     print("audiovisual stages: " + ", ".join(f"{k} {v:.2f}s" for k, v in stage_t.items()), file=sys.stderr)
     return video, (patch.audio, patch.sr)
 

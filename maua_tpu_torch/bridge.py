@@ -1,11 +1,15 @@
-"""Convert StyleGAN2 parameters between the JAX package's pytree and the port.
+"""Convert StyleGAN2 and StyleGAN3 parameters between the JAX package's
+pytree and the port.
 
 The JAX pytree (numpy arrays, as `maua_tpu.gan.stylegan2.init_params`
-makes them and `jax.device_get` returns them) keeps conv weights HWIO,
-fc weights (in, out) and the 4x4 const (H, W, C). The port keeps conv
-weights OIHW, fc weights (out, in) and the const (C, H, W). Noise
-buffers (`noise_const` (H, W), `noise_strength` ()), biases and
-`w_avg` carry over unchanged. Neither direction imports JAX.
+and `maua_tpu.gan.stylegan3.init_params` make them and `jax.device_get`
+returns them) keeps conv weights HWIO, fc weights (in, out) and the 4x4
+const (H, W, C). The port keeps conv weights OIHW, fc weights (out, in)
+and the const (C, H, W). Everything else carries over unchanged: noise
+buffers (`noise_const` (H, W), `noise_strength` ()), biases, `w_avg`,
+and StyleGAN3's `freqs` (C, 2), `phases`, `transform` (3, 3) and
+`magnitude_ema` (). StyleGAN3's `layers` is a list of layer dicts and
+stays a list. Neither direction imports JAX.
 """
 
 from __future__ import annotations
@@ -19,12 +23,18 @@ import torch
 _TO_TORCH = {"weight": (3, 2, 0, 1), "w": (1, 0), "const": (2, 0, 1)}
 
 
-def _walk(tree: Dict, fn) -> Dict:
-    return {k: _walk(v, fn) if isinstance(v, dict) else fn(k, v) for k, v in tree.items()}
+def _walk(tree, fn, name: Optional[str] = None):
+    """Apply fn(leaf name, leaf) over nested dicts and lists; a list's
+    items keep the name of the list's own key."""
+    if isinstance(tree, dict):
+        return {k: _walk(v, fn, k) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_walk(v, fn, name) for v in tree]
+    return fn(name, tree)
 
 
 def params_to_torch(jax_params: Dict, device: Optional[torch.device | str] = None) -> Dict:
-    """JAX SG2 pytree (numpy or array-likes) -> the port's dict of f32 tensors."""
+    """JAX SG2 or SG3 pytree (numpy or array-likes) -> the port's dict of f32 tensors."""
 
     def conv(name, v):
         a = np.asarray(v, dtype=np.float32)

@@ -327,5 +327,10 @@ class StyleGAN2:
             lo = hi
 
 
-def _to_device(tree: Dict, device) -> Dict:
-    return {k: _to_device(v, device) if isinstance(v, dict) else v.to(device) for k, v in tree.items()}
+def _to_device(tree, device):
+    """A parameter tree (nested dicts and lists of tensors) on `device`."""
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_device(v, device) for v in tree]
+    return tree.to(device)

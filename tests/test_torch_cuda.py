@@ -8,13 +8,18 @@ maua_tpu, so it runs on a machine without them:
 
 Tolerances: one bf16 ulp (rtol 2^-7) for bf16 storage, since kernel and
 plain version compute in f32 and round once; rtol 1e-5 in f32, where
-only the kernel's fused multiply-add differs.
+only the kernel's fused multiply-add differs. The filtered lrelu sums
+some 70 products per output in another order than the plain version's
+convolutions: 1e-4 absolute in f32 on outputs of magnitude ~10, and
+that allowance on top of one bf16 ulp in bf16.
 """
 
 import pytest
 import torch
 
+from maua_tpu_torch.gan.stylegan3 import _lowpass
 from maua_tpu_torch.kernels import epilogue as E
+from maua_tpu_torch.kernels import filtered_lrelu as FL
 
 
 @pytest.fixture
@@ -60,3 +65,46 @@ def test_epilogue_kernel_rejects_what_it_does_not_take(cuda_device):
         E.modconv_epilogue(z.transpose(2, 3), post, None, bias)
     with pytest.raises(ValueError):
         E.modconv_epilogue(z, post.cpu(), None, bias)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,up,affines", [
+    ((2, 8, 36, 36), 2, ("pre_scale", "pre_add", "post_scale")),
+    ((2, 8, 36, 36), 4, ("pre_scale", "pre_add", "post_scale")),
+    ((1, 3, 37, 45), 4, ("pre_scale",)),  # odd, non-square: masked tile edges
+    ((3, 2, 70, 33), 2, ("post_scale",)),
+    ((2, 4, 64, 64), 4, ()),  # exact tiles
+])
+def test_filtered_lrelu_kernel_matches_plain(cuda_device, dtype, shape, up, affines):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    b, c = shape[:2]
+    up_f = _lowpass(6 * up, 100.0, 80.0, 1024.0)
+    down_f = _lowpass(12, 100.0, 80.0, 1024.0)
+    x = (torch.randn(*shape, generator=gen, device=cuda_device) * 4).to(dtype)
+    kw = {k: torch.rand(b, c, generator=gen, device=cuda_device) + 0.5 for k in affines}
+    FL.reset_launches()
+    out = FL.filtered_lrelu(x, up_f, down_f, up, 2, **kw)
+    torch.cuda.synchronize()
+    assert FL.launches == 1
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):  # the plain version's convs in full f32
+        ref = FL.filtered_lrelu_plain(x, up_f, down_f, up, 2, **kw)
+    assert out.shape == ref.shape == (b, c, shape[2] * up // 2, shape[3] * up // 2) and out.dtype == dtype
+    rtol = 2.0**-7 if dtype == torch.bfloat16 else 0.0
+    torch.testing.assert_close(out.float(), ref.float(), rtol=rtol, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_filtered_lrelu_kernel_rejects_what_it_does_not_take(cuda_device):
+    up_f, down_f = _lowpass(12, 100.0, 80.0, 1024.0), _lowpass(12, 100.0, 80.0, 1024.0)
+    x = torch.randn(2, 4, 8, 8, device=cuda_device)
+    with pytest.raises(TypeError):
+        FL.filtered_lrelu(x.half(), up_f, down_f, 2, 2)
+    with pytest.raises(ValueError):
+        FL.filtered_lrelu(x.transpose(2, 3), up_f, down_f, 2, 2)
+    with pytest.raises(ValueError):
+        FL.filtered_lrelu(x, up_f, down_f, 2, 2, post_scale=torch.ones(2, 4))
+    with pytest.raises(ValueError):
+        FL.filtered_lrelu(x, up_f, down_f, 3, 2)
+    with pytest.raises(ValueError):
+        FL.filtered_lrelu(x, up_f, down_f, 2, 1)

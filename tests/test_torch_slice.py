@@ -1,5 +1,5 @@
-"""The whole audio-reactive slice, the port against maua_tpu, and the
-port's isolation from JAX.
+"""The whole audio-reactive slice, with StyleGAN2 and with StyleGAN3, the
+port against maua_tpu, and the port's isolation from JAX.
 
 A 2 s synthetic wav and a 64^2 StyleGAN2 with narrow channels (random
 parameters in the JAX package's pytree, brought over by the bridge) go through
@@ -9,6 +9,14 @@ and the memmap renderer. The JAX example draws its noise from
 through its `base_noise` method. Envelopes agree to 2e-3 (onsets) and
 1e-4 (loudness, chroma); frames must reach 40 dB PSNR (measured ~68 dB
 here, the rest is f32 roundoff and uint8 rounding).
+
+The StyleGAN3 slice runs the same way with each package's
+`ExampleSG3Patch` and the 64^2 config of tests/test_stylegan3.py
+(parameters from `maua_tpu.gan.stylegan3.init_params`). That recipe
+draws no random numbers, so both sides get the same inputs. Frames must
+reach 40 dB PSNR. The per-frame latents agree to 5e-3: they blend
+latents of magnitude up to ~2 with the onset envelope, which agrees to
+2e-3; measured 1.5e-3 here.
 """
 
 import math
@@ -23,10 +31,12 @@ import pytest
 import torch
 from scipy.io import wavfile
 
-from maua_tpu.gan import stylegan2
+from maua_tpu.gan import stylegan2, stylegan3
 
 REPO = Path(__file__).resolve().parents[1]
 KW = dict(img_resolution=64, channel_base=256, channel_max=32, z_dim=32, w_dim=32, mapping_layers=2)
+SG3_KW = dict(z_dim=32, w_dim=32, img_resolution=64, channel_base=1024, channel_max=64, num_layers=6,
+              mapping_layers=2, margin_size=4)
 SR = 22050
 
 
@@ -173,6 +183,89 @@ def test_slice_envelopes_match_jax(slice_runs, name, tol):
 def test_slice_records_stage_times(slice_runs):
     assert set(slice_runs["stages"]) == {"audio_features", "mapper", "modulation", "render"}
     assert slice_runs["sr"] == SR and isinstance(slice_runs["audio"], torch.Tensor)
+
+
+def _recording(get_patch, store):
+    """Wrap a get_patch_from_file so that the patch classes it returns
+    keep their synthesizer inputs."""
+    def wrapped(*a, **k):
+        cls = get_patch(*a, **k)
+
+        class Recorded(cls):
+            def process_synthesizer_inputs(self, latent_w):
+                out = super().process_synthesizer_inputs(latent_w)
+                store.append(out)
+                return out
+
+        return Recorded
+
+    return wrapped
+
+
+@pytest.fixture(scope="module")
+def sg3_slice(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("slice_sg3")
+    wav = str(tmp / "mix.wav")
+    wavfile.write(wav, SR, synth())
+
+    from maua_tpu import utility
+    from maua_tpu.audio import io as jax_io
+    from maua_tpu.audiovisual import generate as jax_generate
+    from maua_tpu_torch import bridge
+    from maua_tpu_torch.audiovisual import generate as torch_generate
+    from maua_tpu_torch.gan.stylegan3 import SG3Config
+    from maua_tpu_torch.kernels import filtered_lrelu as FL
+
+    cfg = stylegan3.SG3Config(**SG3_KW)
+    params = jax.device_get(stylegan3.init_params(jax.random.PRNGKey(1), cfg))
+    jax_inputs, torch_inputs = [], []
+    mp = pytest.MonkeyPatch()
+    try:
+        mp.setattr(utility, "WORKSPACE", str(tmp))
+        mp.setattr(jax_io, "WORKSPACE", str(tmp))
+        jax_sg3 = stylegan3.StyleGAN3
+        mp.setattr(stylegan3, "StyleGAN3", lambda *a, **k: jax_sg3(*a, **{**k, "cfg": cfg, "params": params}))
+        mp.setattr(jax_generate, "get_patch_from_file", _recording(jax_generate.get_patch_from_file, jax_inputs))
+        mp.setattr(torch_generate, "get_patch_from_file",
+                   _recording(torch_generate.get_patch_from_file, torch_inputs))
+        video_jax, _ = jax_generate.generate_audiovisual_from_patch(
+            wav, None, str(REPO / "maua_tpu/audiovisual/patches/examples/stylegan3.py"), renderer="memmap",
+            out_size=(64, 64))
+        stages = {}
+        FL.reset_launches()
+        video_torch, _ = torch_generate.generate_audiovisual_from_patch(
+            wav, None, str(REPO / "maua_tpu_torch/audiovisual/patches/examples/stylegan3.py"), renderer="memmap",
+            out_size=(64, 64), device="cpu",
+            stylegan_kwargs=dict(cfg=SG3Config(**SG3_KW), params=bridge.params_to_torch(params)),
+            stage_times=stages)
+        launches = FL.launches
+    finally:
+        mp.undo()
+    return dict(video_jax=video_jax, video_torch=video_torch, jax_inputs=jax_inputs[-1],
+                torch_inputs=torch_inputs[-1], stages=stages, launches=launches)
+
+
+def test_sg3_slice_frames_match_jax(sg3_slice):
+    a = sg3_slice["video_jax"].astype(np.float64)
+    b = sg3_slice["video_torch"]
+    assert b.shape == a.shape == (48, 64, 64, 3) and b.dtype == np.uint8
+    mse = np.mean((a - b.astype(np.float64)) ** 2)
+    psnr = 10 * math.log10(255.0**2 / max(mse, 1e-12))
+    assert psnr >= 40.0, psnr
+    assert b.min() < b.max() and not np.array_equal(b[0], b[-1])
+
+
+def test_sg3_slice_synthesizer_inputs_match_jax(sg3_slice):
+    ref, out = sg3_slice["jax_inputs"], sg3_slice["torch_inputs"]
+    assert set(out) == set(ref) == {"latent_w_plus", "translation", "rotation"}
+    for k in ref:
+        assert isinstance(out[k], torch.Tensor)
+        np.testing.assert_allclose(out[k].numpy(), np.asarray(ref[k]), rtol=0, atol=5e-3)
+
+
+def test_sg3_slice_runs_the_plain_path_on_the_cpu(sg3_slice):
+    assert sg3_slice["launches"] == 0
+    assert set(sg3_slice["stages"]) == {"audio_features", "mapper", "modulation", "render"}
 
 
 def test_cli_parses_the_reference_flags(tmp_path, monkeypatch, capsys):
