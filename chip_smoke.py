@@ -28,6 +28,19 @@ Phases, each printed as one JSON line with its elapsed seconds:
 8. reference, sg3_reference: one frame of each net in f32 with TF32 off,
    on the card with the kernels and on the CPU with the plain versions,
    PSNR (StyleGAN3 at 256^2, to bound the CPU's time).
+9. attn (after flrelu): the flash-attention kernel against its plain
+   version at the shapes and layouts of a 512^2 Stable Diffusion image
+   and two odd cases (one with peaked scores), in f32 and bf16, with CUDA
+   event times beside the bound, the plain version and
+   F.scaled_dot_product_attention (timed as a yardstick only).
+10. sd_e2e: text to image through `image_sample` at 512^2, 50 LMS steps,
+   cfg 5.0, random-init full-width SD 1.x in f32, with the attention
+   kernel's launch count reset just before and read just after (501).
+11. sd_steps, sd_profile: CFG denoiser steps/s at 512^2 with a bf16 UNet
+   (bench_diffusion.py's metric), and one step of each dtype under
+   torch.profiler.
+12. sd_reference: the same random SD on the card and on the CPU, f32 with
+   TF32 off, 256^2, 2 LMS steps and a decode, image PSNR.
 
 `--phases a,b` runs only the named phases after device and build (for
 iterating on one kernel); with no arguments every phase runs. Any
@@ -49,6 +62,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
+BF16_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense
 FPS = 24
 SECONDS = 3.0
 SR = 22050
@@ -274,6 +288,92 @@ def check_flrelu():
             "bound_by": "operations" if 2 * batch["ops_bound_ms"] > batch["bound_ms"] else "bytes"}
 
 
+ATTN_SHAPES = (  # (label, B, H, N, D, layout, q scale): the kernel's calls on a 512^2 SD image, then odd cases
+    # the UNet hands the kernel (B, H, N, D) views of its (B, N, H * D) linears; the VAE a contiguous copy
+    ("unet-l1", 2, 8, 1024, 80, "bnhd", 1.0),  # UNet self-attention at 32^2 latents, 640 channels, CFG batch 2
+    ("unet-l2", 2, 8, 256, 160, "bnhd", 1.0),  # UNet self-attention at 16^2 latents, 1280 channels
+    ("vae-mid", 1, 1, 4096, 512, "bhnd", 1.0),  # the VAE decoder's mid attention at 64^2 latents
+    ("odd", 1, 3, 512, 64, "bhnd", 1.0),
+    ("peaked", 2, 8, 1024, 80, "bnhd", 4.0),  # scores of std 4: the running max moves between key tiles
+)
+# launches of each shape in one 512^2 image: 50 LMS steps x 5 of each UNet level, one decode
+ATTN_PER_IMAGE = {"unet-l1": 250, "unet-l2": 250, "vae-mid": 1}
+
+
+def attention_tolerance(ref, dtype):
+    """Elementwise bound on |kernel - plain|. f32: 1e-4 relative plus 1e-5
+    absolute (sums over up to 4096 keys in another order). bf16: one bf16
+    ulp of the output (2^-7 relative) plus 2^-5 of the output's RMS: the
+    kernel rounds p against its running row max and the plain version
+    against the final one, and those roundings, each within 2^-9 of p,
+    average over the keys to a few 2^-9 of the output's scale."""
+    import torch
+
+    ref = ref.float()
+    if dtype == torch.bfloat16:
+        return 2.0**-7 * ref.abs() + 2.0**-5 * ref.pow(2).mean().sqrt()
+    return 1e-4 * ref.abs() + 1e-5
+
+
+def check_attention():
+    """The flash-attention kernel against its plain version at the shapes
+    and layouts of a 512^2 SD image, in f32 and bf16, with the tolerance of
+    `attention_tolerance`. Bound: the larger of the bytes of q, k, v and o
+    at 3.35 TB/s and 4 B H Nq Nk D operations at 67 TFLOP/s (f32, CUDA
+    cores) or 989 TFLOP/s (bf16, tensor cores)."""
+    import torch
+    import torch.nn.functional as F
+
+    from maua_tpu_torch.kernels import attention as A
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows, worst = [], {"f32": 0.0, "bf16": 0.0}
+    image = {"f32": {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}}
+    image["bf16"] = dict(image["f32"])
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        for label, b, h, n, d, layout, q_scale in ATTN_SHAPES:
+            if layout == "bnhd":
+                q, k, v = (torch.randn(b, n, h, d, generator=gen, device="cuda").to(dtype).transpose(1, 2)
+                           for _ in range(3))
+            else:
+                q, k, v = (torch.randn(b, h, n, d, generator=gen, device="cuda").to(dtype) for _ in range(3))
+            q = (q * q_scale).to(dtype)
+            out = A.flash_attention_fused(q, k, v)
+            ref = A.flash_attention_plain(q, k, v)
+            torch.cuda.synchronize()
+            diff = (out.float() - ref.float()).abs()
+            err = float(diff.max())
+            rms = float(ref.float().pow(2).mean().sqrt())
+            worst[tag] = max(worst[tag], err)
+            if (out.shape != ref.shape or out.dtype != dtype or out.stride() != q.stride()
+                    or not bool((diff <= attention_tolerance(ref, dtype)).all())):
+                raise AssertionError(f"attention {label} {tag} disagrees with its plain version: max abs err {err}, "
+                                     f"output rms {rms}, strides {out.stride()} for q's {q.stride()}")
+            nbytes = 4 * q.numel() * q.element_size()
+            flops = 4 * b * h * n * n * d
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = flops / (BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS) * 1e3
+            ms = cuda_time_ms(lambda: A.flash_attention_fused(q, k, v))
+            plain_ms = cuda_time_ms(lambda: A.flash_attention_plain(q, k, v), iters=5)
+            library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters=20)
+            bound_ms = max(bytes_ms, ops_ms)
+            rows.append({"case": label, "shape": [b, h, n, d], "layout": layout, "dtype": tag, "max_abs_err": err,
+                         "err_over_rms": err / rms, "ms": ms,
+                         "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+                         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "share_of_bound": bound_ms / ms,
+                         "tflops": flops / ms / 1e9})
+            reps = ATTN_PER_IMAGE.get(label, 0)
+            for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms), ("library_ms", library_ms)):
+                image[tag][key] += reps * val
+            del q, k, v, out, ref, diff
+            torch.cuda.empty_cache()
+    A.reset_launches()  # the comparison launches do not count
+    for r in rows:
+        print(json.dumps({"attention": r}), flush=True)
+    return {"max_abs_err": worst["f32"], "max_abs_err_bf16": worst["bf16"], "image_f32": image["f32"], "image_bf16": image["bf16"], "bound_by": "operations"}
+
+
 def render_video(wav: str, repo: str, example: str, kernel_module, per_batch: int, stylegan_kwargs: dict):
     """Render the example patch over the wav on the card through the
     normal entry point; the kernel's launch count is reset just before
@@ -458,6 +558,172 @@ def sg3_card_vs_cpu():
         raise AssertionError(f"StyleGAN3 card vs CPU frame PSNR {psnr:.2f} dB < 40 dB")
     return {"psnr_db": psnr, "max_abs_diff": float(np.abs(a - b).max()), "resolution": cfg.img_resolution}
 
+SD_PROMPT = "a lighthouse on a cliff at dusk, oil painting"
+SD_STEPS = 50  # LMS steps of the sd_e2e image
+SD_BENCH_STEPS = 12  # CFG denoiser steps per timed call, as bench_diffusion.py counts them
+
+
+def _default_tf32():
+    """PyTorch's defaults (f32 matmuls in full f32, cuDNN convolutions in TF32);
+    the reference phases before switch both off."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    return {"matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+            "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32}
+
+
+def run_sd_e2e():
+    """Text to image through the entry point: image_sample at 512^2, 50 LMS
+    steps, cfg 5.0, a random-init full-width SD 1.x (UNet, VAE, CLIP text;
+    seed 0) in the entry point's default dtype (f32). The attention
+    kernel's launch count is reset just before and must be 501 just after:
+    10 per UNet evaluation (5 at level 1, 5 at level 2) x 50, and the
+    decoder's mid attention."""
+    import torch
+
+    from maua_tpu_torch.diffusion.image import image_sample
+    from maua_tpu_torch.kernels import attention as A
+
+    tf32 = _default_tf32()
+    torch.cuda.reset_peak_memory_stats()
+    stages = {}
+    A.reset_launches()
+    t0 = time.perf_counter()
+    img = image_sample(text=SD_PROMPT, sizes=((512, 512),), timesteps=SD_STEPS, sampler="lms", cfg_scale=5.0,
+                       device="cuda", seed=0, stage_times=stages, verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = A.launches
+    if tuple(img.shape) != (1, 512, 512, 3) or img.dtype != torch.float32 or not bool(torch.isfinite(img).all()):
+        raise AssertionError(f"image {tuple(img.shape)} {img.dtype}, want finite (1, 512, 512, 3) float32")
+    if float(img.std()) < 1e-3:
+        raise AssertionError("the image is constant")
+    want = 10 * SD_STEPS + 1
+    if launches != want:
+        raise AssertionError(f"flash attention launched {launches} times, want {want}")
+    return {"image": list(img.shape), "launches": launches, "stage_seconds": stages, "wall_seconds": wall,
+            "steps_per_s": SD_STEPS / stages["sampling"], "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "value_range": [float(img.min()), float(img.max())], **tf32}
+
+
+def _sd_step_fn(dtype: str):
+    """One CFG denoiser step at 512^2 (a 2x-batched SD 1.x UNet evaluation
+    through EpsDenoiser), random-init, as bench_diffusion.py builds it."""
+    import numpy as np
+    import torch
+
+    from maua_tpu_torch.diffusion.models import unet as U
+    from maua_tpu_torch.diffusion.samplers import make_ddpm_schedule
+    from maua_tpu_torch.diffusion.wrappers import EpsDenoiser, cfg_denoiser
+
+    cfg = U.UNetConfig(dtype=dtype)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = U.init_params(cfg, gen)
+    cond, uncond = (torch.randn(1, 77, 768, generator=gen, device="cuda") for _ in range(2))
+    model = cfg_denoiser(EpsDenoiser(lambda x, t, context=None: U.forward(params, x, t, cfg, context),
+                                     make_ddpm_schedule()), cond, uncond, 7.5)
+    x0 = torch.randn(1, 4, 64, 64, generator=gen, device="cuda") * 14.6
+    sigmas = np.linspace(14.6, 0.1, SD_BENCH_STEPS)
+
+    def run():
+        x = x0
+        for s in sigmas:
+            x = model(x, torch.full((1,), float(s), device="cuda"))
+        return x
+
+    def step():
+        return model(x0, torch.full((1,), 14.6, device="cuda"))
+
+    return run, step
+
+
+def run_sd_steps():
+    """The BASELINE metric as bench_diffusion.py defines it: CFG denoiser
+    steps/s at 512^2, bf16 UNet, batch 1, the best of 3 timed calls of 12
+    steps after a warm-up call."""
+    import torch
+
+    from maua_tpu_torch.kernels import attention as A
+
+    tf32 = _default_tf32()
+    with torch.no_grad():
+        run, _ = _sd_step_fn("bfloat16")
+        out = run()
+        torch.cuda.synchronize()
+        times = []
+        A.reset_launches()
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out = run()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError("the bf16 denoiser steps gave non-finite values")
+    if A.launches != 3 * SD_BENCH_STEPS * 10:
+        raise AssertionError(f"flash attention launched {A.launches} times in {3 * SD_BENCH_STEPS} bf16 steps")
+    return {"metric": "sd512_cfg_denoiser_steps_per_sec", "steps_per_s": SD_BENCH_STEPS / min(times),
+            "step_ms": [t / SD_BENCH_STEPS * 1e3 for t in times], "dtype": "bfloat16", **tf32}
+
+
+def profile_sd_step():
+    """One CFG denoiser step at 512^2 under torch.profiler, in f32 (the
+    sd_e2e path) and in bf16 (the sd_steps metric): device time by
+    kernel, the attention kernel's share and the device's idle share."""
+    import torch
+
+    _default_tf32()
+    out = {}
+    with torch.no_grad():
+        for dtype in ("float32", "bfloat16"):
+            _, step = _sd_step_fn(dtype)
+            out[dtype] = profile_batch(step, "flash_attention")
+            torch.cuda.empty_cache()
+    return out
+
+
+def sd_card_vs_cpu():
+    """The same random full-width SD 1.x on the card with the kernel and on
+    the CPU with the plain versions, f32 with TF32 off, at 256^2 for 2 LMS
+    steps and a decode, from the same latent noise; image PSNR (peak 2,
+    the [-1, 1] range)."""
+    import numpy as np
+    import torch
+
+    from maua_tpu_torch.diffusion.processors.stable import StableDiffusion
+    from maua_tpu_torch.kernels import attention as A
+    from maua_tpu_torch.prompt import TextPrompt
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    kw = dict(sampler="lms", timesteps=2, cfg_scale=5.0, image_size=256)
+    card = StableDiffusion(device="cuda", seed=0, **kw)
+
+    def cpu(tree):
+        return {k: cpu(v) for k, v in tree.items()} if isinstance(tree, dict) else (
+            [cpu(v) for v in tree] if isinstance(tree, list) else tree.cpu())
+
+    host = StableDiffusion(unet_params=cpu(card.unet_params), vae_params=cpu(card.vae_params),
+                           text_params=cpu(card.text_params), device="cpu", **kw)
+    noise = np.random.RandomState(0).randn(1, 32, 32, 4).astype(np.float32)
+    img = np.zeros((1, 256, 256, 3), np.float32)
+    A.reset_launches()
+    a = card(img, [TextPrompt(SD_PROMPT)], 0.0, noise=noise).cpu().numpy()
+    launches = A.launches
+    t0 = time.perf_counter()
+    b = host(img, [TextPrompt(SD_PROMPT)], 0.0, noise=noise).numpy()
+    cpu_s = time.perf_counter() - t0
+    if launches != 2 * 5 + 1:
+        raise AssertionError(f"the card's image launched flash attention {launches} times, want 11")
+    a, b = np.clip(a, -1, 1).astype(np.float64), np.clip(b, -1, 1).astype(np.float64)
+    psnr = 10 * math.log10(4.0 / max(float(np.mean((a - b) ** 2)), 1e-20))
+    if psnr < 40.0:
+        raise AssertionError(f"SD card vs CPU image PSNR {psnr:.2f} dB < 40 dB")
+    return {"psnr_db": psnr, "max_abs_diff": float(np.abs(a - b).max()), "resolution": 256, "launches": launches,
+            "cpu_seconds": cpu_s}
+
 
 def main() -> int:
     try:
@@ -479,8 +745,8 @@ def main() -> int:
     if sys.argv[1:2] == ["--phases"] and len(sys.argv) == 3:
         phases = set(sys.argv[2].split(","))
     elif sys.argv[1:]:
-        print("usage: chip_smoke.py [--phases kernel,flrelu,e2e,sg3_e2e,profile,sg3_profile,reference,"
-              "sg3_reference]", file=sys.stderr)
+        print("usage: chip_smoke.py [--phases kernel,flrelu,attn,e2e,sg3_e2e,profile,sg3_profile,reference,"
+              "sg3_reference,sd_e2e,sd_steps,sd_profile,sd_reference]", file=sys.stderr)
         return 2
 
     def want(name):
@@ -494,14 +760,14 @@ def main() -> int:
     def build_all():
         from concurrent.futures import ThreadPoolExecutor
 
-        names = ("epilogue", "filtered_lrelu")
+        names = ("epilogue", "filtered_lrelu", "attention")
         with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source, all started together
             libs = list(pool.map(build.build, names))
         return {"libraries": [str(p) for p in libs], "ptxas": {n: build.PTXAS_REPORT.get(n, "") for n in names}}
 
     phase("build", build_all)
     results = {}
-    for name, fn in (("kernel", check_epilogue), ("flrelu", check_flrelu)):
+    for name, fn in (("kernel", check_epilogue), ("flrelu", check_flrelu), ("attn", check_attention)):
         if want(name):
             results[name] = phase(name, fn)
     with tempfile.TemporaryDirectory() as tmp:
@@ -512,14 +778,15 @@ def main() -> int:
                 results[name] = phase(name, lambda: fn(wav, repo))
                 torch.cuda.empty_cache()
     for name, fn in (("profile", profile_render_batch), ("sg3_profile", profile_sg3_render_batch),
-                     ("reference", card_vs_cpu), ("sg3_reference", sg3_card_vs_cpu)):
+                     ("reference", card_vs_cpu), ("sg3_reference", sg3_card_vs_cpu), ("sd_e2e", run_sd_e2e),
+                     ("sd_steps", run_sd_steps), ("sd_profile", profile_sd_step), ("sd_reference", sd_card_vs_cpu)):
         if want(name):
             results[name] = phase(name, fn)
             torch.cuda.empty_cache()
     if phases is not None:
         return 0  # a partial run prints no record
 
-    kernel, flrelu = results["kernel"], results["flrelu"]
+    kernel, flrelu, attn = results["kernel"], results["flrelu"], results["attn"]
     record = {"kernels": [{
         "name": "modconv_epilogue",
         "route": "cuda",
@@ -546,6 +813,19 @@ def main() -> int:
         "bound_by": flrelu["bound_by"],
         "library_ms": None,
         "scope": f"the 13 launches of one 1024^2 StyleGAN3 frame batch of {BATCH} in bf16",
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "maua_tpu_torch/csrc/attention.cu",
+        "replaces": "maua_tpu/kernels/attention.py:85",
+        "launches": results["sd_e2e"]["launches"],
+        "max_abs_err": attn["max_abs_err"],
+        "ms": attn["image_f32"]["ms"],
+        "plain_ms": attn["image_f32"]["plain_ms"],
+        "bound_ms": attn["image_f32"]["bound_ms"],
+        "bound_by": attn["bound_by"],
+        "library_ms": attn["image_f32"]["library_ms"],
+        "scope": f"the {10 * SD_STEPS + 1} launches of one 512^2 {SD_STEPS}-step SD 1.x image in f32",
     }]}
     print(card)
     print(json.dumps(record))

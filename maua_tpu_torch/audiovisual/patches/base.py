@@ -3,7 +3,8 @@
 Port of `maua_tpu/audiovisual/patches/base.py` (MauaPatch,
 StyleGAN2Patch, StyleGAN3Patch, get_patch_from_file). A patch holds the
 audio as a tensor on its device and produces per-frame synthesizer
-inputs.
+inputs. `process_outputs(video)` gets each render batch as a (B, H, W, C)
+tensor in [-1, 1], the layout of maua_tpu.
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
-"""Convert StyleGAN2 and StyleGAN3 parameters between the JAX package's
-pytree and the port.
+"""Convert StyleGAN2, StyleGAN3 and diffusion (UNet, VAE, CLIP text)
+parameters between the JAX package's pytree and the port.
 
 The JAX pytree (numpy arrays, as `maua_tpu.gan.stylegan2.init_params`
 and `maua_tpu.gan.stylegan3.init_params` make them and `jax.device_get`
@@ -9,7 +9,8 @@ and the const (C, H, W). Everything else carries over unchanged: noise
 buffers (`noise_const` (H, W), `noise_strength` ()), biases, `w_avg`,
 and StyleGAN3's `freqs` (C, 2), `phases`, `transform` (3, 3) and
 `magnitude_ema` (). StyleGAN3's `layers` is a list of layer dicts and
-stays a list. Neither direction imports JAX.
+stays a list. The diffusion trees convert by rank (see
+`diffusion_params_to_torch`). Neither direction imports JAX.
 """
 
 from __future__ import annotations
@@ -52,6 +53,36 @@ def params_to_jax(torch_params: Dict) -> Dict:
         a = v.detach().float().cpu().numpy()
         if name in _TO_TORCH:
             a = a.transpose(np.argsort(_TO_TORCH[name]))
+        return np.array(a, order="C")
+
+    return _walk(torch_params, conv)
+
+
+# The diffusion trees (UNet, VAE, CLIP text) name both linear (in, out) and
+# conv (k, k, ci, co) weights "w", so they convert by rank, not by name.
+_DIFFUSION_TO_TORCH = {2: (1, 0), 4: (3, 2, 0, 1)}
+
+
+def diffusion_params_to_torch(jax_params: Dict, device: Optional[torch.device | str] = None) -> Dict:
+    """JAX UNet / VAE / CLIP-text pytree -> the port's dict of f32 tensors
+    (linear weights (out, in), conv weights OIHW)."""
+
+    def conv(name, v):
+        a = np.asarray(v, dtype=np.float32)
+        if name == "w":
+            a = a.transpose(_DIFFUSION_TO_TORCH[a.ndim])
+        return torch.from_numpy(np.array(a, order="C")).to(device)
+
+    return _walk(jax_params, conv)
+
+
+def diffusion_params_to_jax(torch_params: Dict) -> Dict:
+    """The port's diffusion dict of tensors -> a JAX-layout pytree of numpy arrays."""
+
+    def conv(name, v):
+        a = v.detach().float().cpu().numpy()
+        if name == "w":
+            a = a.transpose(np.argsort(_DIFFUSION_TO_TORCH[a.ndim]))
         return np.array(a, order="C")
 
     return _walk(torch_params, conv)

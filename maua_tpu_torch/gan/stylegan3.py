@@ -311,7 +311,8 @@ class StyleGAN3:
     ) -> Iterator[np.ndarray]:
         """Yield uint8 (H, W, C) frames, synthesized `batch_size` at a time;
         per-frame translation and rotation drive the Fourier input
-        transform. The tail batch is padded with its last frame. A device
+        transform. `postprocess` gets each batch as (B, H, W, C), the layout
+        of maua_tpu. The tail batch is padded with its last frame. A device
         out-of-memory error halves the batch and retries."""
         latents = torch.as_tensor(latent_w_plus, device=self.device)
         T = latents.shape[0]
@@ -340,10 +341,11 @@ class StyleGAN3:
                 batch_size = max(batch_size // 2, 1)
                 print(f"device OOM during render; retrying with batch_size={batch_size}")
                 continue
+            imgs = imgs.permute(0, 2, 3, 1)  # NHWC, the layout a patch's process_outputs gets in maua_tpu
             if postprocess is not None:
                 imgs = postprocess(imgs)
             frames = ((imgs.clamp(-1, 1) + 1.0) * 127.5).clamp(0, 255).to(torch.uint8)
-            yield from frames[: hi - lo].permute(0, 2, 3, 1).cpu().numpy()
+            yield from frames[: hi - lo].cpu().numpy()
             lo = hi
 
 

@@ -59,6 +59,17 @@ def _resize_plan(cfg: SG2Config, rcfg: RenderConfig):
     return rcfg.layer, target
 
 
+def _pad_index(size: int, before: int, after: int, how: str, device) -> torch.Tensor:
+    """Source indices of a 1-D pad by numpy's rules (`jnp.pad` modes reflect,
+    edge, wrap), for pads of any size: the reflection has period 2 (size - 1)."""
+    idx = torch.arange(-before, size + after, device=device)
+    if how == "reflect":
+        return W._reflect_index(idx, size)
+    if how == "circular":
+        return idx % size
+    return idx.clamp(0, size - 1)
+
+
 def _apply_strategy(x: torch.Tensor, target_hw: Tuple[int, int], strategy: str,
                     gen: Optional[torch.Generator] = None) -> torch.Tensor:
     """Feature resize or pad to target_hw; with `gen`, add channel-stat-matched noise."""
@@ -80,7 +91,9 @@ def _apply_strategy(x: torch.Tensor, target_hw: Tuple[int, int], strategy: str,
         else:  # bottom
             padding = (pad_w // 2, pad_w - pad_w // 2, 0, pad_h)
         if how in ("reflect", "replicate", "circular"):
-            out = torch.nn.functional.pad(x.float(), padding, mode=how).to(x.dtype)
+            l, r, t, b = padding
+            out = x.index_select(2, _pad_index(h, t, b, how, x.device))
+            out = out.index_select(3, _pad_index(w, l, r, how, x.device))
         else:
             out = torch.nn.functional.pad(x, padding, value=float(how))
     else:
@@ -292,7 +305,8 @@ class StyleGAN2:
         postprocess=None,
     ) -> Iterator[np.ndarray]:
         """Yield uint8 (H, W, C) frames, synthesized `batch_size` at a time.
-        The tail batch is padded with its last frame. A device
+        `postprocess` gets each batch as (B, H, W, C) in [-1, 1], the layout
+        of maua_tpu. The tail batch is padded with its last frame. A device
         out-of-memory error halves the batch and retries."""
         T = latents.shape[0]
         lo = 0
@@ -319,11 +333,11 @@ class StyleGAN2:
                 batch_size = max(batch_size // 2, 1)
                 print(f"device OOM during render; retrying with batch_size={batch_size}")
                 continue
+            imgs = imgs.permute(0, 2, 3, 1)  # NHWC, the layout a patch's process_outputs gets in maua_tpu
             if postprocess is not None:
                 imgs = postprocess(imgs)
             frames = ((imgs + 1.0) * 127.5).clamp(0, 255).to(torch.uint8)
-            frames = frames[: hi - lo].permute(0, 2, 3, 1).cpu().numpy()
-            yield from frames
+            yield from frames[: hi - lo].cpu().numpy()
             lo = hi
 
 

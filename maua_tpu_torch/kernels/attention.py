@@ -1,0 +1,175 @@
+"""Attention: the plain formulations, the flash-attention CUDA kernel and the dispatcher.
+
+Port of `maua_tpu/kernels/attention.py`. q is (B, H, Nq, D), k and v are
+(B, H, Nk, D). The dispatcher `attention` keeps the reference's routes
+exactly:
+
+- packed: D < 64, at least 2 heads, Nq == Nk <= 4096 -> `attention_packed`
+  (the TPU packed small heads into one matrix-unit tile; the function is
+  the same, so here it is plain per-head attention with the reference's
+  bf16 rounding of the scores);
+- kernel: Nq and Nk multiples of 256 and D a multiple of 8 ->
+  `flash_attention_fused` (the CUDA kernel takes D up to 512 and raises
+  beyond; no caller of the port goes past 512). The kernel reads strided
+  views such as the UNet's (B, N, H, D) linears in place; inputs without
+  a unit stride along D, such as the VAE's channel-first maps, are made
+  contiguous first;
+- everything else -> `attention_xla`.
+
+`flash_attention_fused` launches the hand-written CUDA kernel
+(`maua_tpu_torch/csrc/attention.cu`) for CUDA tensors and raises on what
+it does not take; CPU tensors take its plain PyTorch version,
+`flash_attention_plain`, which computes what the TPU kernel's bodies
+compute: f32 scores and row sums, p = exp(s - max) rounded to the input
+dtype before the p.v product, the output in q's dtype.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_HEAD_DIM = 512
+# attention_packed materialises full (B, N, N) score matrices per head;
+# above this sequence length the reference sends self-attention to the flash kernel
+_PACKED_MAX_SEQ = 4096
+
+# launches of the CUDA kernel since the last reset (the plain path does not count)
+launches = 0
+_fn = None
+
+
+def reset_launches() -> None:
+    global launches
+    launches = 0
+
+
+def _kernel():
+    global _fn
+    if _fn is None:
+        from .build import load
+
+        fn = load("attention").maua_flash_attention
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                       ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def _scale(q: torch.Tensor, scale: Optional[float]) -> float:
+    return 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
+
+
+def attention_xla(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
+    """Plain softmax attention: f32 scores, probabilities in q's dtype."""
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * _scale(q, scale)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.matmul(probs, v)
+
+
+def attention_packed(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
+    """The reference's packed-heads route, per head: scores in q's dtype,
+    scaled by the scale rounded to that dtype (JAX's weak-typed scalar),
+    softmax in f32, probabilities back in q's dtype."""
+    s = torch.matmul(q, k.transpose(-1, -2)) * torch.tensor(_scale(q, scale), dtype=q.dtype)
+    p = torch.softmax(s.float(), dim=-1).to(q.dtype)
+    return torch.matmul(p, v)
+
+
+def flash_attention_plain(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
+    """What the flash kernel computes, in plain PyTorch ops."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * _scale(q, scale)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    acc = torch.matmul(p.to(v.dtype).float(), v.float())
+    return (acc / p.sum(dim=-1, keepdim=True)).to(q.dtype)
+
+
+def _check(q, k, v):
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"q, k, v must be (B, H, N, D), got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if k.shape != v.shape or q.shape[:2] != k.shape[:2] or q.shape[3] != k.shape[3]:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} and v {tuple(v.shape)} do not match")
+
+
+def _strides(t: torch.Tensor):
+    """Batch, head and row strides in elements (0 along a dimension of size 1, whose stride is never used)."""
+    return tuple(0 if n == 1 else s for n, s in zip(t.shape[:3], t.stride()[:3]))
+
+
+def _takes_layout(t: torch.Tensor) -> bool:
+    """The kernel reads D at unit stride, other strides in multiples of 4 elements (rows under 2^24 apart),
+    from 16-byte aligned storage."""
+    strides = _strides(t)
+    return t.stride(3) == 1 and not any(s % 4 for s in strides) and strides[2] < 2**24 and t.data_ptr() % 16 == 0
+
+
+def flash_attention_fused(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
+    """softmax(q k^T * scale) v through the CUDA kernel (CPU tensors: the plain version).
+
+    q, k and v may be strided views, such as (B, N, H, D) viewed as
+    (B, H, N, D), as long as D has unit stride; the output has q's layout."""
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, scale)
+    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
+        raise ValueError(f"flash attention runs on one cuda device or on the cpu, got {q.device}, {k.device}, "
+                         f"{v.device}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash attention takes float32 or bfloat16 q, k, v of one dtype, got {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}")
+    b, h, nq, d = q.shape
+    nk = k.shape[2]
+    if nq % 256 or nk % 256 or d % 8 or d > MAX_HEAD_DIM:
+        raise ValueError(f"flash attention takes Nq, Nk multiples of 256 and D a multiple of 8 up to "
+                         f"{MAX_HEAD_DIM}, got Nq {nq}, Nk {nk}, D {d}")
+    if b * h > 65535:
+        raise ValueError(f"flash attention takes at most 65535 batch-heads, got {b * h}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not _takes_layout(t):
+            raise ValueError(f"{name} must have unit stride along D, other strides in multiples of 4, rows under "
+                             f"2^24 apart and 16-byte aligned storage, got strides {t.stride()}")
+    o = torch.empty_like(q)  # keeps q's strides where q is a permuted dense tensor
+    if not _takes_layout(o):
+        o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, o) for s in _strides(t)))
+    err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), _DTYPES[q.dtype], b, h, nq, nk, d,
+                    _scale(q, scale), strides, torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash attention kernel launch failed: error {err}")
+    global launches
+    launches += 1
+    return o
+
+
+def route(q_shape, k_shape) -> str:
+    """'packed', 'kernel' or 'plain': where `attention` sends these shapes."""
+    _, h, nq, d = q_shape
+    nk = k_shape[2]
+    if d < 64 and h >= 2 and nq == nk and nq <= _PACKED_MAX_SEQ:
+        return "packed"
+    if not (nq % 256 or nk % 256 or d % 8):
+        return "kernel"
+    return "plain"
+
+
+def _kernel_layout(t: torch.Tensor) -> torch.Tensor:
+    if _takes_layout(t):
+        return t
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def attention(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
+    """Dispatcher used by the UNet's and the VAE's attention layers."""
+    r = route(q.shape, k.shape)
+    if r == "packed":
+        return attention_packed(q, k, v, scale)
+    if r == "kernel":
+        return flash_attention_fused(_kernel_layout(q), _kernel_layout(k), _kernel_layout(v), scale)
+    return attention_xla(q, k, v, scale)

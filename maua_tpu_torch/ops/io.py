@@ -1,0 +1,59 @@
+"""Host-side image IO: PIL <-> NHWC float arrays.
+
+Port of `maua_tpu/ops/io.py` (img2tensor, tensor2img, save_image,
+load_image). Arrays are numpy NHWC float32; `save_image` takes [-1, 1]
+and also accepts a torch tensor on any device. PIL is imported inside
+the functions that read or write a file.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+
+import numpy as np
+
+
+def _pil():
+    from PIL import Image
+
+    return Image
+
+
+def _numpy(tensor) -> np.ndarray:
+    if hasattr(tensor, "detach"):
+        return tensor.detach().float().cpu().numpy()
+    return np.asarray(tensor)
+
+
+def img2tensor(pil_image, format: str = "RGB") -> np.ndarray:
+    """PIL image -> (1, H, W, C) float32 in [0, 1]."""
+    arr = np.asarray(pil_image.convert(format), dtype=np.float32) / 255.0
+    if arr.ndim == 2:
+        arr = arr[..., None]
+    return arr[None]
+
+
+def tensor2img(tensor, format: str = "RGB"):
+    """(1, H, W, C) or (H, W, C) in [0, 1] -> PIL image."""
+    arr = _numpy(tensor)
+    if arr.ndim == 4:
+        arr = arr[0]
+    arr = np.round(np.clip(arr, 0, 1) * 255).astype(np.uint8)
+    if arr.shape[-1] == 1:
+        arr = arr[..., 0]
+    return _pil().fromarray(arr, format if arr.ndim == 3 else "L").convert(format)
+
+
+def save_image(tensor, filename: str):
+    """Save a [-1, 1] NHWC image as a file."""
+    tensor2img((_numpy(tensor) + 1.0) / 2.0).save(filename)
+
+
+def load_image(im) -> np.ndarray:
+    """Path, PIL image or array -> (1, H, W, C) float32 in [0, 1]."""
+    if isinstance(im, (str, Path)):
+        return img2tensor(_pil().open(im))
+    if hasattr(im, "convert"):  # PIL image
+        return img2tensor(im)
+    arr = np.asarray(_numpy(im), dtype=np.float32)
+    return arr if arr.ndim == 4 else arr[None]

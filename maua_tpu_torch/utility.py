@@ -1,4 +1,4 @@
-"""Device selection shared by the port's entry points."""
+"""Device selection and prompt parsing shared by the port's entry points."""
 
 from __future__ import annotations
 
@@ -13,3 +13,14 @@ def resolve_device(device=None) -> torch.device:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass device='cpu' to run on the CPU")
     return device
+
+
+def parse_prompt(prompt: str):
+    """Split "text:weight" (URL-aware) into (text, weight)."""
+    if prompt.startswith("http://") or prompt.startswith("https://"):
+        vals = prompt.rsplit(":", 2)
+        vals = [vals[0] + ":" + vals[1], *vals[2:]]
+    else:
+        vals = prompt.rsplit(":", 1)
+    vals = vals + ["", "1"][len(vals) :]
+    return vals[0], float(vals[1])

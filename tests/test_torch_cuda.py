@@ -11,13 +11,18 @@ plain version compute in f32 and round once; rtol 1e-5 in f32, where
 only the kernel's fused multiply-add differs. The filtered lrelu sums
 some 70 products per output in another order than the plain version's
 convolutions: 1e-4 absolute in f32 on outputs of magnitude ~10, and
-that allowance on top of one bf16 ulp in bf16.
+that allowance on top of one bf16 ulp in bf16. Flash attention sums over
+up to 4096 keys in another order: 1e-4 relative plus 1e-5 absolute in
+f32; in bf16 one bf16 ulp plus 2^-5 of the output's RMS, since the kernel
+rounds p (each within 2^-9) against its running row max and the plain
+version against the final one, and those roundings average over the keys.
 """
 
 import pytest
 import torch
 
 from maua_tpu_torch.gan.stylegan3 import _lowpass
+from maua_tpu_torch.kernels import attention as A
 from maua_tpu_torch.kernels import epilogue as E
 from maua_tpu_torch.kernels import filtered_lrelu as FL
 
@@ -108,3 +113,65 @@ def test_filtered_lrelu_kernel_rejects_what_it_does_not_take(cuda_device):
         FL.filtered_lrelu(x, up_f, down_f, 3, 2)
     with pytest.raises(ValueError):
         FL.filtered_lrelu(x, up_f, down_f, 2, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape_q,shape_kv", [
+    ((2, 8, 1024, 80), (2, 8, 1024, 80)),  # SD 1.x 512^2: UNet self-attention, level 1
+    ((2, 8, 256, 160), (2, 8, 256, 160)),  # level 2
+    ((1, 1, 4096, 512), (1, 1, 4096, 512)),  # the VAE decoder's mid attention
+    ((1, 3, 512, 64), (1, 3, 512, 64)),  # odd batch-heads
+    ((1, 2, 256, 24), (1, 2, 768, 24)),  # Nq != Nk, D not a multiple of 16
+])
+def test_flash_attention_kernel_matches_plain(cuda_device, dtype, shape_q, shape_kv):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    q = torch.randn(*shape_q, generator=gen, device=cuda_device).to(dtype)
+    k, v = (torch.randn(*shape_kv, generator=gen, device=cuda_device).to(dtype) for _ in range(2))
+    _check_flash_attention(q, k, v)
+
+
+def _check_flash_attention(q, k, v):
+    A.reset_launches()
+    out = A.flash_attention_fused(q, k, v)
+    torch.cuda.synchronize()
+    assert A.launches == 1
+    ref = A.flash_attention_plain(q, k, v).float()
+    assert out.shape == ref.shape and out.dtype == q.dtype and out.stride() == q.stride()
+    if q.dtype == torch.bfloat16:
+        tol = 2.0**-7 * ref.abs() + 2.0**-5 * ref.pow(2).mean().sqrt()
+    else:
+        tol = 1e-4 * ref.abs() + 1e-5
+    err = (out.float() - ref).abs()
+    assert bool((err <= tol).all()), float(err.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,h,d,q_scale", [
+    (2, 1024, 8, 80, 1.0),  # SD 1.x 512^2, UNet level 1, as the UNet hands it over
+    (2, 256, 8, 160, 1.0),  # level 2
+    (2, 1024, 8, 80, 4.0),  # peaked scores: the running max moves between key tiles
+])
+def test_flash_attention_kernel_reads_the_unet_layout(cuda_device, dtype, b, n, h, d, q_scale):
+    """(B, H, N, D) views of (B, N, H * D) linears, read and written in place."""
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    q, k, v = (torch.randn(b, n, h * d, generator=gen, device=cuda_device).to(dtype).view(b, n, h, d).transpose(1, 2)
+               for _ in range(3))
+    _check_flash_attention((q * q_scale).to(dtype), k, v)
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_rejects_what_it_does_not_take(cuda_device):
+    q = torch.randn(1, 2, 256, 64, device=cuda_device)
+    with pytest.raises(TypeError):
+        A.flash_attention_fused(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError):
+        A.flash_attention_fused(q.transpose(2, 3).contiguous().transpose(2, 3), q, q)  # not contiguous
+    off_route = torch.randn(1, 2, 200, 64, device=cuda_device)
+    with pytest.raises(ValueError):
+        A.flash_attention_fused(off_route, off_route, off_route)
+    with pytest.raises(ValueError):
+        A.flash_attention_fused(q[..., :60].contiguous(), q[..., :60].contiguous(), q[..., :60].contiguous())
+    with pytest.raises(ValueError):
+        A.flash_attention_fused(q, q.cpu(), q)
