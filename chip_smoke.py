@@ -41,6 +41,23 @@ Phases, each printed as one JSON line with its elapsed seconds:
    torch.profiler.
 12. sd_reference: the same random SD on the card and on the CPU, f32 with
    TF32 off, 256^2, 2 LMS steps and a decode, image PSNR.
+13. mel (after attn): the mel-spectrogram kernel against its plain version
+   at n_fft 2048, hop 512 with 128 mels and hop 1024 with 512 mels, on 3 s
+   and 180 s signals and a batch of 4; CUDA event times beside the bound,
+   the plain version and torch.stft + the mel matmul (a yardstick only).
+14. kconv: the 3x3 conv kernel against its plain version at the last three
+   3x3 layers of a 1024^2 StyleGAN3 and RRDB's growth convs at 512^2, bf16
+   at batch 8 and f32 at batch 1; times beside the bound, the plain
+   version and cuDNN's F.conv2d. No path calls it.
+15. ar_e2e (after sg3_e2e): the mel-bearing patch (MEL_PATCH_BODY: librosa
+   onsets, tempo, pulse, segmentation, volume, STFT chroma) over the 3 s
+   wav through the full-width StyleGAN2, the epilogue's and the mel
+   kernel's launch counts reset just before and read just after.
+16. ar_features: a 180 s synthetic song (seed 1, chords changing every 8 s)
+   through every feature of that patch on the card in a fresh process,
+   per-feature seconds cold and warm, and the mel launches.
+17. ar_reference: the song's first 20 s through the features on the card
+   and on the CPU, f32 with TF32 off: envelope errors, tempo, boundaries.
 
 `--phases a,b` runs only the named phases after device and build (for
 iterating on one kernel); with no arguments every phase runs. Any
@@ -67,6 +84,61 @@ FPS = 24
 SECONDS = 3.0
 SR = 22050
 BATCH = 8
+SONG_SECONDS = 180.0  # the ar_features song
+# card vs CPU, envelopes in [0, 1]: the card's FFTs (cuFFT, the mel kernel) and
+# the CPU's round differently (measured <= 1.2e-6 on an H100), and the
+# percentile clip's peak pick can turn a near-tie either way
+AR_REFERENCE_TOL = 1e-3
+
+
+# The mel-bearing patch that ar_e2e renders: librosa-style onsets, tempo and
+# pulse, laplacian segmentation, volume and STFT chroma drive tempo loops and
+# envelope-weighted latents. The body is plain Python over the `ar` API, so
+# tests/test_torch_slice.py also runs it through maua_tpu, with its own header.
+MEL_PATCH_HEADER = """
+import numpy as np
+import torch
+
+from maua_tpu_torch.audiovisual import audioreactive as ar
+from maua_tpu_torch.audiovisual.patches import primitives
+from maua_tpu_torch.audiovisual.patches.base import StyleGAN2Patch
+
+
+def asarray(a, like):
+    return torch.as_tensor(a, dtype=torch.float32, device=like.device)
+"""
+MEL_PATCH_BODY = """
+SECTIONS = 3
+
+
+class MelPatch(StyleGAN2Patch):
+    def process_audio(self):
+        n = self.n_frames
+        self.onsets = ar.onsets(self.audio, self.sr, n, margin=2, smooth=2, type="rosa")
+        self.pulse = ar.pulse(self.audio, self.sr, n, type="rosa").reshape(-1, 1, 1)
+        self.volume = ar.volume(self.audio, self.sr, n, smooth=2).reshape(-1, 1, 1)
+        self.chroma = ar.chroma(self.audio, self.sr, n, margin=2, type="stft")
+        self.tempo = ar.tempo(self.audio, self.sr, type="rosa")[0]
+        times, labels = ar.laplacian_segmentation(self.audio, self.sr, k=SECTIONS)
+        section = labels[np.searchsorted(times, np.arange(n) / self.fps, side="right") - 1]
+        self.sections = asarray(np.eye(SECTIONS, dtype=np.float32)[section], self.chroma)
+
+    def process_mapper_inputs(self):
+        return {"z": self.stylegan2.get_z_latents("0-19")}
+
+    def process_synthesizer_inputs(self, latent_w):
+        n = self.n_frames
+        loops = ar.tempo_loops(latent_w[:4], n, self.fps, self.tempo)
+        bar = primitives.tempo_loop_latents(self.tempo, latent_w[4:8], 1, self.fps)
+        bar = bar[np.arange(n) % bar.shape[0]]
+        sections = ar.multi_weighted(latent_w[8 : 8 + SECTIONS], self.sections)
+        tonal = ar.multi_weighted(latent_w[7:19], self.chroma)
+        w = 0.5 * loops + 0.5 * sections
+        w = (1 - 0.5 * self.volume) * w + 0.5 * self.volume * tonal
+        w = (1 - 0.5 * self.pulse) * w + 0.5 * self.pulse * bar
+        kick = ar.single_weighted(latent_w[0], latent_w[18], self.onsets) - latent_w[0]
+        return {"latent_w_plus": w + 0.5 * kick}
+"""
 
 
 def phase(name, fn):
@@ -76,8 +148,10 @@ def phase(name, fn):
     return out
 
 
-def synth_wav(path: str, seconds: float = SECONDS, sr: int = SR, seed: int = 0) -> None:
-    """A kick / snare / bass / tone mix, made from a seed."""
+def synth_wav(path: str, seconds: float = SECONDS, sr: int = SR, seed: int = 0, chords: bool = False) -> None:
+    """A kick / snare / bass / tone mix, made from a seed; with `chords`, a
+    progression of four chords that changes every 8 s over it (a song with
+    sections to segment)."""
     import numpy as np
     from scipy.io import wavfile
 
@@ -95,6 +169,12 @@ def synth_wav(path: str, seconds: float = SECONDS, sr: int = SR, seed: int = 0) 
         j = int((beat + 0.25) * sr)
         if j + n <= len(y):
             y[j : j + n] += 0.4 * rs.randn(n) * env
+    if chords:
+        progression = ([220.0, 277.18, 329.63], [174.61, 220.0, 261.63], [196.0, 246.94, 293.66],
+                       [164.81, 207.65, 246.94])
+        for s in range(int(np.ceil(seconds / 8))):
+            part = slice(int(8 * s * sr), int(8 * (s + 1) * sr))
+            y[part] += sum(0.12 * np.sin(2 * np.pi * f * t[part]) for f in progression[s % 4])
     wavfile.write(path, sr, (y / np.abs(y).max() * 0.9).astype(np.float32))
 
 
@@ -374,23 +454,170 @@ def check_attention():
     return {"max_abs_err": worst["f32"], "max_abs_err_bf16": worst["bf16"], "image_f32": image["f32"], "image_bf16": image["bf16"], "bound_by": "operations"}
 
 
-def render_video(wav: str, repo: str, example: str, kernel_module, per_batch: int, stylegan_kwargs: dict):
-    """Render the example patch over the wav on the card through the
-    normal entry point; the kernel's launch count is reset just before
-    and must be `per_batch` times the render batches just after."""
+MEL_SHAPES = (  # (label, signal shape, hop, n_mels), n_fft 2048
+    ("3s-h512-m128", (66150,), 512, 128),  # onset strength and mfcc of the 3 s clip: each launch of ar_e2e
+    ("3s-h1024-m512", (66150,), 1024, 512),  # spectral_max's shape
+    ("180s-h512-m128", (3969000,), 512, 128),  # a song
+    ("180s-h1024-m512", (3969000,), 1024, 512),
+    ("batch4-3s-h512-m128", (4, 66150), 512, 128),
+)
+
+
+def check_mel():
+    """The mel kernel against its plain version at each MEL_SHAPES case,
+    max abs error <= 1e-4 of the largest output (the bar of the JAX
+    package's mel kernel test). Bound: the larger of the signal read once
+    plus the output written once at 3.35 TB/s, and per frame
+    5 N log2 N (the N = n_fft / 2 point FFT) + 4 (N + 1) (split, power)
+    + 2 nnz(mel basis) operations at 67 TFLOP/s (f32). Library: torch.stft
+    (cuFFT) and the mel matmul, timed only."""
+    import numpy as np
+    import torch
+
+    from maua_tpu_torch.kernels import spectrogram as M
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    window = torch.hann_window(2048, periodic=True, device="cuda")
+    rows, worst = {}, 0.0
+    for label, shape, hop, n_mels in MEL_SHAPES:
+        t = torch.arange(shape[-1], device="cuda") / SR
+        y = 0.3 * torch.sin(2 * math.pi * 440.0 * t) + 0.1 * torch.randn(*shape, generator=gen, device="cuda")
+        basis = torch.from_numpy(M.mel_basis(float(SR), 2048, n_mels, 0.0, None)).cuda()
+        out = M.melspectrogram(y, SR, 2048, hop, n_mels)
+        ref = M.melspectrogram_plain(y, basis, 2048, hop)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        rel = err / float(ref.abs().max())
+        worst = max(worst, err)
+        if out.shape != ref.shape or rel > 1e-4:
+            raise AssertionError(f"mel {label} disagrees with its plain version: max abs err {err} ({rel} of the max)")
+        batch, n_frames, half = int(np.prod(shape[:-1])), shape[-1] // hop, 1024
+        nbytes = 4 * (y.numel() + out.numel())
+        ops = batch * n_frames * (5 * half * math.log2(half) + 4 * (half + 1) + 2 * int((basis != 0).sum()))
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
+
+        def library():
+            spec = torch.stft(y, 2048, hop, window=window, center=True, pad_mode="reflect", return_complex=True)
+            return basis @ spec[..., :-1].abs().square()
+
+        rows[label] = {"shape": list(shape), "hop": hop, "n_mels": n_mels, "max_abs_err": err, "err_over_max": rel,
+                       "ms": cuda_time_ms(lambda: M.melspectrogram(y, SR, 2048, hop, n_mels)),
+                       "plain_ms": cuda_time_ms(lambda: M.melspectrogram_plain(y, basis, 2048, hop)),
+                       "library_ms": cuda_time_ms(library), "bound_ms": max(bytes_ms, ops_ms),
+                       "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "bytes": nbytes, "ops": ops}
+        del y, out, ref
+    M.reset_launches()  # the comparison launches do not count
+    for label, r in rows.items():
+        print(json.dumps({"mel": {"case": label, **r}}), flush=True)
+    return {"max_abs_err": worst, "cases": rows}
+
+
+def kconv_cases():
+    """(label, B, H, W, Ci, Co, dtype, epilogue): the last three 3x3 layers of
+    a 1024^2 StyleGAN3 (channel counts from SG3Config's plan, 1044^2
+    canvases) and RRDB's five growth convs (nf 64, gc 32) at 512^2, in bf16
+    at batch 8 and in f32 at batch 1."""
+    import torch
+
+    from maua_tpu_torch.gan.stylegan3 import SG3Config
+
+    cfg = SG3Config()
+    _, _, _, _, sizes, channels = cfg.layer_plan()
+    cases = []
+    for dtype, b in ((torch.bfloat16, BATCH), (torch.float32, 1)):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        for i in range(cfg.num_layers - 4, cfg.num_layers - 1):  # the last layer is 1x1
+            s = int(sizes[i])
+            cases.append((f"sg3-L{i}-{tag}", b, s, s, int(channels[i]), int(channels[i + 1]), dtype, "modulated"))
+        for j, ci in enumerate((64, 96, 128, 160, 192)):
+            cases.append((f"rrdb-conv{j + 1}-{tag}", b, 512, 512, ci, 64 if j == 4 else 32, dtype,
+                          "lrelu" if j < 4 else "bias"))
+    return cases
+
+
+def check_kconv():
+    """kconv3x3 against its plain version (f32 conv, TF32 off, then the
+    epilogue): |err| <= rtol |ref| + 1e-5 max |ref|, rtol 1e-5 in f32 and one
+    bf16 ulp more in bf16. Bound: 2 B H W 9 Ci Co operations at 67 TFLOP/s
+    (f32) or 989 TFLOP/s (bf16 tensor cores), or x, w and y once at
+    3.35 TB/s. Library: F.conv2d alone in the working dtype on the
+    channels-last view, timed only."""
+    import torch
+    import torch.nn.functional as F
+
+    from maua_tpu_torch.kernels import kconv as K
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows, worst = {}, 0.0
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        for label, b, h, w, ci, co, dtype, kind in kconv_cases():
+            x = torch.randn(b, h, w, ci, generator=gen, device="cuda").to(dtype)
+            wt = torch.randn(3, 3, ci, co, generator=gen, device="cuda") / math.sqrt(9 * ci)
+            kw = {"bias": torch.randn(co, generator=gen, device="cuda") * 0.1}
+            if kind == "modulated":
+                kw.update(style=torch.rand(b, ci, generator=gen, device="cuda") + 0.5,
+                          demod=torch.rand(b, co, generator=gen, device="cuda") + 0.5)
+            elif kind == "lrelu":
+                kw.update(alpha=0.2)
+            out = K.kconv3x3(x, wt, **kw)
+            ref = K.kconv3x3_plain(x, wt, **kw)
+            torch.cuda.synchronize()
+            diff = (out.float() - ref.float()).abs()
+            rtol = 2.0**-7 + 1e-5 if dtype == torch.bfloat16 else 1e-5
+            err = float(diff.max())
+            worst = max(worst, err)
+            if out.shape != ref.shape or not bool((diff <= rtol * ref.float().abs() + 1e-5 * ref.float().abs().max()).all()):
+                raise AssertionError(f"kconv {label} disagrees with its plain version: max abs err {err}")
+            del ref, diff
+            ops = 2 * b * h * w * 9 * ci * co
+            nbytes = (x.numel() + out.numel() + wt.numel()) * x.element_size()
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = ops / (BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS) * 1e3
+            w_oihw = wt.to(dtype).permute(3, 2, 0, 1).contiguous()
+            x_nchw = x.permute(0, 3, 1, 2)  # the NHWC tensor as a channels-last NCHW view
+            iters = 5 if ops > 1e11 else 20
+            ms = cuda_time_ms(lambda: K.kconv3x3(x, wt, **kw), iters=iters)
+            rows[label] = {"shape": [b, h, w, ci, co], "dtype": str(dtype).split(".")[-1], "epilogue": kind,
+                           "max_abs_err": err, "ms": ms, "tflops": ops / ms / 1e9,
+                           "plain_ms": cuda_time_ms(lambda: K.kconv3x3_plain(x, wt, **kw), iters=iters),
+                           "library_ms": cuda_time_ms(lambda: F.conv2d(x_nchw, w_oihw, padding=1), iters=iters),
+                           "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                           "bytes_ms": bytes_ms, "ops_ms": ops_ms}
+            del x, out
+            torch.cuda.empty_cache()
+    K.reset_launches()  # the comparison launches do not count
+    for label, r in rows.items():
+        print(json.dumps({"kconv": {"case": label, **r}}), flush=True)
+    sg3 = {k: sum(r[k] for label, r in rows.items() if label.startswith("sg3") and label.endswith("bf16"))
+           for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms", "ops_ms")}
+    # the tail's bound is the sum of its calls' bounds; name the kind that is larger over them
+    return {"max_abs_err": worst, "cases": rows, **{f"sg3_tail_bf16_{k}": v for k, v in sg3.items()},
+            "sg3_tail_bf16_bound_by": "bytes" if sg3["bytes_ms"] >= sg3["ops_ms"] else "operations"}
+
+
+def example_patch(repo: str, example: str) -> str:
+    return os.path.join(repo, "maua_tpu_torch", "audiovisual", "patches", "examples", example)
+
+
+def render_video(wav: str, patch_file: str, kernel_module, per_batch: int, stylegan_kwargs: dict, counted=()):
+    """Render the patch over the wav on the card through the normal entry
+    point; the kernel's launch count (and those of the modules in
+    `counted`) is reset just before and read just after, and the kernel's
+    must be `per_batch` times the render batches."""
     import numpy as np
     import torch
 
     from maua_tpu_torch.audiovisual.generate import generate_audiovisual_from_patch
 
-    patch_file = os.path.join(repo, "maua_tpu_torch", "audiovisual", "patches", "examples", example)
     stages = {}
     torch.cuda.reset_peak_memory_stats()
-    kernel_module.reset_launches()
+    for module in (kernel_module, *counted):
+        module.reset_launches()
     video, _ = generate_audiovisual_from_patch(
         wav, None, patch_file, renderer="memmap", renderer_kwargs={"batch_size": BATCH}, fps=FPS,
         out_size=(1024, 1024), device="cuda", stylegan_kwargs=stylegan_kwargs, stage_times=stages)
     launches = kernel_module.launches
+    other = {f"{m.__name__.rsplit('.', 1)[-1]}_launches": m.launches for m in counted}
     n_frames = round(SECONDS * FPS)
     if video.shape != (n_frames, 1024, 1024, 3) or video.dtype != np.uint8:
         raise AssertionError(f"frames {video.shape} {video.dtype}, want ({n_frames}, 1024, 1024, 3) uint8")
@@ -402,7 +629,7 @@ def render_video(wav: str, repo: str, example: str, kernel_module, per_batch: in
     if launches != per_batch * batches:
         raise AssertionError(f"{kernel_module.__name__} launched {launches} times, "
                              f"want {per_batch} x {batches} render batches")
-    return {"frames": list(video.shape), "render_batches": batches, "launches": launches,
+    return {"frames": list(video.shape), "render_batches": batches, "launches": launches, **other,
             "stage_seconds": stages, "render_fps": n_frames / stages["render"],
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
 
@@ -410,7 +637,7 @@ def render_video(wav: str, repo: str, example: str, kernel_module, per_batch: in
 def run_e2e(wav: str, repo: str):
     from maua_tpu_torch.kernels import epilogue as E
 
-    return render_video(wav, repo, "stylegan2.py", E, 17, {"seed": 0})
+    return render_video(wav, example_patch(repo, "stylegan2.py"), E, 17, {"seed": 0})
 
 
 def run_sg3_e2e(wav: str, repo: str):
@@ -418,7 +645,150 @@ def run_sg3_e2e(wav: str, repo: str):
     from maua_tpu_torch.kernels import filtered_lrelu as FL
 
     cfg = SG3Config(img_resolution=1024, dtype="bfloat16")
-    return render_video(wav, repo, "stylegan3.py", FL, cfg.num_layers - 1, {"cfg": cfg, "seed": 0})
+    return render_video(wav, example_patch(repo, "stylegan3.py"), FL, cfg.num_layers - 1, {"cfg": cfg, "seed": 0})
+
+
+def mel_case(y, sr, n_fft, hop_length, n_mels, power, fmin, fmax) -> str:
+    """The MEL_SHAPES label of a mel call on the card; raises for a call the
+    mel phase does not time, since the record prices each launch by its case."""
+    call = (tuple(y.shape), hop_length, n_mels, n_fft, float(power), float(sr), float(fmin), fmax)
+    for label, shape, hop, mels in MEL_SHAPES:
+        if call == (shape, hop, mels, 2048, 2.0, SR, 0.0, None):
+            return label
+    raise AssertionError(f"a mel launch of shape {call[0]}, n_fft {n_fft}, hop {hop_length}, {n_mels} mels, "
+                         f"power {power}, sr {sr}, fmin {fmin}, fmax {fmax} has no MEL_SHAPES case")
+
+
+def run_ar_e2e(wav: str, tmp: str):
+    """The mel-bearing patch (MEL_PATCH_BODY) over the 3 s wav through the
+    full-width StyleGAN2 (seed 0), as e2e renders the example patch: the
+    epilogue must launch 17 times per render batch and the mel kernel at
+    least once. The MEL_SHAPES case of each mel launch is recorded."""
+    import inspect
+
+    from maua_tpu_torch.kernels import epilogue as E
+    from maua_tpu_torch.kernels import spectrogram as M
+
+    patch_file = os.path.join(tmp, "mel_patch.py")
+    with open(patch_file, "w") as f:
+        f.write(MEL_PATCH_HEADER + MEL_PATCH_BODY)
+    wrapper, signature, cases = M.melspectrogram, inspect.signature(M.melspectrogram), []
+
+    def recording(*args, **kwargs):
+        a = signature.bind(*args, **kwargs)
+        a.apply_defaults()
+        a = a.arguments
+        if a["y"].is_cuda:
+            cases.append(mel_case(**a))
+        return wrapper(*args, **kwargs)
+
+    M.melspectrogram = recording
+    try:
+        out = render_video(wav, patch_file, E, 17, {"seed": 0}, counted=(M,))
+    finally:
+        M.melspectrogram = wrapper
+    if out["spectrogram_launches"] < 1:
+        raise AssertionError("the mel patch's video did not launch the mel kernel")
+    if len(cases) != out["spectrogram_launches"]:
+        raise AssertionError(f"{len(cases)} mel calls on the card, {out['spectrogram_launches']} launches")
+    return {**out, "mel_cases": {c: cases.count(c) for c in sorted(set(cases))}}
+
+
+AR_FEATURES = ("onsets", "pulse", "volume", "chroma", "tempo", "laplacian_segmentation")
+
+
+def ar_features(y, sr: int, n_frames: int):
+    """Every `ar` feature of MEL_PATCH_BODY over the signal y (on its
+    device), each timed to a device synchronization: (outputs, seconds)."""
+    import torch
+
+    from maua_tpu_torch.audiovisual import audioreactive as ar
+
+    calls = {
+        "onsets": lambda: ar.onsets(y, sr, n_frames, margin=2, smooth=2, type="rosa"),
+        "pulse": lambda: ar.pulse(y, sr, n_frames, type="rosa"),
+        "volume": lambda: ar.volume(y, sr, n_frames, smooth=2),
+        "chroma": lambda: ar.chroma(y, sr, n_frames, margin=2, type="stft"),
+        "tempo": lambda: ar.tempo(y, sr, type="rosa"),
+        "laplacian_segmentation": lambda: ar.laplacian_segmentation(y, sr, k=3),
+    }
+    outs, seconds = {}, {}
+    for name in AR_FEATURES:
+        t0 = time.perf_counter()
+        outs[name] = calls[name]()
+        if y.is_cuda:
+            torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+    for name in ("onsets", "pulse", "volume", "chroma"):
+        if outs[name].shape[0] != n_frames or not bool(torch.isfinite(outs[name]).all()):
+            raise AssertionError(f"ar.{name}: shape {tuple(outs[name].shape)}, want {n_frames} finite frames")
+    return outs, seconds
+
+
+def ar_features_child(song: str):
+    """Run in a fresh process: the features over the song on the card twice,
+    the first pass paying every first-use cost (cuFFT plans, kernel loads)."""
+    import torch
+
+    from maua_tpu_torch.audio.io import load_audio
+    from maua_tpu_torch.kernels import spectrogram as M
+
+    audio, sr, duration = load_audio(song)
+    y = torch.from_numpy(audio).cuda()
+    passes = []
+    for _ in range(2):
+        M.reset_launches()
+        outs, seconds = ar_features(y, sr, round(duration * FPS))
+        passes.append({"seconds": seconds, "total_seconds": sum(seconds.values()), "mel_launches": M.launches})
+    return {"audio_seconds": duration, "cold": passes[0], "warm": passes[1], "tempo": outs["tempo"][0],
+            "segments": len(outs["laplacian_segmentation"][0])}
+
+
+def run_ar_features(song: str):
+    """The feature stage over a 180 s song in a fresh process (see
+    ar_features_child), with that process's wall time from launch."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--ar-features-child", song],
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"the ar_features process failed:\n{proc.stderr[-4000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    if out["warm"]["mel_launches"] < 1:
+        raise AssertionError("the features did not launch the mel kernel")
+    return {**out, "process_seconds": time.perf_counter() - t0}
+
+
+def ar_card_vs_cpu(song: str):
+    """The first 20 s of the song through the features on the card and on
+    the CPU, f32 with TF32 off: envelope errors (values in [0, 1]), tempo
+    and segment boundaries."""
+    import numpy as np
+    import torch
+
+    from maua_tpu_torch.audio.io import load_audio
+
+    audio, sr, duration = load_audio(song, duration=20.0)
+    n = round(duration * FPS)
+    matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:  # TF32 off for this phase only: the profiles after it run at PyTorch's defaults
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            card, _ = ar_features(torch.from_numpy(audio).cuda(), sr, n)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+    host, cpu_seconds = ar_features(torch.from_numpy(audio), sr, n)
+    errs = {k: float((card[k].cpu() - host[k]).abs().max()) for k in ("onsets", "pulse", "volume", "chroma")}
+    worst = max(errs.values())
+    if worst > AR_REFERENCE_TOL:
+        raise AssertionError(f"card vs CPU envelopes differ by {errs}, more than {AR_REFERENCE_TOL}")
+    if card["tempo"][0] != host["tempo"][0]:
+        raise AssertionError(f"card tempo {card['tempo'][0]} vs CPU {host['tempo'][0]}")
+    (tc, lc), (th, lh) = card["laplacian_segmentation"], host["laplacian_segmentation"]
+    same = len(tc) == len(th)
+    return {"max_abs_err": errs, "tempo": [card["tempo"][0], host["tempo"][0]],
+            "boundaries_card": tc.tolist(), "boundaries_cpu": th.tolist(),
+            "boundary_max_diff_s": float(np.abs(tc - th).max()) if same else None,
+            "labels_equal": same and bool(np.array_equal(lc, lh)), "cpu_seconds": cpu_seconds}
 
 
 def profile_render_batch():
@@ -742,11 +1112,15 @@ def main() -> int:
         return 2
 
     phases = None
+    if sys.argv[1:2] == ["--ar-features-child"] and len(sys.argv) == 3:
+        print(json.dumps(ar_features_child(sys.argv[2])))
+        return 0
     if sys.argv[1:2] == ["--phases"] and len(sys.argv) == 3:
         phases = set(sys.argv[2].split(","))
     elif sys.argv[1:]:
-        print("usage: chip_smoke.py [--phases kernel,flrelu,attn,e2e,sg3_e2e,profile,sg3_profile,reference,"
-              "sg3_reference,sd_e2e,sd_steps,sd_profile,sd_reference]", file=sys.stderr)
+        print("usage: chip_smoke.py [--phases kernel,flrelu,attn,mel,kconv,e2e,sg3_e2e,ar_e2e,ar_features,"
+              "ar_reference,profile,sg3_profile,reference,sg3_reference,sd_e2e,sd_steps,sd_profile,sd_reference]",
+              file=sys.stderr)
         return 2
 
     def want(name):
@@ -760,22 +1134,27 @@ def main() -> int:
     def build_all():
         from concurrent.futures import ThreadPoolExecutor
 
-        names = ("epilogue", "filtered_lrelu", "attention")
+        names = ("epilogue", "filtered_lrelu", "attention", "spectrogram", "kconv")
         with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source, all started together
             libs = list(pool.map(build.build, names))
         return {"libraries": [str(p) for p in libs], "ptxas": {n: build.PTXAS_REPORT.get(n, "") for n in names}}
 
     phase("build", build_all)
     results = {}
-    for name, fn in (("kernel", check_epilogue), ("flrelu", check_flrelu), ("attn", check_attention)):
+    for name, fn in (("kernel", check_epilogue), ("flrelu", check_flrelu), ("attn", check_attention),
+                     ("mel", check_mel), ("kconv", check_kconv)):
         if want(name):
             results[name] = phase(name, fn)
+            torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
-        wav = os.path.join(tmp, "mix.wav")
+        wav, song = os.path.join(tmp, "mix.wav"), os.path.join(tmp, "song.wav")
         synth_wav(wav)
-        for name, fn in (("e2e", run_e2e), ("sg3_e2e", run_sg3_e2e)):
+        synth_wav(song, seconds=SONG_SECONDS, seed=1, chords=True)
+        for name, fn in (("e2e", lambda: run_e2e(wav, repo)), ("sg3_e2e", lambda: run_sg3_e2e(wav, repo)),
+                         ("ar_e2e", lambda: run_ar_e2e(wav, tmp)), ("ar_features", lambda: run_ar_features(song)),
+                         ("ar_reference", lambda: ar_card_vs_cpu(song))):
             if want(name):
-                results[name] = phase(name, lambda: fn(wav, repo))
+                results[name] = phase(name, fn)
                 torch.cuda.empty_cache()
     for name, fn in (("profile", profile_render_batch), ("sg3_profile", profile_sg3_render_batch),
                      ("reference", card_vs_cpu), ("sg3_reference", sg3_card_vs_cpu), ("sd_e2e", run_sd_e2e),
@@ -786,7 +1165,9 @@ def main() -> int:
     if phases is not None:
         return 0  # a partial run prints no record
 
-    kernel, flrelu, attn = results["kernel"], results["flrelu"], results["attn"]
+    kernel, flrelu, attn, mel, kconv = (results[k] for k in ("kernel", "flrelu", "attn", "mel", "kconv"))
+    mel_launches, mel_cases = results["ar_e2e"]["spectrogram_launches"], results["ar_e2e"]["mel_cases"]
+    mel_main = mel["cases"][max(mel_cases, key=lambda c: mel_cases[c] * mel["cases"][c]["bound_ms"])]
     record = {"kernels": [{
         "name": "modconv_epilogue",
         "route": "cuda",
@@ -826,6 +1207,29 @@ def main() -> int:
         "bound_by": attn["bound_by"],
         "library_ms": attn["image_f32"]["library_ms"],
         "scope": f"the {10 * SD_STEPS + 1} launches of one 512^2 {SD_STEPS}-step SD 1.x image in f32",
+    }, {
+        "name": "melspectrogram",
+        "route": "cuda",
+        "source": "maua_tpu_torch/csrc/spectrogram.cu",
+        "replaces": "maua_tpu/kernels/spectrogram.py:113",
+        "launches": mel_launches,
+        "max_abs_err": mel["max_abs_err"],
+        **{k: sum(n * mel["cases"][c][k] for c, n in mel_cases.items())
+           for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        "bound_by": mel_main["bound_by"],
+        "scope": f"the {mel_launches} launches of one {SECONDS:g} s mel-patch video, each priced at its mel case "
+                 f"({', '.join(f'{n} x {c}' for c, n in mel_cases.items())}); library: torch.stft and the mel matmul",
+    }, {
+        "name": "kconv3x3",
+        "route": "cuda",
+        "source": "maua_tpu_torch/csrc/kconv.cu",
+        "replaces": "maua_tpu/kernels/kconv.py:155",
+        "launches": 0,
+        "max_abs_err": kconv["max_abs_err"],
+        **{k: kconv[f"sg3_tail_bf16_{k}"] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        "bound_by": kconv["sg3_tail_bf16_bound_by"],
+        "scope": f"no path: nothing in maua_tpu or in the port calls it (as with its TPU kernel); times are the "
+                 f"three last 3x3 layers of a 1024^2 StyleGAN3 frame batch of {BATCH} in bf16; library: F.conv2d",
     }]}
     print(card)
     print(json.dumps(record))

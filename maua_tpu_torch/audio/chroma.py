@@ -1,7 +1,7 @@
-"""Chromagrams from the CQT and their nearest-neighbour smoothing.
+"""Chromagrams, their nearest-neighbour smoothing and tonnetz.
 
-Port of `maua_tpu/audio/chroma.py` (chroma_cqt, chroma_cens,
-nn_filter_cosine_median) with librosa's semantics.
+Port of `maua_tpu/audio/chroma.py` (chroma_stft, chroma_cqt, chroma_cens,
+nn_filter_cosine_median, tonnetz) with librosa's semantics.
 """
 
 from __future__ import annotations
@@ -13,7 +13,8 @@ import torch
 import torch.nn.functional as F
 
 from .constantq import cqt
-from .convert import cq_to_chroma, note_to_hz
+from .convert import chroma_filterbank, cq_to_chroma, note_to_hz
+from .spectral import stft
 
 
 def _normalize_cols(x: torch.Tensor, norm: float = np.inf, dim: int = 0) -> torch.Tensor:
@@ -24,6 +25,14 @@ def _normalize_cols(x: torch.Tensor, norm: float = np.inf, dim: int = 0) -> torc
     else:
         mag = x.square().sum(dim=dim, keepdim=True).sqrt()
     return x / mag.clamp_min(1e-10)
+
+
+def chroma_stft(y: torch.Tensor, sr: float = 22050, n_fft: int = 2048, hop_length: int = 512, n_chroma: int = 12,
+                tuning: float = 0.0) -> torch.Tensor:
+    """STFT chromagram (librosa.feature.chroma_stft), (n_chroma, T)."""
+    S = stft(y, n_fft=n_fft, hop_length=hop_length).abs() ** 2
+    fb = torch.as_tensor(chroma_filterbank(sr, n_fft, n_chroma=n_chroma, tuning=tuning), device=y.device)
+    return _normalize_cols(fb @ S)
 
 
 def chroma_cqt(y: torch.Tensor, sr: float = 22050, hop_length: int = 512, fmin: Optional[float] = None,
@@ -82,3 +91,15 @@ def nn_filter_cosine_median(x: torch.Tensor, k: Optional[int] = None, chunk: int
         nbr = sim.topk(k, dim=1).indices  # (c, k)
         out.append(_median_last(x[:, nbr]))  # (d, c)
     return torch.cat(out, dim=1)
+
+
+def tonnetz(chroma: torch.Tensor) -> torch.Tensor:
+    """Tonal centroids (librosa.feature.tonnetz): (n_chroma, T) -> (6, T)."""
+    n_chroma = chroma.shape[0]
+    dim_map = np.linspace(0, 12, num=n_chroma, endpoint=False)
+    scale = np.asarray([7.0 / 6, 7.0 / 6, 3.0 / 2, 3.0 / 2, 2.0 / 3, 2.0 / 3])
+    V = scale[:, None] * dim_map[None, :]
+    V[::2] -= 0.5
+    R = np.array([1, 1, 1, 1, 0.5, 0.5])
+    phi = torch.as_tensor(R[:, None] * np.cos(np.pi * V), dtype=torch.float32, device=chroma.device)
+    return phi @ (chroma / chroma.abs().sum(dim=0, keepdim=True).clamp_min(1e-10))

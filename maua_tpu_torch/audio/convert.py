@@ -1,13 +1,16 @@
 """Unit conversions and filterbanks used by the audio features.
 
-Port of the parts of `maua_tpu/audio/convert.py` that the audio-reactive
-path needs: power_to_db / amplitude_to_db, hz_to_octs, hz_to_midi,
-note_to_hz, fft_frequencies, cqt_frequencies and the chroma
-filterbanks. Filterbanks are numpy (host constants).
+Port of `maua_tpu/audio/convert.py`: power_to_db / amplitude_to_db /
+db_to_power, the mel scale (hz_to_mel, mel_to_hz, mel_frequencies),
+hz_to_octs, hz_to_midi, note_to_hz, the fft / cqt / tempo frequency
+axes and the mel and chroma filterbanks. Frequency axes and filterbanks
+are numpy in float64 (host constants); the JAX package computes
+`hz_to_mel` / `mel_to_hz` of arrays in float32.
 """
 
 from __future__ import annotations
 
+import math
 import re
 from typing import Optional
 
@@ -25,6 +28,41 @@ def power_to_db(magnitude: torch.Tensor, ref_value=1.0, amin=1e-10, top_db: Opti
 
 def amplitude_to_db(magnitude: torch.Tensor, ref_value=1.0, amin=1e-5, top_db: Optional[float] = 80.0) -> torch.Tensor:
     return power_to_db(magnitude.square(), ref_value=ref_value**2, amin=amin**2, top_db=top_db)
+
+
+def db_to_power(db: torch.Tensor) -> torch.Tensor:
+    return torch.pow(10.0, 0.1 * db)
+
+
+_MIN_LOG_HZ = 1000.0
+_F_SP = 200.0 / 3
+_MIN_LOG_MEL = _MIN_LOG_HZ / _F_SP
+_LOGSTEP = math.log(6.4) / 27.0
+
+
+def hz_to_mel(frequencies, htk: bool = False) -> np.ndarray:
+    """Slaney (or HTK) mel of each frequency."""
+    f = np.asarray(frequencies, np.float64)
+    if htk:
+        return 2595.0 * np.log10(1.0 + f / 700.0)
+    linear = f / _F_SP
+    logpart = _MIN_LOG_MEL + np.log(np.maximum(f, 1e-10) / _MIN_LOG_HZ) / _LOGSTEP
+    return np.where(f >= _MIN_LOG_HZ, logpart, linear)
+
+
+def mel_to_hz(mels, htk: bool = False) -> np.ndarray:
+    m = np.asarray(mels, np.float64)
+    if htk:
+        return 700.0 * (10.0 ** (m / 2595.0) - 1.0)
+    linear = _F_SP * m
+    logpart = _MIN_LOG_HZ * np.exp(_LOGSTEP * (m - _MIN_LOG_MEL))
+    return np.where(m >= _MIN_LOG_MEL, logpart, linear)
+
+
+def mel_frequencies(n_mels: int = 128, fmin: float = 0.0, fmax: float = 11025.0, htk: bool = False) -> np.ndarray:
+    """Mel band centres in Hz."""
+    mels = np.linspace(float(hz_to_mel(fmin, htk)), float(hz_to_mel(fmax, htk)), n_mels)
+    return mel_to_hz(mels, htk)
 
 
 def hz_to_octs(frequencies, tuning: float = 0.0, bins_per_octave: int = 12) -> np.ndarray:
@@ -66,6 +104,34 @@ def fft_frequencies(sr: float, n_fft: int) -> np.ndarray:
 def cqt_frequencies(n_bins: int, fmin: float, bins_per_octave: int = 12, tuning: float = 0.0) -> np.ndarray:
     correction = 2.0 ** (tuning / bins_per_octave)
     return correction * fmin * 2.0 ** (np.arange(n_bins) / bins_per_octave)
+
+
+def tempo_frequencies(n_bins: int, hop_length: int = 512, sr: float = 22050) -> np.ndarray:
+    """BPM of each autocorrelation lag (librosa.tempo_frequencies)."""
+    bin_frequencies = np.zeros(n_bins)
+    bin_frequencies[0] = np.inf
+    bin_frequencies[1:] = 60.0 * sr / (hop_length * np.arange(1.0, n_bins))
+    return bin_frequencies
+
+
+def fourier_tempo_frequencies(sr: float = 22050, win_length: int = 384, hop_length: int = 512) -> np.ndarray:
+    return fft_frequencies(sr=sr * 60 / hop_length, n_fft=win_length)
+
+
+def mel_filterbank(sr: float, n_fft: int, n_mels: int = 128, fmin: float = 0.0, fmax: Optional[float] = None,
+                   htk: bool = False) -> np.ndarray:
+    """Slaney-normalized mel filterbank (n_mels, 1 + n_fft // 2), float32."""
+    if fmax is None:
+        fmax = sr / 2.0
+    fftfreqs = fft_frequencies(sr, n_fft)
+    mel_f = mel_frequencies(n_mels + 2, fmin, fmax, htk)
+    fdiff = np.diff(mel_f)
+    ramps = mel_f[:, None] - fftfreqs[None, :]
+    lower = -ramps[:-2] / fdiff[:-1, None]
+    upper = ramps[2:] / fdiff[1:, None]
+    weights = np.maximum(0, np.minimum(lower, upper))
+    enorm = 2.0 / (mel_f[2:] - mel_f[:-2])
+    return (weights * enorm[:, None]).astype(np.float32)
 
 
 def chroma_filterbank(sr: float, n_fft: int, n_chroma: int = 12, tuning: float = 0.0, ctroct: float = 5.0,

@@ -1,15 +1,49 @@
-"""Latent-space interpolation loops for audio-reactive synthesis.
+"""Latent-space interpolation for audio-reactive synthesis.
 
-Port of `spline_loops` (natural cubic splines, solved as a tridiagonal
-system) and `slerp_loops` from `maua_tpu/audio/latent.py`, including its
-pair-major flattening of the slerp segments.
+Port of `maua_tpu/audio/latent.py`: envelope-weighted blends
+(single_weighted, multi_weighted, select_modulo), eerp / copeerp, slerp,
+`spline_loops` (natural cubic splines, solved as a tridiagonal system),
+`slerp_loops` with its pair-major flattening of the segments, and
+`tempo_loops`.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..ops.signal import resample_1d
+from ..ops.signal import gaussian_filter, normalize, resample_1d
+
+
+def single_weighted(low_latent: torch.Tensor, high_latent: torch.Tensor, envelope: torch.Tensor) -> torch.Tensor:
+    """Blend two latents by an envelope: (L, D), (L, D), (T,) -> (T, L, D)."""
+    e = envelope[:, None, None]
+    return low_latent[None] * (1 - e) + high_latent[None] * e
+
+
+def multi_weighted(latents: torch.Tensor, envelopes: torch.Tensor) -> torch.Tensor:
+    """Latents weighted by per-latent envelopes: (K, L, D), (T, K) -> (T, L, D);
+    envelope k weights latent k modulo the number of latents."""
+    w = envelopes / envelopes.sum(dim=1, keepdim=True).clamp_min(1e-10)
+    k = envelopes.shape[1]
+    sel = latents[torch.arange(k, device=latents.device) % latents.shape[0]]
+    return torch.einsum("tk,kld->tld", w, sel)
+
+
+def select_modulo(latents: torch.Tensor, envelope: torch.Tensor, smooth: float = 2.0) -> torch.Tensor:
+    """The latent whose index is the envelope's level between its quartiles, smoothed."""
+    low, high = torch.quantile(envelope, 0.25), torch.quantile(envelope, 0.75)
+    idx = torch.round(normalize(envelope.clamp(low, high)) * (latents.shape[0] - 1)).long()
+    return gaussian_filter(latents[idx], smooth, causal=0.0)
+
+
+def eerp(a, b, t):
+    """Exponential interpolation."""
+    return a ** (1 - t) * b**t
+
+
+def copeerp(a, b, t):
+    """Co-exponential interpolation."""
+    return a**t * (1 - b**t) / (1 - a**t + b**t)
 
 
 def slerp(a: torch.Tensor, b: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
@@ -72,3 +106,12 @@ def spline_loops(y: torch.Tensor, size: int, n_loops: int) -> torch.Tensor:
     t_in = torch.linspace(0.0, 1.0, y.shape[0], device=y.device)
     t_out = torch.linspace(0.0, 1.0, size, device=y.device)
     return natural_cubic_spline_evaluate(natural_cubic_spline_coeffs(t_in, y), t_out)
+
+
+def tempo_loops(latents: torch.Tensor, n_frames: int, fps: float, tempo: float, type: str = "spline") -> torch.Tensor:
+    """Loops through the latents, one loop per bar of 4 beats at `tempo` BPM."""
+    bars_per_sec = tempo / 4.0 / 60.0
+    n_loops = max(round(n_frames / fps * bars_per_sec), 1)
+    if type == "spline":
+        return spline_loops(latents, n_frames, n_loops)
+    return slerp_loops(latents, n_frames, n_loops)

@@ -1,20 +1,29 @@
-"""Music-information features of the audio-reactive path.
+"""Music-information features with the reference's signatures.
 
-Port of `onset_ensemble`, `onsets` and `chroma` from
-`maua_tpu/audio/mir.py`. The onset ensemble is the mean of five
+Port of `maua_tpu/audio/mir.py`: onset_ensemble, onsets ("mm" flux
+ensemble or "rosa" onset strength), volume, chroma (cens, cqt, stft),
+tonnetz, pitch_track, spectral_max, pitch_dominance, pulse, tempo and
+laplacian_segmentation. The onset ensemble is the mean of five
 normalized onset detection functions on a log-filtered STFT magnitude.
+`tempo` reads the onset autocorrelation back to the host to pick its
+candidates, as the JAX function does.
 """
 
 from __future__ import annotations
 
 import functools
+from typing import List, Tuple
 
 import numpy as np
 import torch
 
 from ..ops.signal import percentile_clip
+from . import beat as _beat
 from . import chroma as _chroma
-from .spectral import harmonic, percussive, stft
+from . import pitch as _pitch
+from . import segment as _segment
+from .convert import tempo_frequencies
+from .spectral import harmonic, melspectrogram, percussive, rms, stft
 
 
 @functools.lru_cache(maxsize=None)
@@ -69,22 +78,38 @@ def onset_ensemble(y: torch.Tensor, sr: float, n_fft: int = 2048, hop_length: in
     return stack.mean(dim=0)
 
 
-def onsets(audio: torch.Tensor, sr, prepercussive: int = 4) -> torch.Tensor:
+def onsets(audio: torch.Tensor, sr, type: str = "mm", prepercussive: int = 4) -> torch.Tensor:
     """Onset envelope: optional percussive pre-separation, the flux
-    ensemble, then a 95th-peak-percentile clip."""
+    ensemble ("mm") or the mel onset strength ("rosa"), then a
+    95th-peak-percentile clip."""
     y = audio
     if prepercussive:
         y = percussive(y, margin=float(prepercussive))
-    return percentile_clip(onset_ensemble(y, sr), 95.0)
+    onset = _beat.onset_strength(y, sr=sr) if type == "rosa" else onset_ensemble(y, sr)
+    return percentile_clip(onset, 95.0)
 
 
-def chroma(audio: torch.Tensor, sr, nearest_neighbor: bool = True, preharmonic: int = 4,
+def volume(audio: torch.Tensor, sr) -> torch.Tensor:
+    """RMS envelope normalized to [0, 1]."""
+    vol = rms(audio)
+    vol = vol - vol.min()
+    return vol / vol.max().clamp_min(1e-10)
+
+
+def chroma(audio: torch.Tensor, sr, type: str = "cens", nearest_neighbor: bool = True, preharmonic: int = 4,
            notes: int = 12) -> torch.Tensor:
-    """CENS chromagram of the harmonic component, (T, notes) in [0, 1]."""
+    """Chromagram (cens, cqt or stft) of the harmonic component, (T, notes) in [0, 1]."""
     y = audio
     if preharmonic:
         y = harmonic(y, margin=float(preharmonic))
-    ch = _chroma.chroma_cens(y, sr=sr)
+    if type == "cqt":
+        ch = _chroma.chroma_cqt(y, sr=sr)
+    elif type == "stft":
+        ch = _chroma.chroma_stft(y, sr=sr)
+    else:
+        if type != "cens":
+            print(f"chroma type {type} not available, options are [cens, cqt, stft]. defaulting to cens...")
+        ch = _chroma.chroma_cens(y, sr=sr)
     if nearest_neighbor:
         ch = torch.minimum(ch, _chroma.nn_filter_cosine_median(ch))
     ch = ch.t()
@@ -93,3 +118,73 @@ def chroma(audio: torch.Tensor, sr, nearest_neighbor: bool = True, preharmonic: 
         ch = ch[:, order[:notes]]
     ch = ch - ch.min()
     return ch / (ch.max() + 1e-8)
+
+
+def tonnetz(audio: torch.Tensor, sr, type: str = "cens", nearest_neighbor: bool = True,
+            preharmonic: int = 4) -> torch.Tensor:
+    """(T, 6) tonal centroids in [0, 1]."""
+    ch = chroma(audio, sr, type=type, nearest_neighbor=nearest_neighbor, preharmonic=preharmonic)
+    ton = _chroma.tonnetz(ch.t()).t()
+    ton = ton - ton.min()
+    return ton / ton.max().clamp_min(1e-10)
+
+
+def pitch_track(audio: torch.Tensor, sr, preharmonic: int = 4) -> torch.Tensor:
+    y = audio
+    if preharmonic:
+        y = harmonic(y, margin=float(preharmonic))
+    return _pitch.pitch_track_envelope(y, sr=sr)
+
+
+def spectral_max(audio: torch.Tensor, sr, n_mels: int = 512) -> torch.Tensor:
+    """The loudest mel band of each frame, normalized to [0, 1]."""
+    spec = melspectrogram(audio, sr, n_mels=n_mels).amax(dim=0)
+    spec = spec - spec.min()
+    return spec / spec.max().clamp_min(1e-10)
+
+
+def pitch_dominance(audio: torch.Tensor, sr, type: str = "cens", nearest_neighbor: bool = True,
+                    preharmonic: int = 4) -> torch.Tensor:
+    """Pitch classes sorted by dominance."""
+    ch = chroma(audio, sr, type=type, nearest_neighbor=nearest_neighbor, preharmonic=preharmonic)
+    norm = ch / ch.sum(dim=1, keepdim=True).clamp_min(1e-10)
+    return torch.argsort(-norm.sum(dim=0))
+
+
+def pulse(audio: torch.Tensor, sr, prior: str = "lognorm", type: str = "mm", prepercussive: int = 4) -> torch.Tensor:
+    """Predominant local pulse of the onset envelope."""
+    onset_env = onsets(audio, sr, type=type, prepercussive=prepercussive)
+    fps = onset_env.shape[0] / (audio.shape[-1] / sr)
+    pul = _beat.plp(onset_env, sr=fps, hop_length=1, tempo_min=30.0, tempo_max=300.0)
+    return pul / pul.abs().max().clamp_min(1e-10)
+
+
+def round_to_nearest_half(number: float) -> float:
+    return round(number * 2) / 2
+
+
+def tempo(audio: torch.Tensor, sr, prior: str = "uniform", type: str = "mm", prepercussive: int = 4) -> List[float]:
+    """Tempo candidates in BPM: the global estimate, then the ten largest
+    local maxima of the onset autocorrelation folded into [80, 200], each
+    rounded to the nearest half BPM."""
+    onset_env = onsets(audio, sr, type=type, prepercussive=prepercussive)
+    fps = onset_env.shape[0] / (audio.shape[-1] / sr)
+    ac = _beat.autocorrelate(onset_env, max_size=512)
+    ac_np = (ac / ac.abs().max().clamp_min(1e-10)).cpu().numpy()
+    is_peak = np.zeros(len(ac_np), bool)
+    is_peak[1:-1] = (ac_np[1:-1] >= ac_np[:-2]) & (ac_np[1:-1] >= ac_np[2:])
+    cand = np.where(is_peak)[0]
+    peaks = cand[np.argsort(-ac_np[cand])][:10]
+    peaks = peaks[(peaks > 3) & (peaks < len(ac_np))]
+    tempos_ac = tempo_frequencies(512, hop_length=1, sr=fps)[peaks]
+    for t in range(len(tempos_ac)):
+        while tempos_ac[t] < 80:
+            tempos_ac[t] *= 2
+        while tempos_ac[t] > 200:
+            tempos_ac[t] /= 2
+    main = float(_beat.tempo(onset_env, sr=fps, hop_length=1))
+    return [round_to_nearest_half(b) for b in (main, *tempos_ac)]
+
+
+def laplacian_segmentation(audio: torch.Tensor, sr, k: int = 5) -> Tuple[np.ndarray, np.ndarray]:
+    return _segment.laplacian_segmentation(audio, sr, k=k)

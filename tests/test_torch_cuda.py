@@ -16,15 +16,23 @@ up to 4096 keys in another order: 1e-4 relative plus 1e-5 absolute in
 f32; in bf16 one bf16 ulp plus 2^-5 of the output's RMS, since the kernel
 rounds p (each within 2^-9) against its running row max and the plain
 version against the final one, and those roundings average over the keys.
+The mel kernel's FFT and the plain version's cuFFT round differently:
+1e-4 of the largest output, the bar of the JAX package's own mel kernel
+test. kconv sums 9 Ci products in another order than cuDNN's f32 conv
+(TF32 off): 1e-5 relative plus 1e-5 absolute in f32, and one bf16 ulp on
+top of that in bf16.
 """
 
 import pytest
 import torch
 
+from maua_tpu_torch.audio import spectral as S
 from maua_tpu_torch.gan.stylegan3 import _lowpass
 from maua_tpu_torch.kernels import attention as A
 from maua_tpu_torch.kernels import epilogue as E
 from maua_tpu_torch.kernels import filtered_lrelu as FL
+from maua_tpu_torch.kernels import kconv as K
+from maua_tpu_torch.kernels import spectrogram as M
 
 
 @pytest.fixture
@@ -175,3 +183,111 @@ def test_flash_attention_kernel_rejects_what_it_does_not_take(cuda_device):
         A.flash_attention_fused(q[..., :60].contiguous(), q[..., :60].contiguous(), q[..., :60].contiguous())
     with pytest.raises(ValueError):
         A.flash_attention_fused(q, q.cpu(), q)
+
+
+def _signal(shape, gen, device):
+    """Noise plus a 440 Hz tone at 22050 Hz, so every band has energy."""
+    t = torch.arange(shape[-1], device=device) / 22050.0
+    return 0.3 * torch.sin(2 * torch.pi * 440.0 * t) + 0.1 * torch.randn(*shape, generator=gen, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,n_fft,hop,n_mels,power", [
+    ((66150,), 2048, 512, 128, 2.0),  # 3 s at the onset-strength / mfcc shape
+    ((66150,), 2048, 1024, 512, 2.0),  # 3 s at the spectral_max shape
+    ((4, 22050), 2048, 512, 128, 1.0),  # a batch of 4, power 1
+    ((2, 3, 5000), 1024, 256, 64, 2.0),  # two leading axes, another FFT size
+    ((1025,), 2048, 512, 128, 2.0),  # shorter than n_fft: reflected more than once
+    ((300,), 256, 100, 32, 0.5),  # the smallest FFT, a hop that does not divide it
+    ((8192,), 4096, 512, 128, 2.0),  # the largest FFT
+])
+def test_melspectrogram_kernel_matches_plain(cuda_device, shape, n_fft, hop, n_mels, power):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    y = _signal(shape, gen, cuda_device)
+    M.reset_launches()
+    out = M.melspectrogram(y, 22050, n_fft=n_fft, hop_length=hop, n_mels=n_mels, power=power)
+    torch.cuda.synchronize()
+    assert M.launches == 1
+    basis = torch.from_numpy(M.mel_basis(22050.0, n_fft, n_mels, 0.0, None)).to(cuda_device)
+    ref = M.melspectrogram_plain(y, basis, n_fft, hop, power)
+    assert out.shape == ref.shape == (*shape[:-1], n_mels, shape[-1] // hop) and out.dtype == torch.float32
+    assert float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_melspectrogram_kernel_rejects_what_it_does_not_take(cuda_device):
+    y = torch.randn(2, 4096, device=cuda_device)
+    with pytest.raises(TypeError):
+        M.melspectrogram(y.double(), 22050)
+    with pytest.raises(ValueError):
+        M.melspectrogram(y.t().contiguous().t(), 22050)  # not contiguous
+    for n_fft in (128, 1000, 8192):
+        with pytest.raises(ValueError):
+            M.melspectrogram(y, 22050, n_fft=n_fft)
+    M.reset_launches()
+    assert M.melspectrogram(y[:, :100].contiguous(), 22050, hop_length=512).shape == (2, 128, 0) and M.launches == 0
+
+
+@pytest.mark.cuda
+def test_spectral_melspectrogram_hands_its_signal_to_the_kernel(cuda_device):
+    """The public caller neither casts nor copies: what the kernel does not take raises there too."""
+    y = torch.randn(2, 4096, device=cuda_device)
+    with pytest.raises(TypeError):
+        S.melspectrogram(y.double(), 22050)
+    with pytest.raises(TypeError):
+        S.melspectrogram(y.half(), 22050)
+    with pytest.raises(ValueError):
+        S.melspectrogram(y.t().contiguous().t(), 22050)  # not contiguous
+    with pytest.raises(ValueError):
+        S.melspectrogram(y[:, ::2], 22050)  # strided
+    with pytest.raises(ValueError):
+        S.mfcc(y.t().contiguous().t(), 22050)
+    M.reset_launches()
+    out = S.melspectrogram(y, 22050, hop_length=512)
+    assert M.launches == 1 and out.shape == (2, 128, 8) and out.device == y.device
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,w,ci,co,epilogue", [
+    (2, 16, 20, 5, 3, False),  # unpadded channels, partial tiles
+    (1, 13, 130, 32, 32, True),  # one 32-channel block
+    (2, 24, 33, 51, 51, True),  # SG3 tail channel counts, two channel blocks
+    (1, 9, 61, 81, 51, False),
+    (3, 37, 45, 17, 9, True),  # odd everything
+    (1, 31, 31, 64, 70, True),  # three channel blocks of 32
+])
+def test_kconv_kernel_matches_plain(cuda_device, dtype, b, h, w, ci, co, epilogue):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn(b, h, w, ci, generator=gen, device=cuda_device).to(dtype)
+    wt = torch.randn(3, 3, ci, co, generator=gen, device=cuda_device) * 0.1
+    kw = {}
+    if epilogue:
+        kw = dict(bias=torch.randn(co, generator=gen, device=cuda_device),
+                  style=torch.rand(b, ci, generator=gen, device=cuda_device) + 0.5,
+                  demod=torch.rand(b, co, generator=gen, device=cuda_device) + 0.5, alpha=0.2, gain=2**0.5)
+    K.reset_launches()
+    out = K.kconv3x3(x, wt, **kw)
+    torch.cuda.synchronize()
+    assert K.launches == 1
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        ref = K.kconv3x3_plain(x, wt, **kw)
+    assert out.shape == ref.shape == (b, h, w, co) and out.dtype == dtype
+    rtol = 2.0**-7 + 1e-5 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(out.float(), ref.float(), rtol=rtol, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_kconv_kernel_rejects_what_it_does_not_take(cuda_device):
+    x = torch.randn(1, 8, 8, 4, device=cuda_device)
+    w = torch.randn(3, 3, 4, 6, device=cuda_device)
+    with pytest.raises(TypeError):
+        K.kconv3x3(x.half(), w)
+    with pytest.raises(ValueError):
+        K.kconv3x3(x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1), w)  # NCHW memory
+    with pytest.raises(ValueError):
+        K.kconv3x3(x, w.cpu())
+    with pytest.raises(ValueError):
+        K.kconv3x3(x, torch.randn(1, 1, 4, 6, device=cuda_device))
+    with pytest.raises(ValueError):
+        K.kconv3x3(x, w, bias=torch.zeros(5, device=cuda_device))

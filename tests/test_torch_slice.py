@@ -268,6 +268,119 @@ def test_sg3_slice_runs_the_plain_path_on_the_cpu(sg3_slice):
     assert set(sg3_slice["stages"]) == {"audio_features", "mapper", "modulation", "render"}
 
 
+JAX_MEL_PATCH_HEADER = """
+import numpy as np
+import jax.numpy as jnp
+
+from maua_tpu.audiovisual import audioreactive as ar
+from maua_tpu.audiovisual.patches import primitives
+from maua_tpu.audiovisual.patches.base import StyleGAN2Patch
+
+
+def asarray(a, like):
+    return jnp.asarray(a)
+"""
+
+
+@pytest.fixture(scope="module")
+def mel_slice(tmp_path_factory):
+    """chip_smoke.py's mel-bearing patch (librosa onsets, tempo, pulse,
+    segmentation, volume, STFT chroma; tempo loops and weighted latents)
+    over 3 s of the mix with chords changing each second (A B A), at 4 fps:
+    12 frames of the 64^2 StyleGAN2 through each package's entry point.
+    The port's k-means gets JAX's initial centres (PRNGKey(0))."""
+    import chip_smoke
+    from maua_tpu import utility
+    from maua_tpu.audio import io as jax_io
+    from maua_tpu.audiovisual import generate as jax_generate
+    from maua_tpu.audiovisual.patches import base as jax_base
+    from maua_tpu_torch import bridge
+    from maua_tpu_torch.audio import segment as torch_segment
+    from maua_tpu_torch.audiovisual import generate as torch_generate
+    from maua_tpu_torch.gan.stylegan2 import SG2Config
+    from maua_tpu_torch.kernels import spectrogram as M
+
+    tmp = tmp_path_factory.mktemp("slice_mel")
+    y = synth(3.0)
+    t = np.arange(len(y)) / SR
+    for s, chord in enumerate(([220.0, 277.18, 329.63], [174.61, 220.0, 261.63], [220.0, 277.18, 329.63])):
+        part = slice(s * SR, (s + 1) * SR)
+        y[part] += sum(0.1 * np.sin(2 * np.pi * f * t[part]) for f in chord)
+    wav = str(tmp / "mix.wav")
+    wavfile.write(wav, SR, (y / np.abs(y).max() * 0.9).astype(np.float32))
+    (tmp / "mel_jax.py").write_text(JAX_MEL_PATCH_HEADER + chip_smoke.MEL_PATCH_BODY)
+    (tmp / "mel_torch.py").write_text(chip_smoke.MEL_PATCH_HEADER + chip_smoke.MEL_PATCH_BODY)
+
+    cfg = stylegan2.SG2Config(**KW)
+    params = random_jax_params(cfg, 1)
+    jax_patches, torch_patches = [], []
+
+    def recording(get_patch, store):
+        def wrapped(*a, **k):
+            cls = get_patch(*a, **k)
+
+            class Recorded(cls):
+                def process_audio(self):
+                    super().process_audio()
+                    store.append(self)
+
+            return Recorded
+
+        return wrapped
+
+    kmeans = torch_segment.kmeans
+
+    def kmeans_with_jax_init(X, k, n_iter=50, init_idx=None):
+        init = np.asarray(jax.random.choice(jax.random.PRNGKey(0), X.shape[0], (k,), replace=False))
+        return kmeans(X, k, n_iter, init_idx=init)
+
+    mp = pytest.MonkeyPatch()
+    try:
+        mp.setattr(utility, "WORKSPACE", str(tmp))
+        mp.setattr(jax_io, "WORKSPACE", str(tmp))
+        jax_sg2 = jax_base.StyleGAN2
+        mp.setattr(jax_base, "StyleGAN2", lambda *a, **k: jax_sg2(*a, cfg=cfg, params=params, **k))
+        mp.setattr(jax_generate, "get_patch_from_file", recording(jax_generate.get_patch_from_file, jax_patches))
+        mp.setattr(torch_generate, "get_patch_from_file",
+                   recording(torch_generate.get_patch_from_file, torch_patches))
+        mp.setattr(torch_segment, "kmeans", kmeans_with_jax_init)
+        video_jax, _ = jax_generate.generate_audiovisual_from_patch(
+            wav, None, str(tmp / "mel_jax.py"), renderer="memmap", fps=4, out_size=(64, 64))
+        M.reset_launches()
+        video_torch, _ = torch_generate.generate_audiovisual_from_patch(
+            wav, None, str(tmp / "mel_torch.py"), renderer="memmap", fps=4, out_size=(64, 64), device="cpu",
+            stylegan_kwargs=dict(cfg=SG2Config(**KW), params=bridge.params_to_torch(params)))
+        launches = M.launches
+    finally:
+        mp.undo()
+    return dict(video_jax=video_jax, video_torch=video_torch, jax_patch=jax_patches[-1],
+                torch_patch=torch_patches[-1], launches=launches)
+
+
+def test_mel_slice_frames_match_jax(mel_slice):
+    a = mel_slice["video_jax"].astype(np.float64)
+    b = mel_slice["video_torch"]
+    assert b.shape == a.shape == (12, 64, 64, 3) and b.dtype == np.uint8
+    mse = np.mean((a - b.astype(np.float64)) ** 2)
+    psnr = 10 * math.log10(255.0**2 / max(mse, 1e-12))
+    assert psnr >= 40.0, psnr
+    assert b.min() < b.max() and not np.array_equal(b[0], b[-1])
+    assert mel_slice["launches"] == 0  # the CPU runs the mel kernel's plain version
+
+
+@pytest.mark.parametrize("name,tol", [("onsets", 1e-5), ("pulse", 1e-5), ("volume", 1e-5), ("chroma", 1e-4),
+                                      ("sections", 0.0)])
+def test_mel_slice_envelopes_match_jax(mel_slice, name, tol):
+    """Envelopes in [0, 1]: 1e-5, and 1e-4 where the chroma filterbank
+    enters (float32 octaves in JAX, float64 in the port); the per-frame
+    sections exactly; the tempo to the BPM."""
+    ref = np.asarray(getattr(mel_slice["jax_patch"], name))
+    out = getattr(mel_slice["torch_patch"], name).numpy()
+    assert out.shape == ref.shape
+    np.testing.assert_allclose(out, ref, rtol=0, atol=tol)
+    assert mel_slice["torch_patch"].tempo == mel_slice["jax_patch"].tempo
+
+
 def test_cli_parses_the_reference_flags(tmp_path, monkeypatch, capsys):
     from maua_tpu_torch.__main__ import main
     from maua_tpu_torch.audiovisual import generate
