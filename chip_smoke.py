@@ -183,19 +183,30 @@ def nvidia_smi() -> str:
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
+# cuda_time_ms times back-to-back calls over at least this many ms: shorter windows of short kernels read
+# clock ramps and launch jitter
+TIME_WINDOW_MS = 20.0
+
+
 def cuda_time_ms(fn, iters: int = 20) -> float:
+    """Mean ms per call over back-to-back calls after 3 warm-ups: at least `iters` calls, more where those
+    take under TIME_WINDOW_MS."""
     import torch
 
     for _ in range(3):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    while True:
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end)
+        if ms >= TIME_WINDOW_MS or iters >= 10000:
+            return ms / iters
+        iters = min(10000, math.ceil(iters * 1.2 * TIME_WINDOW_MS / max(ms, 1e-3)))
 
 
 def epilogue_cases():
@@ -1206,7 +1217,10 @@ def main() -> int:
         "bound_ms": attn["image_f32"]["bound_ms"],
         "bound_by": attn["bound_by"],
         "library_ms": attn["image_f32"]["library_ms"],
-        "scope": f"the {10 * SD_STEPS + 1} launches of one 512^2 {SD_STEPS}-step SD 1.x image in f32",
+        "bf16_max_abs_err": attn["max_abs_err_bf16"],
+        **{f"bf16_{k}": attn["image_bf16"][k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        "scope": f"the {10 * SD_STEPS + 1} launches of one 512^2 {SD_STEPS}-step SD 1.x image in f32 (sd_e2e's "
+                 f"path, CUDA cores); bf16_*: the same launches in bf16 (the sd_steps path, tensor cores)",
     }, {
         "name": "melspectrogram",
         "route": "cuda",

@@ -1,5 +1,5 @@
 // SAME-padded stride-1 3x3 convolution with a fused modulated-conv
-// epilogue, NHWC input, HWIO weights, sm_90a.
+// epilogue, NHWC input, sm_90a.
 //
 // Replaces the Pallas TPU kernel `maua_tpu/kernels/kconv.py`
 // (`kconv3x3` -> `_kconv`, body from `_make_kernel`). For input x
@@ -18,23 +18,44 @@
 // (layers 11 and 12), under the 295 at which the card's bf16 tensor cores
 // (989 TFLOP/s over 3.35 TB/s) would outrun its memory: bytes bound. In
 // f32 (ridge 67 TFLOP/s over 3.35 TB/s, 20) and at RRDB's last growth conv
-// (192 -> 64 channels, 432 in bf16) it is operations bound. The TPU packed
-// the nine taps into the matmul contraction so that narrow channel counts
-// filled its matrix unit. This first design stays on the CUDA cores in f32
-// for both storage types, so in bf16 the 67 TFLOP/s of f32 FMAs, not the
-// bound, sets its time: a block owns an output tile of 8 rows x 16 columns
-// x 32 or 64 output channels of one image. Per chunk of 8 input channels it stages
-// the 10 x 18 input halo (style applied on load, zero outside the image)
-// and the 3 x 3 x 8 weight slice in shared memory as f32; each warp owns
-// one output row, each lane one (or two) output channels and 16 pixels
-// in registers, so every shared-memory read of the halo is a broadcast
-// and the weights are read conflict-free. Demod, bias and lrelu * gain
-// are applied on store. The launch goes on the caller's stream and
-// allocates nothing.
+// (192 -> 64 channels, 432 in bf16) it is operations bound. Two kernels:
+//
+// f32, `kconv_kernel` (on the CUDA cores, exact f32 products): a block
+// owns an output tile of 8 rows x 16 columns x 32 or 64 output channels
+// of one image. Per chunk of 8 input channels it stages the 10 x 18 input
+// halo (style applied on load, zero outside the image) and the 3 x 3 x 8
+// weight slice in shared memory as f32; each warp owns one output row,
+// each lane one (or two) output channels and 16 pixels in registers, so
+// every shared-memory read of the halo is a broadcast and the weights are
+// read conflict-free.
+//
+// bf16, `kconv_tc` (an implicit GEMM on the tensor cores, mma.sync
+// m16n8k16, f32 accumulate): a block owns 16 rows x 16 columns of one
+// image (M, one 16-pixel row per m16 tile, two rows per warp) x N = 64
+// output channels (32 where Co <= 32, so that 32-channel layers waste
+// none). The K loop walks the input channels in chunks of 16; per chunk
+// it stages the 18 x 18 x 16 halo and the 9 x 16 x N weight slice
+// in bf16 shared memory, double-buffered, and the nine taps are nine k16
+// steps of the MMA: the TPU kernel packed the taps into its matmul
+// contraction, here they are the MMA's K dimension. An A fragment's
+// ldmatrix rows are 16 neighbouring pixels of the halo at (row + dy,
+// column + dx); pixels are 24 bf16 (three 16-byte units) apart and weight
+// rows N + 8, odd unit counts, so every ldmatrix is conflict-free. The
+// weights come repacked by the wrapper as (Co / N, Ci / 16, 9, 16, N)
+// tiles, zero-padded, and arrive by 16-byte cp.async; the halo does too
+// where a pixel's channels are 16-byte aligned (Ci % 8 == 0), zero-filled
+// outside the image and past Ci, with the style multiplied in place after
+// the copy lands; otherwise (Ci = 81, 51 at the SG3 tail) by 2-byte
+// loads, eight in flight per thread, with the style applied on load.
+//
+// Both: demod, bias and lrelu * gain are applied on the f32 accumulators
+// at store. The launch goes on the caller's stream and allocates nothing.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
@@ -45,7 +66,7 @@ constexpr int kHaloR = kRows + 2, kHaloC = kCols + 2;
 
 struct Params {
   const void* x;         // (B, H, W, Ci)
-  const void* w;         // (3, 3, Ci, Co), x's type
+  const void* w;         // f32: (3, 3, Ci, Co); bf16: packed (Co / 64, Ci / 16, 9, 16, 64)
   const float* bias;     // (Co,) or null
   const float* style;    // (B, Ci) or null, already rounded to x's type
   const float* demod;    // (B, Co) or null
@@ -56,13 +77,8 @@ struct Params {
 };
 
 __device__ __forceinline__ float load(const float* p, long long i) { return __ldg(p + i); }
-__device__ __forceinline__ float load(const __nv_bfloat16* p, long long i) { return __bfloat162float(p[i]); }
 __device__ __forceinline__ float round_to(float v, const float*) { return v; }
-__device__ __forceinline__ float round_to(float v, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16(v));
-}
 __device__ __forceinline__ void store(float* p, long long i, float v) { p[i] = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, long long i, float v) { p[i] = __float2bfloat16(v); }
 
 template <typename T, int CJ>
 __global__ void __launch_bounds__(256) kconv_kernel(Params p) {
@@ -159,9 +175,271 @@ int launch(const Params& p0, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
+
+// ---- bf16 on the tensor cores ----
+
+using bf16 = __nv_bfloat16;
+constexpr int kTcChunk = 16;         // input channels per K step: one k16 of the MMA per tap
+constexpr int kPix = 24;             // bf16 per halo pixel in shared memory (48 bytes)
+constexpr int kRw = 2;               // output rows per warp: a block owns 8 * kRw rows
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) { return (unsigned)__cvta_generic_to_shared(p); }
+
+// 16 bytes from src, or zeros where `bytes` is 0 (src is then not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes = 16) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+// c += a b for one m16n8k16 tile: a is 16 x 16 (row), b 16 x 8 (col), bf16; c f32
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two bf16 (low half first) times s0, s1, each product rounded to bf16
+__device__ __forceinline__ unsigned scale_pair(unsigned v, float s0, float s1) {
+  __nv_bfloat162 r = __floats2bfloat162_rn(__uint_as_float(v << 16) * s0, __uint_as_float(v & 0xffff0000u) * s1);
+  return *reinterpret_cast<unsigned*>(&r);
+}
+
+constexpr int kTcHalo = (8 * kRw + 2) * (kCols + 2) * kPix;  // bf16 of one halo stage
+// bf16 per weight row (one input channel of one tap) for CO output channels: 80 or 144 bytes, odd unit counts
+__host__ __device__ constexpr int tc_wrow(int co) { return co + 8; }
+template <int CO>
+__host__ __device__ constexpr int tc_smem_bytes() {  // two stages of halo and weights
+  return 2 * (kTcHalo + 9 * kTcChunk * tc_wrow(CO)) * (int)sizeof(bf16);
+}
+
+// VEC: the halo by 16-byte cp.async (Ci % 8 == 0, x 16-byte aligned)
+template <bool VEC, int CO>
+__device__ __forceinline__ void kconv_tc_body(const Params& p) {
+  constexpr int HR = 8 * kRw + 2, HC = kCols + 2, HALO = kTcHalo;
+  constexpr int NT = CO / 8, WROW = tc_wrow(CO), WTILE = 9 * kTcChunk * WROW;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* xs = reinterpret_cast<bf16*>(smem_raw);  // [2][HR * HC][kPix]
+  bf16* ws = xs + 2 * HALO;                      // [2][9 * 16][WROW]
+
+  const bf16* x = static_cast<const bf16*>(p.x);
+  const bf16* w = static_cast<const bf16*>(p.w);
+  bf16* y = static_cast<bf16*>(p.y);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int w0 = blockIdx.x * kCols, h0 = blockIdx.y * 8 * kRw;
+  const int b = blockIdx.z / p.co_blocks, ct = blockIdx.z - b * p.co_blocks, co0 = ct * CO;
+  const int chunks = (p.Ci + kTcChunk - 1) / kTcChunk;
+  const bf16 zero = __float2bfloat16_rn(0.f);
+
+  // chunk c of the input channels into stage st: weights always by cp.async, the halo by cp.async (VEC)
+  // or by plain loads with the style applied
+  auto stage = [&](int c, int st) {
+    const bf16* wsrc = w + ((long long)ct * chunks + c) * (9 * kTcChunk * CO);
+    bf16* wdst = ws + st * WTILE;
+    for (int e = tid; e < 9 * kTcChunk * NT; e += 256)
+      cp_async16(wdst + (e / NT) * WROW + 8 * (e % NT), wsrc + 8 * e);
+    bf16* xdst = xs + st * HALO;
+    const int ci0 = c * kTcChunk;
+    if (VEC) {
+      for (int e = tid; e < HR * HC * 2; e += 256) {
+        const int pix = e >> 1, half = e & 1, r = pix / HC, col = pix - r * HC;
+        const int h = h0 + r - 1, ww = w0 + col - 1, ci = ci0 + 8 * half;
+        const bool in = ci < p.Ci && h >= 0 && h < p.H && ww >= 0 && ww < p.W;
+        const bf16* src = in ? x + (((long long)b * p.H + h) * p.W + ww) * p.Ci + ci : x;
+        cp_async16(xdst + pix * kPix + 8 * half, src, in ? 16 : 0);
+      }
+    } else {
+      // thread tid loads input channel ci0 + tid % 16 of every 16th halo pixel, eight loads in flight at once
+      constexpr int NPIX = HR * HC, PER = (NPIX + 15) / 16;
+      const int cl = tid & 15, ci = ci0 + cl;
+      const bool cin = ci < p.Ci;
+      const float sv = p.style && cin ? __ldg(p.style + (long long)b * p.Ci + ci) : 1.f;
+      const bf16* xb = x + (long long)b * p.H * p.W * p.Ci + ci;
+#pragma unroll 1
+      for (int i0 = 0; i0 < PER; i0 += 8) {
+        bf16 v[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int pix = (tid >> 4) + 16 * (i0 + i), r = pix / HC, col = pix - r * HC;
+          const int h = h0 + r - 1, ww = w0 + col - 1;
+          v[i] = zero;
+          if (pix < NPIX && cin && h >= 0 && h < p.H && ww >= 0 && ww < p.W) v[i] = xb[((long long)h * p.W + ww) * p.Ci];
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int pix = (tid >> 4) + 16 * (i0 + i);
+          if (pix < NPIX) xdst[pix * kPix + cl] = p.style ? __float2bfloat16_rn(__bfloat162float(v[i]) * sv) : v[i];
+        }
+      }
+    }
+  };
+  // VEC: each thread scales, in place, the 16-byte pieces of the halo that it copied itself (visible to it
+  // after its wait), before the barrier that publishes the stage
+  auto style_in_place = [&](int c, int st) {
+    bf16* xdst = xs + st * HALO;
+    for (int e = tid; e < HR * HC * 2; e += 256) {
+      const int ci = c * kTcChunk + 8 * (e & 1);
+      if (ci >= p.Ci) continue;
+      const float* sp = p.style + (long long)b * p.Ci + ci;
+      uint4* piece = reinterpret_cast<uint4*>(xdst + (e >> 1) * kPix + 8 * (e & 1));
+      uint4 v = *piece;
+      v.x = scale_pair(v.x, __ldg(sp), __ldg(sp + 1));
+      v.y = scale_pair(v.y, __ldg(sp + 2), __ldg(sp + 3));
+      v.z = scale_pair(v.z, __ldg(sp + 4), __ldg(sp + 5));
+      v.w = scale_pair(v.w, __ldg(sp + 6), __ldg(sp + 7));
+      *piece = v;
+    }
+  };
+
+  float acc[kRw][NT][4];
+#pragma unroll
+  for (int i = 0; i < kRw; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
+
+  // ldmatrix row addresses of this lane: A, 16 pixels x 16 channels of the halo; B (via .trans), 16 input
+  // channels x two n8 tiles of output channels
+  const int a_off = (lane & 15) * kPix + (lane >> 4) * 8;
+  const int b_off = ((lane & 7) + ((lane >> 3) & 1) * 8) * WROW + (lane >> 4) * 8;
+
+  stage(0, 0);
+  cp_async_commit();
+  for (int c = 0; c < chunks; ++c) {
+    const int st = c & 1;
+    if (c + 1 < chunks) {  // the next chunk into the other stage, freed by the barrier that ended step c - 1
+      stage(c + 1, st ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    if (VEC && p.style) style_in_place(c, st);
+    __syncthreads();
+    const bf16* xt = xs + st * HALO + warp * kRw * HC * kPix + a_off;
+    const bf16* wt = ws + st * WTILE + b_off;
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const int dy = tap / 3, dx = tap - 3 * dy;
+      unsigned bf[NT / 2][4];
+#pragma unroll
+      for (int n = 0; n < NT / 2; ++n) ldmatrix_x4_trans(bf[n], wt + tap * kTcChunk * WROW + 16 * n);
+#pragma unroll
+      for (int i = 0; i < kRw; ++i) {
+        unsigned a[4];
+        ldmatrix_x4(a, xt + ((i + dy) * HC + dx) * kPix);
+#pragma unroll
+        for (int n = 0; n < NT / 2; ++n) {
+          mma_bf16(acc[i][2 * n], a, bf[n][0], bf[n][1]);
+          mma_bf16(acc[i][2 * n + 1], a, bf[n][2], bf[n][3]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before step c + 1 refills it
+  }
+
+  // lane (g, t) holds pixels g and g + 8 of its row, output channels 8 j + 2 t and + 1
+  const int g = lane >> 2, t2 = 2 * (lane & 3);
+  const bool pairs = p.Co % 2 == 0;  // bf16 pairs are 4-byte aligned
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const int co = co0 + 8 * j + t2;
+    if (co >= p.Co) continue;
+    const bool two = co + 1 < p.Co;
+    const float dm0 = p.demod ? __ldg(p.demod + (long long)b * p.Co + co) : 1.f;
+    const float dm1 = p.demod && two ? __ldg(p.demod + (long long)b * p.Co + co + 1) : 1.f;
+    const float bs0 = p.bias ? __ldg(p.bias + co) : 0.f;
+    const float bs1 = p.bias && two ? __ldg(p.bias + co + 1) : 0.f;
+#pragma unroll
+    for (int i = 0; i < kRw; ++i) {
+      const int h = h0 + warp * kRw + i;
+      if (h >= p.H) continue;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int ww = w0 + g + 8 * half;
+        if (ww >= p.W) continue;
+        float v0 = acc[i][j][2 * half] * dm0 + bs0, v1 = acc[i][j][2 * half + 1] * dm1 + bs1;
+        if (p.has_act) {
+          v0 = (v0 >= 0.f ? v0 : v0 * p.alpha) * p.gain;
+          v1 = (v1 >= 0.f ? v1 : v1 * p.alpha) * p.gain;
+        }
+        bf16* dst = y + (((long long)b * p.H + h) * p.W + ww) * p.Co + co;
+        if (pairs) {
+          *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v0, v1);
+        } else {
+          dst[0] = __float2bfloat16_rn(v0);
+          if (two) dst[1] = __float2bfloat16_rn(v1);
+        }
+      }
+    }
+  }
+}
+
+// ptxas picks each instance's registers. Built as `kconv_tc`, the 64-channel instance with 2-byte halo loads
+// came out with more than 128 registers (one block an SM) or with spills on an H100; `kconv_tc_capped` asks
+// for two blocks an SM (at most 128 registers), which builds it without spills, and slows the others.
+template <bool VEC, int CO>
+__global__ void __launch_bounds__(256) kconv_tc(Params p) { kconv_tc_body<VEC, CO>(p); }
+template <bool VEC, int CO>
+__global__ void __launch_bounds__(256, 2) kconv_tc_capped(Params p) { kconv_tc_body<VEC, CO>(p); }
+
+template <bool VEC, int CO>
+int launch_tc_instance(const Params& p, dim3 grid, cudaStream_t s) {
+  void (*kernel)(Params);
+  if constexpr (CO == 64 && !VEC) kernel = kconv_tc_capped<VEC, CO>;
+  else kernel = kconv_tc<VEC, CO>;
+  static std::atomic<unsigned long long> allowed{0};  // devices on which its shared memory was allowed
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= 64) return 1006;
+  if (!(allowed.load() >> dev & 1ull)) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, tc_smem_bytes<CO>());
+    if (err != cudaSuccess) return (int)err;
+    allowed.fetch_or(1ull << dev);
+  }
+  kernel<<<grid, 256, tc_smem_bytes<CO>(), s>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <int CO>
+int launch_tc_width(const Params& p0, cudaStream_t s) {
+  Params p = p0;
+  p.co_blocks = (p.Co + CO - 1) / CO;
+  const long long nz = (long long)p.B * p.co_blocks;
+  if (nz > 65535) return 1003;
+  const bool vec = p.Ci % 8 == 0 && reinterpret_cast<uintptr_t>(p.x) % 16 == 0;
+  dim3 grid((p.W + kCols - 1) / kCols, (p.H + 8 * kRw - 1) / (8 * kRw), (unsigned)nz);
+  return vec ? launch_tc_instance<true, CO>(p, grid, s) : launch_tc_instance<false, CO>(p, grid, s);
+}
+
+// output tiles of 32 channels where Co <= 32, else 64 (the layout `pack_weights` gives the weights)
+int launch_tc(const Params& p, cudaStream_t s) {
+  return p.Co <= 32 ? launch_tc_width<32>(p, s) : launch_tc_width<64>(p, s);
+}
+
 }  // namespace
 
-// dtype 0 = f32, 1 = bf16. Returns 0, a cudaError_t, 1003 (bad sizes) or 1004 (bad dtype).
+// dtype 0 = f32 with w (3, 3, Ci, Co); 1 = bf16 with w packed as (ceil(Co / T), ceil(Ci / 16), 9, 16, T),
+// zero-padded, 16-byte aligned, T = 32 where Co <= 32, else 64. Returns 0, a cudaError_t, 1003 (bad sizes) or 1004 (bad dtype).
 extern "C" int maua_kconv3x3(const void* x, const void* w, const float* bias, const float* style, const float* demod,
                              void* y, int dtype, int B, int H, int W, int Ci, int Co, float alpha, float gain,
                              int has_act, void* stream) {
@@ -169,6 +447,6 @@ extern "C" int maua_kconv3x3(const void* x, const void* w, const float* bias, co
   Params p{x, w, bias, style, demod, y, B, H, W, Ci, Co, 0, alpha, gain, has_act};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch<float>(p, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(p, s);
+  if (dtype == 1) return launch_tc(p, s);
   return 1004;
 }

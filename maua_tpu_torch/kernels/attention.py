@@ -16,9 +16,10 @@ exactly:
   contiguous first;
 - everything else -> `attention_xla`.
 
-`flash_attention_fused` launches the hand-written CUDA kernel
-(`maua_tpu_torch/csrc/attention.cu`) for CUDA tensors and raises on what
-it does not take; CPU tensors take its plain PyTorch version,
+`flash_attention_fused` launches the hand-written CUDA kernels
+(`maua_tpu_torch/csrc/attention.cu`: f32 on the CUDA cores, bf16 on the
+tensor cores) for CUDA tensors and raises on what it does not take; CPU
+tensors take its plain PyTorch version,
 `flash_attention_plain`, which computes what the TPU kernel's bodies
 compute: f32 scores and row sums, p = exp(s - max) rounded to the input
 dtype before the p.v product, the output in q's dtype.
@@ -38,6 +39,7 @@ MAX_HEAD_DIM = 512
 # above this sequence length the reference sends self-attention to the flash kernel
 _PACKED_MAX_SEQ = 4096
 
+_STRIDES = ctypes.c_longlong * 12  # batch, head and row strides of q, k, v and o
 # launches of the CUDA kernel since the last reset (the plain path does not count)
 launches = 0
 _fn = None
@@ -97,16 +99,19 @@ def _check(q, k, v):
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} and v {tuple(v.shape)} do not match")
 
 
-def _strides(t: torch.Tensor):
-    """Batch, head and row strides in elements (0 along a dimension of size 1, whose stride is never used)."""
-    return tuple(0 if n == 1 else s for n, s in zip(t.shape[:3], t.stride()[:3]))
-
-
-def _takes_layout(t: torch.Tensor) -> bool:
-    """The kernel reads D at unit stride, other strides in multiples of 4 elements (rows under 2^24 apart),
-    from 16-byte aligned storage."""
-    strides = _strides(t)
-    return t.stride(3) == 1 and not any(s % 4 for s in strides) and strides[2] < 2**24 and t.data_ptr() % 16 == 0
+def _layout(t: torch.Tensor):
+    """Batch, head and row strides in elements (0 along a dimension of size 1, whose stride is never used)
+    where the kernel takes t's layout, else None. The kernel copies rows in 16-byte pieces: D at unit
+    stride, other strides in multiples of 16 bytes (4 f32 or 8 bf16 elements; rows under 2^24 elements
+    apart), from 16-byte aligned storage."""
+    n0, n1, n2, _ = t.shape
+    s0, s1, s2, s3 = t.stride()
+    strides = (0 if n0 == 1 else s0, 0 if n1 == 1 else s1, 0 if n2 == 1 else s2)
+    e = t.element_size()
+    if s3 != 1 or strides[0] * e % 16 or strides[1] * e % 16 or strides[2] * e % 16 or strides[2] >= 2**24 \
+            or t.data_ptr() % 16:
+        return None
+    return strides
 
 
 def flash_attention_fused(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
@@ -130,14 +135,17 @@ def flash_attention_fused(q, k, v, scale: Optional[float] = None) -> torch.Tenso
                          f"{MAX_HEAD_DIM}, got Nq {nq}, Nk {nk}, D {d}")
     if b * h > 65535:
         raise ValueError(f"flash attention takes at most 65535 batch-heads, got {b * h}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if not _takes_layout(t):
-            raise ValueError(f"{name} must have unit stride along D, other strides in multiples of 4, rows under "
-                             f"2^24 apart and 16-byte aligned storage, got strides {t.stride()}")
+    layouts = [_layout(t) for t in (q, k, v)]
+    for name, t, lay in zip("qkv", (q, k, v), layouts):
+        if lay is None:
+            raise ValueError(f"{name} must have unit stride along D, other strides in multiples of 16 bytes, rows "
+                             f"under 2^24 elements apart and 16-byte aligned storage, got strides {t.stride()}")
     o = torch.empty_like(q)  # keeps q's strides where q is a permuted dense tensor
-    if not _takes_layout(o):
+    lay = _layout(o)
+    if lay is None:
         o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, o) for s in _strides(t)))
+        lay = _layout(o)
+    strides = _STRIDES(*layouts[0], *layouts[1], *layouts[2], *lay)
     err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), _DTYPES[q.dtype], b, h, nq, nk, d,
                     _scale(q, scale), strides, torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
@@ -159,7 +167,7 @@ def route(q_shape, k_shape) -> str:
 
 
 def _kernel_layout(t: torch.Tensor) -> torch.Tensor:
-    if _takes_layout(t):
+    if _layout(t) is not None:
         return t
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()

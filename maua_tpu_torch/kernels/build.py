@@ -55,8 +55,8 @@ def build(name: str) -> Path:
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}\n{proc.stderr}")
-    PTXAS_REPORT[name] = "\n".join(
-        line for line in (proc.stdout + proc.stderr).splitlines() if "ptxas" in line)
+    PTXAS_REPORT[name] = "\n".join(  # each kernel's registers, shared memory, stack and spills
+        line.strip() for line in (proc.stdout + proc.stderr).splitlines() if "ptxas" in line or "spill" in line)
     os.replace(tmp, out)
     return out
 

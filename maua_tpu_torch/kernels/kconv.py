@@ -12,9 +12,11 @@ with each of style, demod and bias optional, f32 or bf16 storage and f32
 accumulation, the output in x's dtype. The input style product is rounded
 to x's dtype and the weights are cast to it, as the TPU kernel does.
 
-The CUDA source is `maua_tpu_torch/csrc/kconv.cu`. `kconv3x3` launches it
-for CUDA tensors and raises on what it does not take; CPU tensors take
-the plain PyTorch version, `kconv3x3_plain` (an f32 `F.conv2d` of the
+The CUDA source is `maua_tpu_torch/csrc/kconv.cu`: f32 on the CUDA cores,
+bf16 as an implicit GEMM on the tensor cores, which reads its weights in
+the tile layout that `pack_weights` makes (one small copy per call).
+`kconv3x3` launches it for CUDA tensors and raises on what it does not
+take; CPU tensors take the plain PyTorch version, `kconv3x3_plain` (an f32 `F.conv2d` of the
 styled input, then the epilogue), which is also what the kernel is held
 against on the card. The TPU's tiling knobs (`band_r`, `interpret`,
 `MAUA_KCONV_R`) have no counterpart. No module of the port calls it: it
@@ -52,6 +54,26 @@ def _kernel():
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
+
+
+TILE_CI = 16  # the bf16 kernel's input channels per step, for each of the nine taps
+
+
+def tile_co(co: int) -> int:
+    """The bf16 kernel's output channels per block: 32 where Co <= 32, else 64."""
+    return 32 if co <= 32 else 64
+
+
+def pack_weights(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """HWIO (3, 3, Ci, Co) -> (ceil(Co / T), ceil(Ci / 16), 9, 16, T) in `dtype`, zero-padded, T = tile_co(Co):
+    tile [n, c, tap, i, j] is w[tap // 3, tap % 3, 16 c + i, T n + j], the bf16 kernel's weight slice for
+    output tile n and input chunk c, whole and contiguous."""
+    _, _, ci, co = w.shape
+    t = tile_co(co)
+    nci, nco = -(-ci // TILE_CI), -(-co // t)
+    wp = torch.zeros(9, nci * TILE_CI, nco * t, dtype=dtype, device=w.device)
+    wp[:, :ci, :co] = w.reshape(9, ci, co).to(dtype)
+    return wp.view(9, nci, TILE_CI, nco, t).permute(3, 1, 0, 2, 4).contiguous()
 
 
 def kconv3x3_plain(x, w, bias=None, style=None, demod=None, alpha=None, gain=1.0):
@@ -105,8 +127,9 @@ def kconv3x3(
         raise ValueError("all tensors must be on the device of x")
     b, h, wd, ci = x.shape
     co = w.shape[3]
-    # the weights in x's dtype; the per-channel vectors in f32, the style rounded to x's dtype first
-    wk = w.to(x.dtype).contiguous()
+    # the weights in x's dtype (bf16: in the kernel's tiles); the per-channel vectors in f32, the style
+    # rounded to x's dtype first
+    wk = pack_weights(w, x.dtype) if x.dtype == torch.bfloat16 else w.to(x.dtype).contiguous()
     bias32 = None if bias is None else bias.float().contiguous()
     style32 = None if style is None else style.to(x.dtype).float().contiguous()
     demod32 = None if demod is None else demod.float().contiguous()

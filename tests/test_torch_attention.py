@@ -161,3 +161,20 @@ def test_flash_wrapper_rejects_bad_shapes():
         T.flash_attention_fused(q, torch.zeros(1, 2, 256, 32), torch.zeros(1, 2, 256, 32))
     with pytest.raises(ValueError):
         T.flash_attention_fused(q[0], q[0], q[0])
+
+
+@pytest.mark.parametrize("dtype,row_stride,takes", [(torch.bfloat16, 4, False), (torch.bfloat16, 12, False),
+                                                    (torch.bfloat16, 8, True), (torch.float32, 4, True),
+                                                    (torch.float32, 12, True)])
+def test_kernel_layout_check_counts_bytes(dtype, row_stride, takes):
+    """The kernel copies rows in 16-byte pieces: a row stride of 4 elements is 16 bytes in f32, 8 in bf16.
+    On the route (D a multiple of 8) the dispatcher makes what the kernel does not take contiguous, and
+    leaves the rest in place."""
+    d = 4 if row_stride == 4 else 8
+    t = torch.zeros(1, 1, 256, row_stride, dtype=dtype)[..., :d]
+    assert t.stride(2) == row_stride
+    assert (T._layout(t) is not None) is takes
+    if d % 8 == 0:
+        laid = T._kernel_layout(t)
+        assert torch.equal(laid, t) and T._layout(laid) is not None
+        assert (laid.data_ptr() == t.data_ptr()) is takes

@@ -131,6 +131,11 @@ def test_filtered_lrelu_kernel_rejects_what_it_does_not_take(cuda_device):
     ((1, 1, 4096, 512), (1, 1, 4096, 512)),  # the VAE decoder's mid attention
     ((1, 3, 512, 64), (1, 3, 512, 64)),  # odd batch-heads
     ((1, 2, 256, 24), (1, 2, 768, 24)),  # Nq != Nk, D not a multiple of 16
+    ((2, 2, 256, 8), (2, 2, 256, 8)),  # the smallest D
+    ((1, 1, 512, 40), (1, 1, 512, 40)),  # one head: the kernel route, not the packed one
+    ((1, 2, 256, 136), (1, 2, 256, 136)),  # not a multiple of 16, above 128
+    ((1, 1, 256, 264), (1, 1, 512, 264)),  # not a multiple of 16, above 256: three output slices
+    ((1, 2, 256, 64), (1, 2, 4096, 64)),  # few queries, many keys
 ])
 def test_flash_attention_kernel_matches_plain(cuda_device, dtype, shape_q, shape_kv):
     gen = torch.Generator(device=cuda_device).manual_seed(0)
@@ -167,6 +172,23 @@ def test_flash_attention_kernel_reads_the_unet_layout(cuda_device, dtype, b, n, 
     q, k, v = (torch.randn(b, n, h * d, generator=gen, device=cuda_device).to(dtype).view(b, n, h, d).transpose(1, 2)
                for _ in range(3))
     _check_flash_attention((q * q_scale).to(dtype), k, v)
+
+
+@pytest.mark.cuda
+def test_attention_makes_a_misaligned_bf16_view_contiguous(cuda_device):
+    """A bf16 row stride of 68 elements (a multiple of 4, not of 8) is not 16 bytes: the dispatcher hands
+    the kernel a contiguous copy, and the result still matches."""
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    q, k, v = (torch.randn(1, 1, 256, 68, generator=gen, device=cuda_device).to(torch.bfloat16)[..., :64]
+               for _ in range(3))
+    assert A.route(q.shape, k.shape) == "kernel" and A._layout(q) is None
+    A.reset_launches()
+    out = A.attention(q, k, v)
+    torch.cuda.synchronize()
+    assert A.launches == 1
+    ref = A.flash_attention_plain(q, k, v).float()
+    tol = 2.0**-7 * ref.abs() + 2.0**-5 * ref.pow(2).mean().sqrt()
+    assert bool(((out.float() - ref).abs() <= tol).all())
 
 
 @pytest.mark.cuda
@@ -275,6 +297,51 @@ def test_kconv_kernel_matches_plain(cuda_device, dtype, b, h, w, ci, co, epilogu
     assert out.shape == ref.shape == (b, h, w, co) and out.dtype == dtype
     rtol = 2.0**-7 + 1e-5 if dtype == torch.bfloat16 else 1e-5
     torch.testing.assert_close(out.float(), ref.float(), rtol=rtol, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ci", [5, 17, 81])
+@pytest.mark.parametrize("co", [3, 9, 51, 72])
+def test_kconv_bf16_kernel_tile_edges(cuda_device, ci, co):
+    """The tensor-core kernel's edges: ragged input chunks of 16 and output tiles of 64, a width not a
+    multiple of 16, a height not a multiple of 16 (a block's rows), three images, a style without demod."""
+    gen = torch.Generator(device=cuda_device).manual_seed(ci * 100 + co)
+    b, h, w = 3, 19, 37
+    x = torch.randn(b, h, w, ci, generator=gen, device=cuda_device).to(torch.bfloat16)
+    wt = torch.randn(3, 3, ci, co, generator=gen, device=cuda_device) * 0.1
+    kw = dict(style=torch.rand(b, ci, generator=gen, device=cuda_device) + 0.5,
+              bias=torch.randn(co, generator=gen, device=cuda_device))
+    _check_kconv_bf16(x, wt, kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,ci,co,style,offset", [
+    (2, 150, 250, 32, 64, True, 0),  # 16-byte copies, style in place
+    (2, 150, 250, 81, 51, True, 0),  # scalar loads
+    (2, 150, 250, 48, 40, False, 0),  # 16-byte copies, no style
+    (1, 21, 45, 32, 24, True, 1),  # Ci % 8 == 0 but x not 16-byte aligned: scalar loads
+    (1, 9, 16, 24, 130, False, 0),  # Ci = 24: a chunk half past Ci, zero-filled; three output tiles
+])
+def test_kconv_bf16_kernel_load_paths(cuda_device, b, h, w, ci, co, style, offset):
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    n = b * h * w * ci
+    x = torch.randn(n + offset, generator=gen, device=cuda_device).to(torch.bfloat16)[offset:].view(b, h, w, ci)
+    wt = torch.randn(3, 3, ci, co, generator=gen, device=cuda_device) * 0.1
+    kw = dict(demod=torch.rand(b, co, generator=gen, device=cuda_device) + 0.5, alpha=0.2)
+    if style:
+        kw["style"] = torch.rand(b, ci, generator=gen, device=cuda_device) + 0.5
+    _check_kconv_bf16(x, wt, kw)
+
+
+def _check_kconv_bf16(x, wt, kw):
+    K.reset_launches()
+    out = K.kconv3x3(x, wt, **kw)
+    torch.cuda.synchronize()
+    assert K.launches == 1
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        ref = K.kconv3x3_plain(x, wt, **kw)
+    assert out.shape == ref.shape and out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2.0**-7 + 1e-5, atol=1e-5)
 
 
 @pytest.mark.cuda

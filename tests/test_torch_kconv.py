@@ -69,3 +69,28 @@ def test_cpu_tensors_take_the_plain_version_and_shapes_are_checked():
         K.kconv3x3(torch.from_numpy(x), torch.from_numpy(wt), style=t["style"][:, :2])
     with pytest.raises(ValueError):
         K.kconv3x3(torch.from_numpy(x[0]), torch.from_numpy(wt))
+
+
+@pytest.mark.parametrize("ci,co", [(81, 51), (51, 32), (32, 32), (5, 3), (17, 72), (192, 64)])
+def test_packed_weights_rebuild_the_conv(ci, co):
+    """The bf16 kernel's weight tiles, contracted by im2col in the kernel's K order (per input chunk of 16,
+    the nine taps), give the plain version's conv; padding of Ci and Co is zero."""
+    x, wt, _ = inputs(2, 7, 9, ci, co, 3, False)
+    xt, wtt = torch.from_numpy(x), torch.from_numpy(wt)
+    wp = K.pack_weights(wtt, torch.float32)
+    t = K.tile_co(co)
+    assert t == (32 if co <= 32 else 64)
+    nco, nci = -(-co // t), -(-ci // K.TILE_CI)
+    assert wp.shape == (nco, nci, 9, K.TILE_CI, t) and wp.is_contiguous()
+    # the weight matrix, rows (tap, input channel) and columns output channels, both zero-padded
+    wmat = wp.permute(2, 1, 3, 0, 4).reshape(9, nci * K.TILE_CI, nco * t)
+    assert not wmat[:, ci:].any() and not wmat[:, :, co:].any()
+    xpad = torch.nn.functional.pad(xt, (0, nci * K.TILE_CI - ci, 1, 1, 1, 1))
+    cols = torch.stack([xpad[:, dy:dy + 7, dx:dx + 9] for dy in range(3) for dx in range(3)], dim=3)
+    y = torch.zeros(2, 7, 9, nco * t, dtype=torch.float64)
+    for c in range(nci):  # the kernel's K loop: a chunk of 16 input channels, then its nine taps
+        sl = slice(c * K.TILE_CI, (c + 1) * K.TILE_CI)
+        y += torch.einsum("bhwtc,tcn->bhwn", cols[..., sl].double(), wmat[:, sl].double())
+    torch.testing.assert_close(y[..., :co].float(), K.kconv3x3_plain(xt, wtt), rtol=1e-5, atol=1e-5)
+    assert torch.equal(K.pack_weights(wtt, torch.bfloat16).float(),
+                       K.pack_weights(wtt.to(torch.bfloat16).float(), torch.float32))
