@@ -14,8 +14,9 @@ Phases, each printed as one JSON line with its elapsed seconds:
    event times beside the memory-bytes bound and the plain version.
 4. flrelu: the filtered-lrelu kernel against its plain PyTorch version
    at the 13 shapes of a 1024^2 StyleGAN3 frame batch, in bf16 at batch
-   8 with the affines synthesis passes and in f32 at batch 1, plus its
-   option cases; CUDA event times beside the bound and the plain version.
+   8 with the affines and the centre crops synthesis passes and in f32 at
+   batch 1, plus its option cases; CUDA event times beside the bound (of
+   the kept outputs) and the plain version.
 5. e2e: the audio-reactive video (ExampleSG2Patch, memmap renderer) of a
    3 s synthetic wav made from a seed, at 24 fps, through a random-init
    full-width StyleGAN2 (config-f, 1024^2, bf16 top resolutions), with
@@ -281,19 +282,30 @@ def check_epilogue():
             "frame_batch_bound_ms": batch_bound_ms}
 
 
-def flrelu_macs(b: int, c: int, h: int, w: int, up: int) -> int:
+def flrelu_macs(b: int, c: int, h: int, w: int, up: int, crop=None) -> int:
     """Multiply-adds of the direct separable polyphase form for one call:
     up-FIR along H (6 per tmp row sample at the input width), along W (6
     per tmp sample), down-FIR along W (12 per sample at the output width)
-    and along H (12 per output sample)."""
+    and along H (12 per output sample); with a `crop` window, the share of
+    them that its kept outputs take."""
     ht, wt, ho, wo = h * up, w * up, h * up // 2, w * up // 2
-    return b * c * (ht * w * 6 + ht * wt * 6 + ht * wo * 12 + ho * wo * 12)
+    macs = b * c * (ht * w * 6 + ht * wt * 6 + ht * wo * 12 + ho * wo * 12)
+    return macs if crop is None else macs * crop[2] * crop[3] // (ho * wo)
+
+
+def flrelu_call(FL, x, up_f, down_f, up, crop, kw, plain=False):
+    """One filtered lrelu as StyleGAN3's synthesis makes it: the kept window
+    of the output, contiguous."""
+    fn = FL.filtered_lrelu_plain if plain else FL.filtered_lrelu
+    return fn(x, up_f, down_f, up, 2, crop=crop, **kw)
 
 
 def flrelu_cases():
-    """(label, B, C, H, W, up, up_f, down_f, dtype, pre, post) of the 13
-    filtered-lrelu launches of one 1024^2 StyleGAN3 frame batch in bf16
-    at batch 8, the same 13 in f32 at batch 1, then the option cases."""
+    """(label, B, C, H, W, up, up_f, down_f, dtype, pre, post, crop) of the
+    13 filtered-lrelu launches of one 1024^2 StyleGAN3 frame batch in bf16
+    at batch 8 (each with the centre crop to the next canvas that the
+    synthesis asks of it), the same 13 in f32 at batch 1, then the option
+    cases."""
     import torch
 
     from maua_tpu_torch.gan.stylegan3 import SG3Config, resample_plan
@@ -304,15 +316,20 @@ def flrelu_cases():
     cases = []
     for dtype, b in ((torch.bfloat16, BATCH), (torch.float32, 1)):
         tag = "bf16" if dtype == torch.bfloat16 else "f32"
-        for i, (up, _, up_f, down_f, _) in enumerate(plan):
+        for i, (up, _, up_f, down_f, out_size) in enumerate(plan):
             s = int(sizes[i])
-            cases.append((f"L{i}-{tag}", b, int(channels[i + 1]), s, s, up, up_f, down_f, dtype, True, True))
+            full = s * up // 2
+            o = (full - out_size) // 2
+            crop = (o, o, out_size, out_size) if full > out_size else None
+            cases.append((f"L{i}-{tag}", b, int(channels[i + 1]), s, s, up, up_f, down_f, dtype, True, True, crop))
     up, _, up_f, down_f, _ = plan[8]  # 276^2 -> 552^2, 128 channels
     for label, pre, post in (("no-affines", False, False), ("pre-only", True, False), ("post-only", False, True)):
-        cases.append((label, BATCH, 128, 276, 276, up, up_f, down_f, torch.bfloat16, pre, post))
+        cases.append((label, BATCH, 128, 276, 276, up, up_f, down_f, torch.bfloat16, pre, post, None))
     for up in (2, 4):
         _, _, up_f, down_f, _ = next(p for p in plan if p[0] == up)
-        cases.append((f"odd-up{up}", 3, 5, 37, 45, up, up_f, down_f, torch.float32, True, True))
+        cases.append((f"odd-up{up}", 3, 5, 37, 45, up, up_f, down_f, torch.float32, True, True, None))
+        cases.append((f"odd-crop-up{up}", 3, 5, 37, 45, up, up_f, down_f, torch.bfloat16, True, True,
+                      (2, 4, 37 * up // 2 - 5, 45 * up // 2 - 7)))
     return cases
 
 
@@ -329,7 +346,7 @@ def check_flrelu():
     rows, worst = [], 0.0
     batch = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "ops_bound_ms": 0.0}
     with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):  # the plain version's convs in full f32
-        for label, b, c, h, w, up, up_f, down_f, dtype, pre, post in flrelu_cases():
+        for label, b, c, h, w, up, up_f, down_f, dtype, pre, post, crop in flrelu_cases():
             def rnd(*shape):
                 return torch.randn(*shape, generator=gen, device="cuda")
 
@@ -339,8 +356,8 @@ def check_flrelu():
                 kw = dict(pre_scale=torch.rand(b, c, generator=gen, device="cuda") + 0.5, pre_add=rnd(b, c) * 0.1)
             if post:
                 kw["post_scale"] = torch.rand(b, c, generator=gen, device="cuda") + 0.5
-            out = FL.filtered_lrelu(x, up_f, down_f, up, 2, **kw)
-            ref = FL.filtered_lrelu_plain(x, up_f, down_f, up, 2, **kw)
+            out = flrelu_call(FL, x, up_f, down_f, up, crop, kw)
+            ref = flrelu_call(FL, x, up_f, down_f, up, crop, kw, plain=True)
             torch.cuda.synchronize()
             if out.shape != ref.shape or out.dtype != ref.dtype:
                 raise AssertionError(f"flrelu {label}: {tuple(out.shape)} {out.dtype} vs {tuple(ref.shape)} {ref.dtype}")
@@ -352,18 +369,19 @@ def check_flrelu():
             if not ok:
                 raise AssertionError(f"flrelu {label} disagrees with its plain version: max abs err {err}")
             del ref, diff, out
-            # read x once, write y (up^2 / 4 times x's size) once, and the per-plane scalars
-            nbytes = x.numel() * x.element_size() * (1 + up * up // 4) + 4 * b * c * len(kw)
+            # read x once, write the kept window of y once, and the per-plane scalars
+            kept = crop[2] * crop[3] if crop else h * w * up * up // 4
+            nbytes = (x.numel() + b * c * kept) * x.element_size() + 4 * b * c * len(kw)
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            macs = flrelu_macs(b, c, h, w, up)
+            macs = flrelu_macs(b, c, h, w, up, crop)
             ops_ms = 2 * macs / F32_FLOPS * 1e3
-            ms = cuda_time_ms(lambda: FL.filtered_lrelu(x, up_f, down_f, up, 2, **kw))
-            plain_ms = cuda_time_ms(lambda: FL.filtered_lrelu_plain(x, up_f, down_f, up, 2, **kw), iters=3)
+            ms = cuda_time_ms(lambda: flrelu_call(FL, x, up_f, down_f, up, crop, kw))
+            plain_ms = cuda_time_ms(lambda: flrelu_call(FL, x, up_f, down_f, up, crop, kw, plain=True), iters=3)
             bound_ms = max(bytes_ms, ops_ms)
-            rows.append({"case": label, "shape": [b, c, h, w], "up": up, "dtype": str(dtype).split(".")[-1],
+            rows.append({"case": label, "shape": [b, c, h, w], "up": up, "crop": crop, "dtype": str(dtype).split(".")[-1],
                          "affines": sorted(kw), "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                          "bound_ms": bound_ms, "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                         "bytes": nbytes, "macs": macs})
+                         "share_of_bound": bound_ms / ms, "bytes": nbytes, "macs": macs})
             if label.endswith("-bf16"):
                 batch["ms"] += ms
                 batch["plain_ms"] += plain_ms

@@ -74,11 +74,14 @@ def _median_last(x: torch.Tensor) -> torch.Tensor:
     return 0.5 * (srt[..., k // 2 - 1] + srt[..., k // 2])
 
 
-def nn_filter_cosine_median(x: torch.Tensor, k: Optional[int] = None, chunk: int = 2048) -> torch.Tensor:
-    """Replace each frame of x (d, T) by the median of its k most
-    cosine-similar other frames (librosa.decompose.nn_filter), in row
-    chunks so the (T, T) similarity never exists whole."""
-    d, t = x.shape
+def nn_neighbours(x: torch.Tensor, k: Optional[int] = None, chunk: int = 2048) -> torch.Tensor:
+    """(T, k) indices of the k most cosine-similar other frames of x (d, T),
+    most similar first, in row chunks so the (T, T) similarity never
+    exists whole. Exact ties go to the lower frame index, as
+    `jax.lax.top_k` breaks them, so the choice does not depend on the
+    thread count; near-ties (equal up to f32 roundoff) can still fall
+    either way between two libraries."""
+    t = x.shape[1]
     if k is None:
         k = min(t - 1, int(2 * np.ceil(np.sqrt(t))))
     xn = x / x.norm(dim=0, keepdim=True).clamp_min(1e-10)
@@ -88,9 +91,15 @@ def nn_filter_cosine_median(x: torch.Tensor, k: Optional[int] = None, chunk: int
         sim = rows @ xn  # (c, T)
         idx = torch.arange(rows.shape[0], device=x.device)
         sim[idx, r0 + idx] -= 2.0  # exclude self
-        nbr = sim.topk(k, dim=1).indices  # (c, k)
-        out.append(_median_last(x[:, nbr]))  # (d, c)
-    return torch.cat(out, dim=1)
+        out.append(sim.sort(dim=1, descending=True, stable=True).indices[:, :k])
+    return torch.cat(out, dim=0)
+
+
+def nn_filter_cosine_median(x: torch.Tensor, k: Optional[int] = None, chunk: int = 2048) -> torch.Tensor:
+    """Replace each frame of x (d, T) by the median of its k most
+    cosine-similar other frames (librosa.decompose.nn_filter)."""
+    nbr = nn_neighbours(x, k, chunk)
+    return torch.cat([_median_last(x[:, nbr[r0 : r0 + chunk]]) for r0 in range(0, x.shape[1], chunk)], dim=1)
 
 
 def tonnetz(chroma: torch.Tensor) -> torch.Tensor:

@@ -17,20 +17,38 @@
 //
 // Bound: the work is 4 * BH * Nq * Nk * D operations on inputs of
 // 4 * BH * N * D elements, so every shape of the path is bound by
-// operations, not bytes. Two kernels:
+// operations, not bytes: at 67 TFLOP/s (f32 on the CUDA cores) 0.080 ms
+// for the UNet's (2, 8, 1024, 80), 0.010 ms for (2, 8, 256, 160) and
+// 0.513 ms for the VAE's (1, 1, 4096, 512). Two kernels:
 //
-// f32, `flash_attention_fwd` (on the CUDA cores, so that f32 results stay
-// those of exact f32 products): one block of 256 threads (16 x 16) owns
-// BQ = 16 * RM query rows of one (batch, head) and walks the keys in
-// tiles of BK. Q, the K and V tiles, and the tile's probabilities live in
-// shared memory as f32, rows padded to an odd stride so that column reads
-// hit distinct banks. Thread (ty, tx) owns query rows ty*RM + i for both
-// the score tile (columns tx + 16 j) and the output accumulator (columns
-// tx + 16 j of D, padded to 16 * NJ), so the row max and row sum stay in
-// registers and are reduced across the 16 lanes of a row with shuffles.
-// D = 512 in f32 needs its key tile cut to 32 rows to stay inside the
-// 227 KB a block may use; anything above 48 KB is requested with
-// cudaFuncSetAttribute, once per template instance and device.
+// f32, `flash_attention_f32` (on the CUDA cores, so that f32 results stay
+// those of exact f32 products; TF32 would not): register blocking as in
+// an SGEMM. One block of 256 threads (16 x 16) owns BQ = 16 TM query rows
+// of one (batch, head), TM fixed by the padded D: TM = 8 at the UNet's
+// D = 80 (the UNet's 16 x 1024 query rows still give 128 blocks),
+// TM = 2 from D = 160 up (the output's registers, and the UNet's
+// (2, 8, 256, 160) keeps 128 blocks), TM = 4 elsewhere. It walks the
+// keys in tiles of BK = 16 TN (64 keys up to D = 160, 32 above, for
+// shared memory). Thread (ty, tx) owns rows
+// ty TM + i of S = Q K^T and of the output, score columns tx + 16 j, and
+// output columns 64 j + 4 tx + e (e < 4) and 64 (DP / 64) + 16 j + tx, with
+// D padded to DP, a multiple of 16 (zero columns past D). Q and the K
+// tile sit row-major in shared memory, rows an odd number of 16-byte
+// chunks apart, so S reads Q and K 4 depths at a time with 128-bit loads
+// (Q's a broadcast to the 16 lanes of a row, K's on distinct banks): one
+// load per 5-11 multiply-adds, where the design this replaced read
+// scalars, one per two. Where a thread has 4 or 8 scores, each sums its
+// depths in 4 or 2 interleaved partial sums (shorter dependent chains, and
+// a rounding error that grows over D / 4 terms). p = 2^(s scale log2(e) - running max)
+// (ex2.approx) goes to shared memory as P [BQ][BK + 4]; P V reads 4 keys
+// of P per 128-bit load and each V row with 128-bit loads. The row max
+// and sum are reduced over a row's 16 lanes with shuffles and stay in
+// registers, as does the output accumulator. K and V tiles arrive by
+// 16-byte cp.async into one buffer each: K tile t + 1 lands while P V of
+// tile t runs, V tile t + 1 while Q K^T of tile t + 1 runs. Shared memory
+// is 117 KiB for the UNet's D = 80 in 128-row blocks and 197.5 KiB at
+// D = 512 (one block an SM); above 48 KB it is requested with
+// cudaFuncSetAttribute, once per instance and device.
 //
 // bf16, `flash_attention_tc` (FlashAttention-2's shape on the tensor
 // cores' warp-level mma.sync m16n8k16, bf16 in, f32 accumulate): a block
@@ -58,225 +76,14 @@
 #include <stdint.h>
 
 #include <atomic>
+#include <type_traits>
 
 namespace {
-
-constexpr int kThreads = 256;
-
-template <typename T>
-struct Elem;
-
-template <>
-struct Elem<float> {
-  static __device__ __forceinline__ float4 load4(const float* p) { return *reinterpret_cast<const float4*>(p); }
-  static __device__ __forceinline__ float round_p(float x) { return x; }
-  static __device__ __forceinline__ float from(float x) { return x; }
-};
 
 // strides in elements of q, k, v and o: batch, head, row (D has stride 1)
 struct Layout {
   long long b[4], h[4], n[4];
 };
-
-// rows x d elements of src, rows `ld` apart -> dst rows of `stride` floats.
-// The row and column of each thread's next float4 are stepped, not
-// divided out, so no load address waits on an integer division.
-template <typename T>
-__device__ __forceinline__ void load_tile(const T* __restrict__ src, int ld, float* dst, int rows, int d,
-                                          int stride) {
-  const int d4 = d >> 2;
-  const int n4 = rows * d4;
-  const int dr = kThreads / d4, dc = kThreads - dr * d4;
-  int r = threadIdx.x / d4, c = threadIdx.x - r * d4;
-#pragma unroll 4
-  for (int e = threadIdx.x; e < n4; e += kThreads) {
-    const float4 x = Elem<T>::load4(src + r * ld + 4 * c);
-    float* p = dst + r * stride + 4 * c;
-    p[0] = x.x;
-    p[1] = x.y;
-    p[2] = x.z;
-    p[3] = x.w;
-    r += dr;
-    c += dc;
-    if (c >= d4) {
-      c -= d4;
-      ++r;
-    }
-  }
-}
-
-__device__ __forceinline__ float row_max16(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float row_sum16(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// shared memory of one block, in floats, for head dim d
-template <int NJ, int RM, int BK>
-__host__ __device__ constexpr long smem_floats(int d) {
-  return (long)(16 * RM) * (d + 1) + (long)BK * (d + 1) + (long)BK * (16 * NJ + 1) + (long)(16 * RM) * (BK + 1);
-}
-
-template <typename T, int NJ, int RM, int BK>
-__global__ void __launch_bounds__(kThreads)
-flash_attention_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, T* __restrict__ o,
-                    int nh, int nq, int nk, int d, float scale, Layout L) {
-  constexpr int BQ = 16 * RM;
-  constexpr int CN = BK / 16;
-  constexpr int DP = 16 * NJ;
-  constexpr int VS = DP + 1;
-  constexpr int PS = BK + 1;
-  extern __shared__ float smem[];
-  const int dq = d + 1;
-  float* Qs = smem;            // [BQ][d + 1]
-  float* Ks = Qs + BQ * dq;    // [BK][d + 1]
-  float* Vs = Ks + BK * dq;    // [BK][DP + 1], columns >= d stay zero
-  float* Ps = Vs + BK * VS;    // [BQ][BK + 1]
-
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int bi = blockIdx.y / nh, hi = blockIdx.y - bi * nh;
-  const int q0 = blockIdx.x * BQ;
-  const T* kb = k + bi * L.b[1] + hi * L.h[1];
-  const T* vb = v + bi * L.b[2] + hi * L.h[2];
-
-  load_tile<T>(q + bi * L.b[0] + hi * L.h[0] + q0 * L.n[0], (int)L.n[0], Qs, BQ, d, dq);
-  for (int i = tid; i < BK * (DP - d); i += kThreads) {
-    const int r = i / (DP - d);
-    Vs[r * VS + d + (i - r * (DP - d))] = 0.f;
-  }
-
-  float acc[RM][NJ];
-  float m[RM], l[RM];
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < nk; k0 += BK) {
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<T>(kb + k0 * L.n[1], (int)L.n[1], Ks, BK, d, dq);
-    load_tile<T>(vb + k0 * L.n[2], (int)L.n[2], Vs, BK, d, VS);
-    __syncthreads();
-
-    float s[RM][CN];
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < CN; ++j) s[i][j] = 0.f;
-    const float* qrow = Qs + (ty * RM) * dq;
-    const float* krow = Ks + tx * dq;
-#pragma unroll 4
-    for (int c = 0; c < d; ++c) {
-      float a[RM], b[CN];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) a[i] = qrow[i * dq + c];
-#pragma unroll
-      for (int j = 0; j < CN; ++j) b[j] = krow[16 * j * dq + c];
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < CN; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < CN; ++j) {
-        s[i][j] *= scale;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max16(mx));
-      const float corr = expf(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < CN; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        sum += p;
-        Ps[(ty * RM + i) * PS + tx + 16 * j] = Elem<T>::round_p(p);
-      }
-      l[i] = l[i] * corr + row_sum16(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] *= corr;
-    }
-    __syncthreads();
-
-    const float* prow = Ps + (ty * RM) * PS;
-#pragma unroll 2
-    for (int kk = 0; kk < BK; ++kk) {
-      float p[RM], vv[NJ];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) p[i] = prow[i * PS + kk];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) vv[j] = Vs[kk * VS + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(p[i], vv[j], acc[i][j]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    T* orow = o + bi * L.b[3] + hi * L.h[3] + (q0 + ty * RM + i) * L.n[3];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int c = tx + 16 * j;
-      if (c < d) orow[c] = Elem<T>::from(acc[i][j] / l[i]);
-    }
-  }
-}
-
-template <typename T, int NJ, int RM, int BK>
-int launch(const void* q, const void* k, const void* v, void* o, int nb, int nh, int nq, int nk, int d, float scale,
-           const Layout& L, cudaStream_t stream) {
-  constexpr int BQ = 16 * RM;
-  if (nq % BQ != 0 || nk % BK != 0 || d > 16 * NJ) return 1001;
-  auto kernel = flash_attention_fwd<T, NJ, RM, BK>;
-  // the instance's most shared memory (at d = 16 NJ), allowed once per device
-  static std::atomic<unsigned long long> allowed{0};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= 64) return 1006;
-  if (!(allowed.load() >> dev & 1ull)) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)(sizeof(float) * smem_floats<NJ, RM, BK>(16 * NJ)));
-    if (err != cudaSuccess) return (int)err;
-    allowed.fetch_or(1ull << dev);
-  }
-  const size_t bytes = sizeof(float) * smem_floats<NJ, RM, BK>(d);
-  dim3 grid(nq / BQ, nb * nh);
-  kernel<<<grid, kThreads, bytes, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                            static_cast<const T*>(v), static_cast<T*>(o), nh, nq, nk, d, scale, L);
-  return (int)cudaGetLastError();
-}
-
-// head dims up to 128: 64 query rows, 64-key tiles; up to 256: 32 rows;
-// up to 512: 32 rows and 32-key tiles (shared memory)
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, int nb, int nh, int nq, int nk, int d, float scale,
-             const Layout& L, cudaStream_t s) {
-  if (d <= 32) return launch<T, 2, 4, 64>(q, k, v, o, nb, nh, nq, nk, d, scale, L, s);
-  if (d <= 64) return launch<T, 4, 4, 64>(q, k, v, o, nb, nh, nq, nk, d, scale, L, s);
-  if (d <= 80) return launch<T, 5, 4, 64>(q, k, v, o, nb, nh, nq, nk, d, scale, L, s);
-  if (d <= 128) return launch<T, 8, 4, 64>(q, k, v, o, nb, nh, nq, nk, d, scale, L, s);
-  if (d <= 160) return launch<T, 10, 2, 64>(q, k, v, o, nb, nh, nq, nk, d, scale, L, s);
-  if (d <= 256) return launch<T, 16, 2, 64>(q, k, v, o, nb, nh, nq, nk, d, scale, L, s);
-  if (d <= 512) return launch<T, 32, 2, 32>(q, k, v, o, nb, nh, nq, nk, d, scale, L, s);
-  return 1002;
-}
-
 
 // ---- bf16 on the tensor cores ----
 
@@ -539,6 +346,254 @@ int dispatch_tc(const void* q, const void* k, const void* v, void* o, int nb, in
   return 1002;
 }
 
+
+// ---- f32 on the CUDA cores ----
+
+// Shared memory of one f32 block in floats: Q and the K tile with rows of an odd count of 16-byte chunks
+// (`f32_row`), the V tile with rows of DP floats, and P with rows of BK + 4 floats.
+__host__ __device__ constexpr int f32_row(int dp) { return ((dp / 4) | 1) * 4; }
+__host__ __device__ constexpr long f32_smem_bytes(int dp, int bq, int bk) {
+  return 4L * ((long)(bq + bk) * f32_row(dp) + (long)bk * dp + (long)bq * (bk + 4));
+}
+
+template <int E>
+__device__ __forceinline__ float lane4(const float4& x) {
+  return E == 0 ? x.x : E == 1 ? x.y : E == 2 ? x.z : x.w;
+}
+
+__device__ __forceinline__ float row_max16(float x) {  // over the 16 lanes tx of one thread row
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+
+__device__ __forceinline__ float row_sum16(float x) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+// DP: D rounded up to 16 (columns d..DP arrive as zeros). 256 threads as 16 x 16: thread (ty, tx) owns
+// query rows ty * TM + i (i < TM) of the block's BQ = 16 TM, score columns tx + 16 j (j < TN) of the
+// tile's BK = 16 TN keys, and output columns 64 j + 4 tx + e (j < DP / 64, e < 4) and 64 (DP / 64) + 16 j
+// + tx, so its rows' max and sum are reduced over its 16 lanes with shuffles and every shared-memory read
+// of the inner loops is a 128-bit load or a broadcast.
+// two blocks an SM (at most 128 registers a thread) where their shared memory fits, else one
+template <int DP, int TM, int TN>
+__global__ void __launch_bounds__(256, f32_smem_bytes(DP, 16 * TM, 16 * TN) <= 113 * 1024 ? 2 : 1)
+flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                    float* __restrict__ o, int nh, int nk, int d, float scale_log2, Layout L) {
+  constexpr int BQ = 16 * TM, BK = 16 * TN, SK = f32_row(DP), SP = BK + 4, CH = DP / 4;
+  constexpr int DJ = DP / 16, A4 = DJ / 4, B1 = DJ % 4;
+  constexpr int NP = TM * TN <= 4 ? 4 : TM * TN <= 8 ? 2 : 1;
+  extern __shared__ __align__(16) float fsm[];
+  float* Qs = fsm;           // [BQ][SK]
+  float* Ks = Qs + BQ * SK;  // [BK][SK]
+  float* Vs = Ks + BK * SK;  // [BK][DP]
+  float* Ps = Vs + BK * DP;  // [BQ][SP]
+
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int bi = blockIdx.y / nh, hi = blockIdx.y - bi * nh;
+  const int q0 = blockIdx.x * BQ;
+  const float* kb = k + bi * L.b[1] + hi * L.h[1];
+  const float* vb = v + bi * L.b[2] + hi * L.h[2];
+  const int dch = d / 4;  // 16-byte chunks of a row that hold data; the rest are zero-filled
+
+  // `rows` rows of CH chunks from src (rows `ld` floats apart) into dst (rows `stride` apart)
+  auto copy = [&](float* dst, int stride, const float* src, long long ld, int rows) {
+    for (int e = tid; e < rows * CH; e += 256) {
+      const int r = e / CH, c = e - r * CH;
+      const bool in = c < dch;
+      cp_async16(dst + r * stride + 4 * c, in ? src + r * ld + 4 * c : src, in ? 16 : 0);
+    }
+  };
+  // Commit groups, in order: Q with K tile 0, V tile 0, then K tile t + 1 while P V of tile t runs and
+  // V tile t + 1 while Q K^T of tile t + 1 runs. Each tile has one K and one V buffer.
+  const int ntiles = nk / BK;
+  copy(Qs, SK, q + bi * L.b[0] + hi * L.h[0] + (long long)q0 * L.n[0], L.n[0], BQ);
+  copy(Ks, SK, kb, L.n[1], BK);
+  cp_async_commit();
+  copy(Vs, DP, vb, L.n[2], BK);
+  cp_async_commit();
+
+  float acc[TM][DJ], m[TM], l[TM];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
+  }
+  const float* qrow = Qs + ty * TM * SK;
+  const float* krow = Ks + tx * SK;
+  const float* prow = Ps + ty * TM * SP;
+
+  for (int t = 0; t < ntiles; ++t) {
+    cp_async_wait<1>();  // K tile t has landed (V tile t may still be in flight)
+    __syncthreads();
+
+    // NP partial sums per score (depths c + e with e % NP fixed) where a thread has few scores: shorter
+    // dependent chains of multiply-adds, and a rounding error that grows over D / NP terms, not D
+    float sp[NP][TM][TN];
+#pragma unroll
+    for (int e = 0; e < NP; ++e)
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) sp[e][i][j] = 0.f;
+#pragma unroll 4
+    for (int c = 0; c < DP; c += 4) {
+      float4 kv[TN];
+#pragma unroll
+      for (int j = 0; j < TN; ++j) kv[j] = *reinterpret_cast<const float4*>(krow + 16 * j * SK + c);
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const float4 qv = *reinterpret_cast<const float4*>(qrow + i * SK + c);
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          sp[0][i][j] = fmaf(qv.x, kv[j].x, sp[0][i][j]);
+          sp[1 % NP][i][j] = fmaf(qv.y, kv[j].y, sp[1 % NP][i][j]);
+          sp[2 % NP][i][j] = fmaf(qv.z, kv[j].z, sp[2 % NP][i][j]);
+          sp[3 % NP][i][j] = fmaf(qv.w, kv[j].w, sp[3 % NP][i][j]);
+        }
+      }
+    }
+    float s[TM][TN];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j)
+        s[i][j] = NP == 4 ? (sp[0][i][j] + sp[1 % NP][i][j]) + (sp[2 % NP][i][j] + sp[3 % NP][i][j])
+                : NP == 2 ? sp[0][i][j] + sp[1 % NP][i][j] : sp[0][i][j];
+
+    // online softmax in base 2: s * scale * log2(e), p = 2^(s - running max)
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      float mx = m[i];
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        s[i][j] *= scale_log2;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      mx = row_max16(mx);
+      const float corr = fast_exp2(m[i] - mx);
+      m[i] = mx;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const float p = fast_exp2(s[i][j] - mx);
+        sum += p;
+        Ps[(ty * TM + i) * SP + tx + 16 * j] = p;
+      }
+      l[i] = l[i] * corr + row_sum16(sum);
+#pragma unroll
+      for (int j = 0; j < DJ; ++j) acc[i][j] *= corr;
+    }
+    __syncthreads();  // P is written, and every thread is done with K tile t
+    if (t + 1 < ntiles) {
+      copy(Ks, SK, kb + (long long)(t + 1) * BK * L.n[1], L.n[1], BK);
+      cp_async_commit();
+      cp_async_wait<1>();  // V tile t has landed (K tile t + 1 may still be in flight)
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+
+#pragma unroll 2
+    for (int kk = 0; kk < BK; kk += 4) {
+      float4 pv[TM];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) pv[i] = *reinterpret_cast<const float4*>(prow + i * SP + kk);
+      auto key = [&](auto e_) {
+        constexpr int E = decltype(e_)::value;
+        const float* vr = Vs + (kk + E) * DP;
+        float vv[DJ];
+#pragma unroll
+        for (int j = 0; j < A4; ++j) {
+          const float4 x = *reinterpret_cast<const float4*>(vr + 64 * j + 4 * tx);
+          vv[4 * j] = x.x;
+          vv[4 * j + 1] = x.y;
+          vv[4 * j + 2] = x.z;
+          vv[4 * j + 3] = x.w;
+        }
+#pragma unroll
+        for (int j = 0; j < B1; ++j) vv[4 * A4 + j] = vr[64 * A4 + 16 * j + tx];
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          const float p = lane4<E>(pv[i]);
+#pragma unroll
+          for (int j = 0; j < DJ; ++j) acc[i][j] = fmaf(p, vv[j], acc[i][j]);
+        }
+      };
+      key(std::integral_constant<int, 0>{});
+      key(std::integral_constant<int, 1>{});
+      key(std::integral_constant<int, 2>{});
+      key(std::integral_constant<int, 3>{});
+    }
+    __syncthreads();  // every thread is done with V tile t and with P
+    if (t + 1 < ntiles) {
+      copy(Vs, DP, vb + (long long)(t + 1) * BK * L.n[2], L.n[2], BK);
+      cp_async_commit();
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    float* orow = o + bi * L.b[3] + hi * L.h[3] + (long long)(q0 + ty * TM + i) * L.n[3];
+#pragma unroll
+    for (int j = 0; j < A4; ++j) {
+      const int c = 64 * j + 4 * tx;
+      if (c < d)
+        *reinterpret_cast<float4*>(orow + c) = make_float4(acc[i][4 * j] / l[i], acc[i][4 * j + 1] / l[i],
+                                                           acc[i][4 * j + 2] / l[i], acc[i][4 * j + 3] / l[i]);
+    }
+#pragma unroll
+    for (int j = 0; j < B1; ++j) {
+      const int c = 64 * A4 + 16 * j + tx;
+      if (c < d) orow[c] = acc[i][4 * A4 + j] / l[i];
+    }
+  }
+}
+
+template <int DP, int TM, int TN>
+int launch_f32(const void* q, const void* k, const void* v, void* o, int nb, int nh, int nq, int nk, int d,
+               float scale, const Layout& L, cudaStream_t stream) {
+  constexpr int BQ = 16 * TM, BK = 16 * TN;
+  if (nq % BQ != 0 || nk % BK != 0 || d > DP) return 1001;
+  auto kernel = flash_attention_f32<DP, TM, TN>;
+  constexpr long bytes = f32_smem_bytes(DP, BQ, BK);
+  static std::atomic<unsigned long long> allowed{0};  // above 48 KB, allowed once per device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= 64) return 1006;
+  if (!(allowed.load() >> dev & 1ull)) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+    allowed.fetch_or(1ull << dev);
+  }
+  dim3 grid(nq / BQ, nb * nh);
+  kernel<<<grid, 256, bytes, stream>>>(static_cast<const float*>(q), static_cast<const float*>(k),
+                                       static_cast<const float*>(v), static_cast<float*>(o), nh, nk, d,
+                                       scale * 1.4426950408889634f, L);
+  return (int)cudaGetLastError();
+}
+
+// D rounded up to 16 picks the instance: 64-key tiles up to 160, 32-key tiles above (shared memory); 128-row
+// blocks at D = 80 (the UNet's), 32-row blocks from 160 up (the output's registers), 64-row blocks elsewhere
+int dispatch_f32(const void* q, const void* k, const void* v, void* o, int nb, int nh, int nq, int nk, int d,
+                 float scale, const Layout& L, cudaStream_t s) {
+  const int dp = (d + 15) & ~15;
+  if (dp <= 32) return launch_f32<32, 4, 4>(q, k, v, o, nb, nh, nq, nk, d, scale, L, s);
+  if (dp <= 64) return launch_f32<64, 4, 4>(q, k, v, o, nb, nh, nq, nk, d, scale, L, s);
+  if (dp <= 80) return launch_f32<80, 8, 4>(q, k, v, o, nb, nh, nq, nk, d, scale, L, s);
+  if (dp <= 128) return launch_f32<128, 4, 4>(q, k, v, o, nb, nh, nq, nk, d, scale, L, s);
+  if (dp <= 160) return launch_f32<160, 2, 4>(q, k, v, o, nb, nh, nq, nk, d, scale, L, s);
+  if (dp <= 256) return launch_f32<256, 2, 4>(q, k, v, o, nb, nh, nq, nk, d, scale, L, s);
+  if (d <= kMaxHeadDim) return launch_f32<512, 2, 2>(q, k, v, o, nb, nh, nq, nk, d, scale, L, s);
+  return 1002;
+}
+
 }  // namespace
 
 // q (nb, nh, nq, d), k and v (nb, nh, nk, d), o (nb, nh, nq, d); dtype 0 = f32,
@@ -562,6 +617,6 @@ extern "C" int maua_flash_attention(const void* q, const void* k, const void* v,
   for (const void* p : {q, k, v, static_cast<const void*>(o)})
     if (reinterpret_cast<uintptr_t>(p) % 16) return 1005;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch<float>(q, k, v, o, nb, nh, nq, nk, d, scale, L, s);
+  if (dtype == 0) return dispatch_f32(q, k, v, o, nb, nh, nq, nk, d, scale, L, s);
   return dispatch_tc(q, k, v, o, nb, nh, nq, nk, d, scale, L, s);
 }

@@ -227,14 +227,13 @@ def synthesis(params: Dict, ws: torch.Tensor, cfg: SG3Config, transform: Optiona
         demod = torch.rsqrt(styles_all[i].float().square() @ w.float().square().sum(dim=(2, 3)).t() + 1e-8)
         up, down, up_f, down_f, out_size = plan[i]
         bias = layer["bias"].float()[None].expand(x.shape[0], -1)
+        # centre crop (inside the kernel, which writes only the kept window) or pad to the next canvas
+        h = y.shape[2] * up // down
+        o = (h - out_size) // 2
+        crop = (o, o, out_size, out_size) if h > out_size else None
         x = filtered_lrelu(y.contiguous(), up_f, down_f, up, down, pre_scale=demod, pre_add=bias,
-                           post_scale=styles_all[i + 1])
-        # centre crop or pad to the next canvas
-        h = x.shape[2]
-        if h > out_size:
-            o = (h - out_size) // 2
-            x = x[:, :, o : o + out_size, o : o + out_size]
-        elif h < out_size:
+                           post_scale=styles_all[i + 1], crop=crop)
+        if h < out_size:
             o = (out_size - h) // 2
             x = F.pad(x, (o, out_size - h - o, o, out_size - h - o))
     return x.float()

@@ -18,7 +18,13 @@ segment boundaries (to 1e-9 s) and labels up to a permutation. k-means
 gets JAX's initial centre indices (`jax.random.choice(PRNGKey(0), ...)`,
 which a torch generator cannot reproduce; the segmentation tests inject
 them by patching `segment.kmeans`); the noise primitives get the
-same standard-normal draws on both sides.
+same standard-normal draws on both sides. The nearest-neighbour chroma
+filter is such a pick too: many frames of these tonal mixes are equally
+similar up to f32 roundoff, and the two libraries' similarities differ
+in the last bits, so the k-th neighbour can fall either way. Its own
+test holds the port's pick to JAX's up to those near-ties; the feature
+tests hand the port JAX's pick (`jax_nn_choice`) and hold the rest to
+the usual bars.
 """
 
 import jax
@@ -136,6 +142,81 @@ def test_tempo_is_the_same_bpm(name):
         assert abs(ref - 120.0) < 5.0
 
 
+def jax_neighbours(x):
+    """The frames `maua_tpu.audio.chroma.nn_filter_cosine_median` picks for
+    x (d, T), T within one chunk, by the same ops (so the same bits), and
+    the similarities it picks them by."""
+    t = x.shape[1]
+    k = min(t - 1, int(2 * np.ceil(np.sqrt(t))))
+    x = jnp.asarray(x)
+    xn = x / jnp.maximum(jnp.linalg.norm(x, axis=0, keepdims=True), 1e-10)
+    sim = xn.T @ xn - 2.0 * jnp.eye(t)
+    return np.asarray(jax.lax.top_k(sim, k)[1]), np.asarray(sim)
+
+
+@pytest.fixture
+def jax_nn_choice(monkeypatch):
+    """The port's nearest-neighbour filter takes the frames that JAX's
+    filter picked in the call before it (JAX runs first)."""
+    picks = []
+    jax_filter = JC.nn_filter_cosine_median
+
+    def recording(x, k=None, chunk=2048):
+        assert k is None and x.shape[1] <= chunk
+        picks.append(jax_neighbours(x)[0])
+        return jax_filter(x, k, chunk)
+
+    def replaying(x, k=None, chunk=2048):
+        return torch.from_numpy(picks.pop(0)).long().to(x.device)
+
+    monkeypatch.setattr(JC, "nn_filter_cosine_median", recording)
+    monkeypatch.setattr(TC, "nn_neighbours", replaying)
+    return picks
+
+
+def harmonic_chroma(y):
+    """The STFT chroma of `mir.chroma(type="stft")`: of the harmonic part at margin 4, as each package computes it."""
+    from maua_tpu.audio import spectral as JS
+    from maua_tpu_torch.audio import spectral as TS
+
+    return (TC.chroma_stft(TS.harmonic(torch.from_numpy(y), margin=4.0), SR).numpy(),
+            np.array(JC.chroma_stft(JS.harmonic(jnp.asarray(y), margin=4.0), SR)))
+
+
+@pytest.mark.parametrize("which", ["jax", "port"])
+def test_nn_neighbours_match_jax_up_to_near_ties(which):
+    """On the same chroma, the port picks JAX's neighbours except where the
+    similarity at the k-th place ties within f32 roundoff: every frame only
+    one of them picks lies within 1e-6 of JAX's k-th similarity. (The mix
+    holds frames whose similarity is 1 to the last bit, so ties are many;
+    exact ties go to the lower index on both sides.) A random chroma has
+    no near-ties, and there the picks are the same."""
+    x = dict(zip(["port", "jax"], harmonic_chroma(MIX)))[which]
+    nbr_j, sim = jax_neighbours(x)
+    nbr_t = TC.nn_neighbours(torch.from_numpy(x)).numpy()
+    assert nbr_t.shape == nbr_j.shape
+    k = nbr_j.shape[1]
+    kth = np.sort(sim, axis=1)[:, ::-1][:, k - 1]
+    split = 0
+    for r in range(x.shape[1]):
+        only = set(nbr_t[r].tolist()) ^ set(nbr_j[r].tolist())
+        split += bool(only)
+        for i in only:
+            assert abs(sim[r, i] - kth[r]) <= 1e-6, (r, i, sim[r, i], kth[r])
+    assert split < x.shape[1]
+    ch = np.abs(np.random.RandomState(3).randn(12, 40)).astype(np.float32)
+    np.testing.assert_array_equal(np.sort(TC.nn_neighbours(torch.from_numpy(ch)).numpy(), 1),
+                                  np.sort(jax_neighbours(ch)[0], 1))
+
+
+def test_tonnetz_without_the_neighbour_filter():
+    """The cause of the tonnetz divergence is the neighbour pick: without
+    the filter the two packages agree ten times inside the feature's bar."""
+    yt, yj = both(MIX)
+    ref = JM.tonnetz(yj, SR, type="stft", nearest_neighbor=False)
+    close(TM.tonnetz(yt, SR, type="stft", nearest_neighbor=False), ref, 1e-5)
+
+
 def test_chroma_stft_and_tonnetz():
     yt, yj = both(MIX)
     close(TC.chroma_stft(yt, SR), JC.chroma_stft(yj, SR), 1e-4)
@@ -219,14 +300,17 @@ def test_mir_pulse_and_tempo(type, tol):
     assert TM.tempo(yt, SR, type=type) == JM.tempo(yj, SR, type=type)
 
 
-def test_mir_features():
+def test_mir_features(jax_nn_choice):
+    """The chroma features take JAX's nearest-neighbour pick (`jax_nn_choice`; JAX runs first)."""
     yt, yj = both(MIX)
     close(TM.spectral_max(yt, SR), JM.spectral_max(yj, SR), 1e-5)
     close(TM.volume(yt, SR), JM.volume(yj, SR), 1e-5)
     close(TM.pitch_track(yt, SR, preharmonic=0), JM.pitch_track(yj, SR, preharmonic=0), 1e-5)
-    close(TM.tonnetz(yt, SR, type="stft"), JM.tonnetz(yj, SR, type="stft"), 1e-4)
-    np.testing.assert_array_equal(TM.pitch_dominance(yt, SR, type="cqt").numpy(),
-                                  np.asarray(JM.pitch_dominance(yj, SR, type="cqt")))
+    ref = JM.tonnetz(yj, SR, type="stft")
+    close(TM.tonnetz(yt, SR, type="stft"), ref, 1e-4)
+    ref = np.asarray(JM.pitch_dominance(yj, SR, type="cqt"))
+    np.testing.assert_array_equal(TM.pitch_dominance(yt, SR, type="cqt").numpy(), ref)
+    assert not jax_nn_choice  # each of the port's filters took a pick of JAX's
     close(TM.onsets(yt, SR, type="rosa"), JM.onsets(yj, SR, type="rosa"), 1e-5)
     assert TM.round_to_nearest_half(120.3) == JM.round_to_nearest_half(120.3) == 120.5
 

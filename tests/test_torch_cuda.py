@@ -107,6 +107,42 @@ def test_filtered_lrelu_kernel_matches_plain(cuda_device, dtype, shape, up, affi
     torch.testing.assert_close(out.float(), ref.float(), rtol=rtol, atol=1e-4)
 
 
+AFFINE_SETS = [(), ("pre_scale",), ("pre_add",), ("post_scale",), ("pre_scale", "pre_add"),
+               ("pre_scale", "post_scale"), ("pre_add", "post_scale"), ("pre_scale", "pre_add", "post_scale")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("affines", AFFINE_SETS)
+@pytest.mark.parametrize("shape,up,crop", [
+    ((1, 2, 57, 65), 2, None),  # one row and one column past a 56 x 64 output tile
+    ((2, 3, 29, 33), 4, None),  # 58 x 66 outputs: two rows and columns past a tile
+    ((1, 3, 1, 2), 4, None),  # 1- to 3-pixel planes: every tile column and row is padding
+    ((2, 2, 3, 1), 2, None),
+    ((1, 65539, 1, 2), 2, None),  # more planes than the grid's z cap of 65535
+    ((2, 3, 36, 36), 4, (10, 10, 52, 52)),  # StyleGAN3's centre crop at 36^2 -> 72^2
+    ((1, 2, 70, 33), 2, (3, 5, 61, 27)),  # odd window origin at up 2
+    ((1, 2, 60, 40), 4, (2, 0, 117, 65)),  # a window one past two tiles
+])
+def test_filtered_lrelu_kernel_tile_edges(cuda_device, dtype, affines, shape, up, crop):
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    b, c = shape[:2]
+    up_f = _lowpass(6 * up, 100.0, 80.0, 1024.0)
+    down_f = _lowpass(12, 100.0, 80.0, 1024.0)
+    x = (torch.randn(*shape, generator=gen, device=cuda_device) * 4).to(dtype)
+    kw = {k: torch.rand(b, c, generator=gen, device=cuda_device) + 0.5 for k in affines}
+    FL.reset_launches()
+    out = FL.filtered_lrelu(x, up_f, down_f, up, 2, crop=crop, **kw)
+    torch.cuda.synchronize()
+    assert FL.launches == 1
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):  # the plain version's convs in full f32
+        ref = FL.filtered_lrelu_plain(x, up_f, down_f, up, 2, crop=crop, **kw)
+    size = (crop[2], crop[3]) if crop else (shape[2] * up // 2, shape[3] * up // 2)
+    assert out.shape == ref.shape == (b, c, *size) and out.dtype == dtype and out.is_contiguous()
+    rtol = 2.0**-7 if dtype == torch.bfloat16 else 0.0
+    torch.testing.assert_close(out.float(), ref.float(), rtol=rtol, atol=1e-4)
+
+
 @pytest.mark.cuda
 def test_filtered_lrelu_kernel_rejects_what_it_does_not_take(cuda_device):
     up_f, down_f = _lowpass(12, 100.0, 80.0, 1024.0), _lowpass(12, 100.0, 80.0, 1024.0)
@@ -121,6 +157,9 @@ def test_filtered_lrelu_kernel_rejects_what_it_does_not_take(cuda_device):
         FL.filtered_lrelu(x, up_f, down_f, 3, 2)
     with pytest.raises(ValueError):
         FL.filtered_lrelu(x, up_f, down_f, 2, 1)
+    up4 = _lowpass(24, 100.0, 80.0, 1024.0)
+    with pytest.raises(ValueError, match="even"):  # at up 4 a window starts on even rows and columns
+        FL.filtered_lrelu(x, up4, down_f, 4, 2, crop=(1, 0, 8, 8))
 
 
 @pytest.mark.cuda
@@ -142,6 +181,31 @@ def test_flash_attention_kernel_matches_plain(cuda_device, dtype, shape_q, shape
     q = torch.randn(*shape_q, generator=gen, device=cuda_device).to(dtype)
     k, v = (torch.randn(*shape_kv, generator=gen, device=cuda_device).to(dtype) for _ in range(2))
     _check_flash_attention(q, k, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads", [1, 33, 64])  # grids on both sides of the bf16 kernel's 32/64-row choice
+@pytest.mark.parametrize("d", [8, 32, 40, 64, 80, 128, 136, 160, 256, 264, 512])
+def test_flash_attention_kernel_head_dim_instances(cuda_device, dtype, heads, d):
+    """Each boundary of the head-dim instances (D rounded up to 16: 32, 64, 80, 128, 160, 256, 512), with
+    Nq != Nk and peaked scores (q x 4: the running max moves between key tiles). f32 is held to the f32
+    tolerance against the exact function (float64): with scores of std 4 summed over D = 512 the f32 plain
+    version's own roundoff comes near that tolerance, so kernel and plain version, each within it of the
+    exact value, may differ by more."""
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    q = (torch.randn(1, heads, 256, d, generator=gen, device=cuda_device) * 4).to(dtype)
+    k, v = (torch.randn(1, heads, 512, d, generator=gen, device=cuda_device).to(dtype) for _ in range(2))
+    if dtype == torch.bfloat16:
+        _check_flash_attention(q, k, v)
+        return
+    A.reset_launches()
+    out = A.flash_attention_fused(q, k, v)
+    torch.cuda.synchronize()
+    assert A.launches == 1
+    ref = torch.softmax(q.double() @ k.double().transpose(-1, -2) * d**-0.5, dim=-1) @ v.double()
+    err = (out.double() - ref).abs()
+    assert bool((err <= 1e-4 * ref.abs() + 1e-5).all()), float(err.max())
 
 
 def _check_flash_attention(q, k, v):

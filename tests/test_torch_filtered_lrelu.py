@@ -105,3 +105,35 @@ def test_wrapper_raises_on_taps_and_shapes_it_does_not_take():
         FL.filtered_lrelu(x, up_f, down_f, 2, 2, post_scale=torch.ones(3))
     with pytest.raises(ValueError, match="B, C, H, W"):
         FL.filtered_lrelu(x[0], up_f, down_f, 2, 2)
+
+
+@pytest.mark.parametrize("up,h,w,crop", [
+    (4, 16, 12, (10, 10, 12, 4)),  # StyleGAN3's centre crop: 10 off each side
+    (2, 33, 31, (3, 0, 27, 31)),
+    (4, 21, 19, (0, 2, 42, 30)),
+    (2, 24, 20, (23, 19, 1, 1)),
+])
+def test_cropped_plain_is_a_window_of_the_uncropped(up, h, w, crop):
+    """The kept window, contiguous, equals the slice of the full output and
+    JAX's direct chain followed by the same crop."""
+    rs = np.random.RandomState(4)
+    up_f, down_f = _filters(up)
+    x = rs.randn(2, h, w, 3).astype(np.float32)
+    ps, pa, po = _affines(rs, 2, 3)
+    aff = dict(pre_scale=torch.from_numpy(ps), pre_add=torch.from_numpy(pa), post_scale=torch.from_numpy(po))
+    full = FL.filtered_lrelu_plain(_nchw(x), up_f, down_f, up, 2, **aff)
+    out = FL.filtered_lrelu(_nchw(x), up_f, down_f, up, 2, crop=crop, **aff)
+    top, left, ch, cw = crop
+    assert tuple(out.shape) == (2, 3, ch, cw) and out.is_contiguous()
+    torch.testing.assert_close(out, full[:, :, top : top + ch, left : left + cw], rtol=0, atol=0)
+    xin = x * ps[:, None, None, :] + pa[:, None, None, :]
+    ref = np.asarray(_filtered_lrelu_direct(jnp.asarray(xin), up_f, down_f, up, 2)) * po[:, None, None, :]
+    np.testing.assert_allclose(out.numpy().transpose(0, 2, 3, 1), ref[:, top : top + ch, left : left + cw], rtol=0,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("crop", [(-1, 0, 4, 4), (0, 0, 0, 4), (10, 0, 7, 4), (0, 13, 4, 4)])
+def test_wrapper_raises_on_a_crop_outside_the_output(crop):
+    up_f, down_f = _filters(2)
+    with pytest.raises(ValueError, match="crop"):
+        FL.filtered_lrelu(torch.zeros(1, 2, 8, 8), up_f, down_f, 2, 2, crop=crop)

@@ -368,17 +368,75 @@ def test_mel_slice_frames_match_jax(mel_slice):
     assert mel_slice["launches"] == 0  # the CPU runs the mel kernel's plain version
 
 
-@pytest.mark.parametrize("name,tol", [("onsets", 1e-5), ("pulse", 1e-5), ("volume", 1e-5), ("chroma", 1e-4),
+# The onsets' bar, from test_mel_slice_onsets_diverge_only_by_roundoff's
+# premises: the envelope's 12 frames agree to ONSETS_STAGE_TOL of the
+# envelope's peak, they reach at least 1/ONSETS_LEVEL_RATIO of that peak,
+# and the post-processing (clip, smoothing, normalisation) moves its output
+# at most ONSETS_POST_GAIN times a change of its input relative to the
+# frames' peak. Measured: 1.8e-8, 1/1057 and 4.74; the onsets differ by 1.8e-5.
+ONSETS_STAGE_TOL, ONSETS_LEVEL_RATIO, ONSETS_POST_GAIN = 1e-6, 1100, 5.0
+ONSETS_TOL = ONSETS_STAGE_TOL * ONSETS_LEVEL_RATIO * ONSETS_POST_GAIN
+
+
+@pytest.mark.parametrize("name,tol", [("onsets", ONSETS_TOL), ("pulse", 1e-5), ("volume", 1e-5), ("chroma", 1e-4),
                                       ("sections", 0.0)])
 def test_mel_slice_envelopes_match_jax(mel_slice, name, tol):
     """Envelopes in [0, 1]: 1e-5, and 1e-4 where the chroma filterbank
     enters (float32 octaves in JAX, float64 in the port); the per-frame
-    sections exactly; the tempo to the BPM."""
+    sections exactly; the tempo to the BPM. The onsets take ONSETS_TOL:
+    their 12 frames sample the envelope near 1/1000 of its peak, so its
+    f32 roundoff is that much larger relative to them, and the
+    post-processing adds its gain."""
     ref = np.asarray(getattr(mel_slice["jax_patch"], name))
     out = getattr(mel_slice["torch_patch"], name).numpy()
     assert out.shape == ref.shape
     np.testing.assert_allclose(out, ref, rtol=0, atol=tol)
     assert mel_slice["torch_patch"].tempo == mel_slice["jax_patch"].tempo
+
+
+def test_mel_slice_onsets_diverge_only_by_roundoff(mel_slice):
+    """The slice's onsets, `ar.onsets(margin=2, type="rosa")`, stage by
+    stage, each stage fed JAX's output of the one before: HPSS's
+    percussive part and the onset strength agree to ONSETS_STAGE_TOL of
+    their peaks, and the frame-rate post-processing (resample to 12
+    frames, percentile clip, smoothing, normalisation) to it of its
+    output. Then the premises of ONSETS_TOL: the port's whole chain gives
+    the 12 frames to ONSETS_STAGE_TOL of the envelope's peak, the frames
+    peak above 1/ONSETS_LEVEL_RATIO of it, and the post-processing's
+    first-order gain (the Jacobian's largest row sum, in float64, times the
+    frames' peak) is at most ONSETS_POST_GAIN."""
+    import jax.numpy as jnp
+
+    from maua_tpu.audio import beat as JB
+    from maua_tpu.audio import spectral as JS
+    from maua_tpu.audiovisual import audioreactive as JA
+    from maua_tpu_torch.audio import beat as TB
+    from maua_tpu_torch.audio import spectral as TS
+    from maua_tpu_torch.audiovisual import audioreactive as TA
+
+    def agree(out, ref, tol):
+        ref = np.asarray(ref)
+        np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=tol * np.abs(ref).max())
+
+    patch = mel_slice["jax_patch"]
+    y, sr, n = np.asarray(patch.audio), patch.sr, len(patch.onsets)
+    pj = JS.percussive(jnp.asarray(y), margin=2.0)
+    pt = TS.percussive(torch.from_numpy(y), margin=2.0)
+    agree(pt, pj, ONSETS_STAGE_TOL)
+    ej = JB.onset_strength(pj, sr=sr)
+    agree(TB.onset_strength(torch.from_numpy(np.array(pj)), sr=sr), ej, ONSETS_STAGE_TOL)
+    post = JA._postprocess(ej, n, 95.0, 2.0)
+    agree(TA._postprocess(torch.from_numpy(np.array(ej)), n, 95.0, 2.0), post, ONSETS_STAGE_TOL)
+    np.testing.assert_allclose(np.asarray(post), np.asarray(patch.onsets), rtol=0, atol=1e-6)  # eager vs jit
+
+    peak = np.abs(np.asarray(ej)).max()
+    frames = np.asarray(JA.resample_1d(ej, n))
+    frames_t = TA.resample_1d(TB.onset_strength(pt, sr=sr), n).numpy()
+    assert np.abs(frames_t - frames).max() <= ONSETS_STAGE_TOL * peak
+    assert frames.max() * ONSETS_LEVEL_RATIO >= peak
+    jac = torch.autograd.functional.jacobian(lambda f: TA._postprocess(f, None, 95.0, 2.0),
+                                             torch.from_numpy(frames.astype(np.float64)))
+    assert float(jac.abs().sum(1).max()) * frames.max() <= ONSETS_POST_GAIN
 
 
 def test_cli_parses_the_reference_flags(tmp_path, monkeypatch, capsys):
