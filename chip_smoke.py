@@ -56,7 +56,8 @@ Phases, each printed as one JSON line with its elapsed seconds:
    kernel's launch counts reset just before and read just after.
 16. ar_features: a 180 s synthetic song (seed 1, chords changing every 8 s)
    through every feature of that patch on the card in a fresh process,
-   per-feature seconds cold and warm, and the mel launches.
+   per-feature seconds cold and warm, and the mel launches with the
+   MEL_SHAPES case of each (the record prices the song's launches by them).
 17. ar_reference: the song's first 20 s through the features on the card
    and on the CPU, f32 with TF32 off: envelope errors, tempo, boundaries.
 
@@ -70,6 +71,7 @@ lines are the kernels' JSON record and
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -208,6 +210,24 @@ def cuda_time_ms(fn, iters: int = 20) -> float:
         if ms >= TIME_WINDOW_MS or iters >= 10000:
             return ms / iters
         iters = min(10000, math.ceil(iters * 1.2 * TIME_WINDOW_MS / max(ms, 1e-3)))
+
+
+def kernel_device_ms(fn, marker: str, calls: int = 20) -> float:
+    """Device time per call of the kernels whose name holds `marker`, over `calls` calls of fn under
+    torch.profiler (after one warm call): a kernel's own time, where cuda_time_ms reads its caller's host
+    time instead (a launch shorter than the wrapper's Python)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and marker in e.key) / calls / 1e3
 
 
 def epilogue_cases():
@@ -499,7 +519,9 @@ def check_mel():
     plus the output written once at 3.35 TB/s, and per frame
     5 N log2 N (the N = n_fft / 2 point FFT) + 4 (N + 1) (split, power)
     + 2 nnz(mel basis) operations at 67 TFLOP/s (f32). Library: torch.stft
-    (cuFFT) and the mel matmul, timed only."""
+    (cuFFT) and the mel matmul, timed only. device_ms: the kernel's own
+    time per launch (torch.profiler); at 3 s `ms` reads the wrapper's host
+    time per call instead."""
     import numpy as np
     import torch
 
@@ -531,6 +553,7 @@ def check_mel():
 
         rows[label] = {"shape": list(shape), "hop": hop, "n_mels": n_mels, "max_abs_err": err, "err_over_max": rel,
                        "ms": cuda_time_ms(lambda: M.melspectrogram(y, SR, 2048, hop, n_mels)),
+                       "device_ms": kernel_device_ms(lambda: M.melspectrogram(y, SR, 2048, hop, n_mels), "mel_kernel"),
                        "plain_ms": cuda_time_ms(lambda: M.melspectrogram_plain(y, basis, 2048, hop)),
                        "library_ms": cuda_time_ms(library), "bound_ms": max(bytes_ms, ops_ms),
                        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "bytes": nbytes, "ops": ops}
@@ -617,11 +640,15 @@ def check_kconv():
     K.reset_launches()  # the comparison launches do not count
     for label, r in rows.items():
         print(json.dumps({"kconv": {"case": label, **r}}), flush=True)
-    sg3 = {k: sum(r[k] for label, r in rows.items() if label.startswith("sg3") and label.endswith("bf16"))
-           for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms", "ops_ms")}
-    # the tail's bound is the sum of its calls' bounds; name the kind that is larger over them
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms", "ops_ms")
+    sg3 = {k: sum(r[k] for label, r in rows.items() if label.startswith("sg3") and label.endswith("bf16")) for k in keys}
+    f32 = {k: sum(r[k] for label, r in rows.items() if label.endswith("f32")) for k in keys}
+    # a sum's bound is the sum of its calls' bounds; name the kind that is larger over them
     return {"max_abs_err": worst, "cases": rows, **{f"sg3_tail_bf16_{k}": v for k, v in sg3.items()},
-            "sg3_tail_bf16_bound_by": "bytes" if sg3["bytes_ms"] >= sg3["ops_ms"] else "operations"}
+            "sg3_tail_bf16_bound_by": "bytes" if sg3["bytes_ms"] >= sg3["ops_ms"] else "operations",
+            **{f"f32_{k}": v for k, v in f32.items()},
+            "f32_max_abs_err": max(r["max_abs_err"] for label, r in rows.items() if label.endswith("f32")),
+            "f32_bound_by": "bytes" if f32["bytes_ms"] >= f32["ops_ms"] else "operations"}
 
 
 def example_patch(repo: str, example: str) -> str:
@@ -688,19 +715,14 @@ def mel_case(y, sr, n_fft, hop_length, n_mels, power, fmin, fmax) -> str:
                          f"power {power}, sr {sr}, fmin {fmin}, fmax {fmax} has no MEL_SHAPES case")
 
 
-def run_ar_e2e(wav: str, tmp: str):
-    """The mel-bearing patch (MEL_PATCH_BODY) over the 3 s wav through the
-    full-width StyleGAN2 (seed 0), as e2e renders the example patch: the
-    epilogue must launch 17 times per render batch and the mel kernel at
-    least once. The MEL_SHAPES case of each mel launch is recorded."""
+@contextlib.contextmanager
+def mel_cases_recorded():
+    """Within the block, every mel call on the card appends its MEL_SHAPES
+    case (mel_case) to the yielded list."""
     import inspect
 
-    from maua_tpu_torch.kernels import epilogue as E
     from maua_tpu_torch.kernels import spectrogram as M
 
-    patch_file = os.path.join(tmp, "mel_patch.py")
-    with open(patch_file, "w") as f:
-        f.write(MEL_PATCH_HEADER + MEL_PATCH_BODY)
     wrapper, signature, cases = M.melspectrogram, inspect.signature(M.melspectrogram), []
 
     def recording(*args, **kwargs):
@@ -713,14 +735,34 @@ def run_ar_e2e(wav: str, tmp: str):
 
     M.melspectrogram = recording
     try:
-        out = render_video(wav, patch_file, E, 17, {"seed": 0}, counted=(M,))
+        yield cases
     finally:
         M.melspectrogram = wrapper
+
+
+def case_counts(cases, launches: int, what: str) -> dict:
+    """{MEL_SHAPES label: calls} of the recorded mel calls, which must be the kernel's launches."""
+    if len(cases) != launches:
+        raise AssertionError(f"{what}: {len(cases)} mel calls on the card, {launches} launches")
+    return {c: cases.count(c) for c in sorted(set(cases))}
+
+
+def run_ar_e2e(wav: str, tmp: str):
+    """The mel-bearing patch (MEL_PATCH_BODY) over the 3 s wav through the
+    full-width StyleGAN2 (seed 0), as e2e renders the example patch: the
+    epilogue must launch 17 times per render batch and the mel kernel at
+    least once. The MEL_SHAPES case of each mel launch is recorded."""
+    from maua_tpu_torch.kernels import epilogue as E
+    from maua_tpu_torch.kernels import spectrogram as M
+
+    patch_file = os.path.join(tmp, "mel_patch.py")
+    with open(patch_file, "w") as f:
+        f.write(MEL_PATCH_HEADER + MEL_PATCH_BODY)
+    with mel_cases_recorded() as cases:
+        out = render_video(wav, patch_file, E, 17, {"seed": 0}, counted=(M,))
     if out["spectrogram_launches"] < 1:
         raise AssertionError("the mel patch's video did not launch the mel kernel")
-    if len(cases) != out["spectrogram_launches"]:
-        raise AssertionError(f"{len(cases)} mel calls on the card, {out['spectrogram_launches']} launches")
-    return {**out, "mel_cases": {c: cases.count(c) for c in sorted(set(cases))}}
+    return {**out, "mel_cases": case_counts(cases, out["spectrogram_launches"], "ar_e2e")}
 
 
 AR_FEATURES = ("onsets", "pulse", "volume", "chroma", "tempo", "laplacian_segmentation")
@@ -767,8 +809,10 @@ def ar_features_child(song: str):
     passes = []
     for _ in range(2):
         M.reset_launches()
-        outs, seconds = ar_features(y, sr, round(duration * FPS))
-        passes.append({"seconds": seconds, "total_seconds": sum(seconds.values()), "mel_launches": M.launches})
+        with mel_cases_recorded() as cases:
+            outs, seconds = ar_features(y, sr, round(duration * FPS))
+        passes.append({"seconds": seconds, "total_seconds": sum(seconds.values()), "mel_launches": M.launches,
+                       "mel_cases": case_counts(cases, M.launches, "ar_features")})
     return {"audio_seconds": duration, "cold": passes[0], "warm": passes[1], "tempo": outs["tempo"][0],
             "segments": len(outs["laplacian_segmentation"][0])}
 
@@ -1197,6 +1241,7 @@ def main() -> int:
     kernel, flrelu, attn, mel, kconv = (results[k] for k in ("kernel", "flrelu", "attn", "mel", "kconv"))
     mel_launches, mel_cases = results["ar_e2e"]["spectrogram_launches"], results["ar_e2e"]["mel_cases"]
     mel_main = mel["cases"][max(mel_cases, key=lambda c: mel_cases[c] * mel["cases"][c]["bound_ms"])]
+    song_cases = results["ar_features"]["warm"]["mel_cases"]
     record = {"kernels": [{
         "name": "modconv_epilogue",
         "route": "cuda",
@@ -1249,8 +1294,13 @@ def main() -> int:
         **{k: sum(n * mel["cases"][c][k] for c, n in mel_cases.items())
            for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
         "bound_by": mel_main["bound_by"],
+        "song_launches": results["ar_features"]["warm"]["mel_launches"],
+        **{f"song_{k}": sum(n * mel["cases"][c][k] for c, n in song_cases.items())
+           for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
         "scope": f"the {mel_launches} launches of one {SECONDS:g} s mel-patch video, each priced at its mel case "
-                 f"({', '.join(f'{n} x {c}' for c, n in mel_cases.items())}); library: torch.stft and the mel matmul",
+                 f"({', '.join(f'{n} x {c}' for c, n in mel_cases.items())}); song_*: the launches of the feature "
+                 f"stage over a {SONG_SECONDS:g} s song (ar_features), priced alike "
+                 f"({', '.join(f'{n} x {c}' for c, n in song_cases.items())}); library: torch.stft and the mel matmul",
     }, {
         "name": "kconv3x3",
         "route": "cuda",
@@ -1260,8 +1310,11 @@ def main() -> int:
         "max_abs_err": kconv["max_abs_err"],
         **{k: kconv[f"sg3_tail_bf16_{k}"] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
         "bound_by": kconv["sg3_tail_bf16_bound_by"],
+        **{f"f32_{k}": kconv[f"f32_{k}"] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms", "bound_by")},
         "scope": f"no path: nothing in maua_tpu or in the port calls it (as with its TPU kernel); times are the "
-                 f"three last 3x3 layers of a 1024^2 StyleGAN3 frame batch of {BATCH} in bf16; library: F.conv2d",
+                 f"three last 3x3 layers of a 1024^2 StyleGAN3 frame batch of {BATCH} in bf16; f32_*: the sum over "
+                 f"the f32 cases at batch 1 (the same three layers and RRDB's five growth convs at 512^2, on the "
+                 f"CUDA cores); library: F.conv2d (f32 with TF32 off)",
     }]}
     print(card)
     print(json.dumps(record))

@@ -18,35 +18,49 @@
 // (layers 11 and 12), under the 295 at which the card's bf16 tensor cores
 // (989 TFLOP/s over 3.35 TB/s) would outrun its memory: bytes bound. In
 // f32 (ridge 67 TFLOP/s over 3.35 TB/s, 20) and at RRDB's last growth conv
-// (192 -> 64 channels, 432 in bf16) it is operations bound. Two kernels:
+// (192 -> 64 channels, 432 in bf16) it is operations bound. Two kernels,
+// both implicit GEMMs (M pixels, N output channels, K the nine taps times
+// Ci), walking K in chunks of input channels, double-buffered by cp.async:
 //
-// f32, `kconv_kernel` (on the CUDA cores, exact f32 products): a block
-// owns an output tile of 8 rows x 16 columns x 32 or 64 output channels
-// of one image. Per chunk of 8 input channels it stages the 10 x 18 input
-// halo (style applied on load, zero outside the image) and the 3 x 3 x 8
-// weight slice in shared memory as f32; each warp owns one output row,
-// each lane one (or two) output channels and 16 pixels in registers, so
-// every shared-memory read of the halo is a broadcast and the weights are
-// read conflict-free.
-//
-// bf16, `kconv_tc` (an implicit GEMM on the tensor cores, mma.sync
-// m16n8k16, f32 accumulate): a block owns 16 rows x 16 columns of one
-// image (M, one 16-pixel row per m16 tile, two rows per warp) x N = 64
-// output channels (32 where Co <= 32, so that 32-channel layers waste
-// none). The K loop walks the input channels in chunks of 16; per chunk
-// it stages the 18 x 18 x 16 halo and the 9 x 16 x N weight slice
-// in bf16 shared memory, double-buffered, and the nine taps are nine k16
-// steps of the MMA: the TPU kernel packed the taps into its matmul
-// contraction, here they are the MMA's K dimension. An A fragment's
-// ldmatrix rows are 16 neighbouring pixels of the halo at (row + dy,
-// column + dx); pixels are 24 bf16 (three 16-byte units) apart and weight
-// rows N + 8, odd unit counts, so every ldmatrix is conflict-free. The
-// weights come repacked by the wrapper as (Co / N, Ci / 16, 9, 16, N)
-// tiles, zero-padded, and arrive by 16-byte cp.async; the halo does too
-// where a pixel's channels are 16-byte aligned (Ci % 8 == 0), zero-filled
+// f32, `kconv_f32` (on the CUDA cores, exact f32 products: no TF32, since
+// the kernel is held to 1e-5): FFMA bound, so the design is the one of an
+// SGEMM on the CUDA cores, a register outer product fed by 128-bit
+// shared-memory reads. A block owns 8 rows x 32 columns of one image x
+// BN = 8 NW output channels, one warp per 8 channels (NW = 4 or 8, so
+// BN = 32 where Co <= 32, else 64; a warp whose channels lie past Co only
+// stages, so the SG3 tail's 51 costs 7 warps' FMAs).
+// Each lane owns 8 neighbouring pixels of one row x its warp's 8
+// channels, 64 accumulators. Per chunk of 8 input channels the block
+// stages the 10 x 34 halo (channel-major planes, rows 16-byte aligned) and
+// the 9 x 8 x BN weight slice. Per input channel and tap row a lane reads
+// its 12 halo floats (three 128-bit reads, used by the three column taps)
+// and per tap its 8 weights (two 128-bit reads that the warp shares): 192
+// FFMAs per nine 128-bit reads. The weights come repacked by the wrapper
+// as (Co / BN, Ci / 8, 9, 8, BN) tiles, zero-padded, by 16-byte cp.async;
+// the halo by 4-byte cp.async, which transposes NHWC into the planes and
+// takes any Ci, aligned or not (81 and 51 at the SG3 tail), zero-filled
 // outside the image and past Ci, with the style multiplied in place after
-// the copy lands; otherwise (Ci = 81, 51 at the SG3 tail) by 2-byte
-// loads, eight in flight per thread, with the style applied on load.
+// the copy lands. A chunk's FMAs stop at Ci, so a ragged last chunk costs
+// its channels only.
+//
+// bf16, `kconv_tc` (on the tensor cores, mma.sync m16n8k16, f32
+// accumulate): a block owns 16 rows x 16 columns of one image (M, one
+// 16-pixel row per m16 tile, two rows per warp) x N = 64 output channels
+// (32 where Co <= 32, so that 32-channel layers waste none). The K loop
+// walks the input channels in chunks of 16; per chunk it stages the
+// 18 x 18 x 16 halo and the 9 x 16 x N weight slice in bf16 shared
+// memory, double-buffered, and the nine taps are nine k16 steps of the
+// MMA: the TPU kernel packed the taps into its matmul contraction, here
+// they are the MMA's K dimension. An A fragment's ldmatrix rows are 16
+// neighbouring pixels of the halo at (row + dy, column + dx); pixels are
+// 24 bf16 (three 16-byte units) apart and weight rows N + 8, odd unit
+// counts, so every ldmatrix is conflict-free. The weights come repacked
+// by the wrapper as (Co / N, Ci / 16, 9, 16, N) tiles, zero-padded, and
+// arrive by 16-byte cp.async; the halo does too where a pixel's channels
+// are 16-byte aligned (Ci % 8 == 0), zero-filled outside the image and
+// past Ci, with the style multiplied in place after the copy lands;
+// otherwise (Ci = 81, 51 at the SG3 tail) by 2-byte loads, eight in
+// flight per thread, with the style applied on load.
 //
 // Both: demod, bias and lrelu * gain are applied on the f32 accumulators
 // at store. The launch goes on the caller's stream and allocates nothing.
@@ -59,14 +73,12 @@
 
 namespace {
 
-constexpr int kRows = 8;    // output rows per block, one per warp
-constexpr int kCols = 16;   // output columns per block, per thread
-constexpr int kChunk = 8;   // input channels staged per step
-constexpr int kHaloR = kRows + 2, kHaloC = kCols + 2;
+constexpr int kRows = 8;    // f32: output rows per block, one per lane quad
+constexpr int kCols = 16;   // bf16: output columns per block
 
 struct Params {
   const void* x;         // (B, H, W, Ci)
-  const void* w;         // f32: (3, 3, Ci, Co); bf16: packed (Co / 64, Ci / 16, 9, 16, 64)
+  const void* w;         // packed tiles (Co / N, Ci / K, 9, K, N), N = 32 or 64: f32 K = 8, bf16 K = 16
   const float* bias;     // (Co,) or null
   const float* style;    // (B, Ci) or null, already rounded to x's type
   const float* demod;    // (B, Co) or null
@@ -76,103 +88,199 @@ struct Params {
   int has_act;
 };
 
-__device__ __forceinline__ float load(const float* p, long long i) { return __ldg(p + i); }
-__device__ __forceinline__ float round_to(float v, const float*) { return v; }
-__device__ __forceinline__ void store(float* p, long long i, float v) { p[i] = v; }
+__device__ __forceinline__ unsigned smem_addr(const void* p) { return (unsigned)__cvta_generic_to_shared(p); }
 
-template <typename T, int CJ>
-__global__ void __launch_bounds__(256) kconv_kernel(Params p) {
-  constexpr int kCo = 32 * CJ;
-  __shared__ float xs[kChunk][kHaloR][kHaloC];
-  __shared__ float ws[9][kChunk][kCo];
+// 16 bytes from src, or zeros where `bytes` is 0 (src is then not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes = 16) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src), "r"(bytes)
+               : "memory");
+}
+// 4 bytes from src, or zeros where `bytes` is 0
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
-  const T* x = static_cast<const T*>(p.x);
-  const T* w = static_cast<const T*>(p.w);
-  T* y = static_cast<T*>(p.y);
+// Allows `bytes` of dynamic shared memory for `kernel` on the current device, once per device: `allowed`
+// is the instance's own mask of devices.
+int allow_smem(const void* kernel, int bytes, std::atomic<unsigned long long>& allowed) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= 64) return 1006;
+  if (!(allowed.load() >> dev & 1ull)) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return (int)err;
+    allowed.fetch_or(1ull << dev);
+  }
+  return 0;
+}
+
+
+// ---- f32 on the CUDA cores ----
+
+constexpr int kF32Chunk = 8;                  // input channels per K step
+constexpr int kF32Cols = 32;                  // output columns per block: four lanes of 8
+constexpr int kF32HR = kRows + 2, kF32HW = kF32Cols + 2;  // halo rows and columns
+constexpr int kF32HC = 36;                    // floats per halo row: 16-byte aligned, room for a lane's 12
+// floats per halo plane (one input channel), 12 mod 32: the 8 planes that a warp's copies of one pixel
+// write fall in distinct banks
+constexpr int kF32Plane = kF32HR * kF32HC + (44 - kF32HR * kF32HC % 32) % 32;
+constexpr int kF32Halo = kF32Chunk * kF32Plane;  // floats of one halo stage
+template <int NW>
+constexpr int f32_smem_bytes() {  // two stages of halo and weights
+  return 2 * (kF32Halo + 9 * kF32Chunk * 8 * NW) * (int)sizeof(float);
+}
+
+// at most 128 registers: two blocks an SM at 8 warps, four at 4 (16 warps)
+template <int NW>
+__global__ void __launch_bounds__(32 * NW, 16 / NW) kconv_f32(Params p) {
+  constexpr int BN = 8 * NW, WTILE = 9 * kF32Chunk * BN, NT = 32 * NW;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* xs = reinterpret_cast<float*>(smem_raw);  // [2][kF32Chunk][kF32Plane]
+  float* ws = xs + 2 * kF32Halo;                   // [2][9][kF32Chunk][BN]
+
+  const float* w = static_cast<const float*>(p.w);
+  float* y = static_cast<float*>(p.y);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int w0 = blockIdx.x * kCols, h0 = blockIdx.y * kRows;
-  const int b = blockIdx.z / p.co_blocks, co0 = (blockIdx.z % p.co_blocks) * kCo;
+  const int w0 = blockIdx.x * kF32Cols, h0 = blockIdx.y * kRows;
+  const int b = blockIdx.z / p.co_blocks, ct = blockIdx.z - b * p.co_blocks, co0 = ct * BN + 8 * warp;
+  const int chunks = (p.Ci + kF32Chunk - 1) / kF32Chunk;
+  const float* xb = static_cast<const float*>(p.x) + (long long)b * p.H * p.W * p.Ci;
 
-  float acc[CJ][kCols];
-#pragma unroll
-  for (int j = 0; j < CJ; ++j)
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[j][c] = 0.f;
-
-  for (int ci0 = 0; ci0 < p.Ci; ci0 += kChunk) {
-    // the input halo of this chunk, style applied, zero outside the image
-    for (int e = tid; e < kChunk * kHaloR * kHaloC; e += blockDim.x) {
-      const int ci = e % kChunk, pix = e / kChunk;
-      const int r = pix / kHaloC, c = pix % kHaloC;
-      const int h = h0 + r - 1, ww = w0 + c - 1;
-      float v = 0.f;
-      if (ci0 + ci < p.Ci && h >= 0 && h < p.H && ww >= 0 && ww < p.W) {
-        v = load(x, (((long long)b * p.H + h) * p.W + ww) * p.Ci + ci0 + ci);
-        if (p.style) v = round_to(v * __ldg(p.style + (long long)b * p.Ci + ci0 + ci), x);
-      }
-      xs[ci][r][c] = v;
+  // chunk c of the input channels into stage st: the weight tile by 16-byte copies, the halo by 4-byte
+  // copies, a pixel's 8 channels from 8 neighbouring threads
+  auto stage = [&](int c, int st) {
+    const float* wsrc = w + ((long long)ct * chunks + c) * WTILE;
+    float* wdst = ws + st * WTILE;
+    for (int e = tid; e < WTILE / 4; e += NT) cp_async16(wdst + 4 * e, wsrc + 4 * e);
+    float* xdst = xs + st * kF32Halo;
+    const int ci0 = c * kF32Chunk;
+    for (int e = tid; e < kF32Chunk * kF32HR * kF32HW; e += NT) {
+      const int ci = e % kF32Chunk, pix = e / kF32Chunk, r = pix / kF32HW, col = pix - r * kF32HW;
+      const int h = h0 + r - 1, ww = w0 + col - 1;
+      const bool in = ci0 + ci < p.Ci && h >= 0 && h < p.H && ww >= 0 && ww < p.W;
+      const float* src = in ? xb + ((long long)h * p.W + ww) * p.Ci + ci0 + ci : xb;
+      cp_async4(xdst + ci * kF32Plane + r * kF32HC + col, src, in ? 4 : 0);
     }
-    // the 3 x 3 x chunk x kCo weight slice
-    for (int e = tid; e < 9 * kChunk * kCo; e += blockDim.x) {
-      const int co = e % kCo, rest = e / kCo;
-      const int ci = rest % kChunk, tap = rest / kChunk;
-      float v = 0.f;
-      if (ci0 + ci < p.Ci && co0 + co < p.Co) v = load(w, ((long long)tap * p.Ci + ci0 + ci) * p.Co + co0 + co);
-      ws[tap][ci][co] = v;
+  };
+  // each thread scales, in place, the halo floats that it copied itself (visible to it after its wait),
+  // before the barrier that publishes the stage; they are all of one input channel, ci0 + tid % 8 (NT % 8 == 0)
+  auto style_in_place = [&](int st, float sv) {
+    float* xdst = xs + st * kF32Halo + (tid % kF32Chunk) * kF32Plane;
+    for (int e = tid; e < kF32Chunk * kF32HR * kF32HW; e += NT) {
+      const int pix = e / kF32Chunk, r = pix / kF32HW, col = pix - r * kF32HW;
+      xdst[r * kF32HC + col] *= sv;
+    }
+  };
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  // this lane's pixels: row lane / 4 of the tile, columns c0 .. c0 + 7; its halo reads start there
+  const int r = lane >> 2, c0 = 8 * (lane & 3);
+  const bool busy = co0 < p.Co;  // a warp whose channels all lie past Co only stages
+
+  stage(0, 0);
+  cp_async_commit();
+  for (int c = 0; c < chunks; ++c) {
+    const int st = c & 1;
+    if (c + 1 < chunks) {  // the next chunk into the other stage, freed by the barrier that ended step c - 1
+      stage(c + 1, st ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    if (p.style) {
+      const int cs = c * kF32Chunk + tid % kF32Chunk;  // the input channel of the halo floats this thread copied
+      if (cs < p.Ci) style_in_place(st, __ldg(p.style + (long long)b * p.Ci + cs));
     }
     __syncthreads();
-
-    const int nci = min(kChunk, p.Ci - ci0);
+    const float* xt = xs + st * kF32Halo + r * kF32HC + c0;
+    const float* wt = ws + st * WTILE + 8 * warp;
+    const int nci = busy ? min(kF32Chunk, p.Ci - c * kF32Chunk) : 0;
+#pragma unroll 2
     for (int ci = 0; ci < nci; ++ci) {
 #pragma unroll
       for (int dy = 0; dy < 3; ++dy) {
-        float row[kHaloC];
-#pragma unroll
-        for (int c = 0; c < kHaloC; ++c) row[c] = xs[ci][warp + dy][c];
+        const float4* rp = reinterpret_cast<const float4*>(xt + ci * kF32Plane + dy * kF32HC);
+        const float4 q0 = rp[0], q1 = rp[1], q2 = rp[2];
+        const float row[12] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w, q2.x, q2.y, q2.z, q2.w};
 #pragma unroll
         for (int dx = 0; dx < 3; ++dx) {
+          const float4* wp = reinterpret_cast<const float4*>(wt + ((dy * 3 + dx) * kF32Chunk + ci) * BN);
+          const float4 b0 = wp[0], b1 = wp[1];
+          const float wv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
-          for (int j = 0; j < CJ; ++j) {
-            const float wv = ws[dy * 3 + dx][ci][lane + 32 * j];
+          for (int i = 0; i < 8; ++i)
 #pragma unroll
-            for (int c = 0; c < kCols; ++c) acc[j][c] = fmaf(row[c + dx], wv, acc[j][c]);
-          }
+            for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(row[i + dx], wv[j], acc[i][j]);
         }
       }
     }
-    __syncthreads();
+    __syncthreads();  // every warp is done with this stage before step c + 1 refills it
   }
 
-  const int h = h0 + warp;
-  if (h >= p.H) return;
+  const int h = h0 + r;
+  if (!busy || h >= p.H) return;
+  float dm[8], bs[8];
 #pragma unroll
-  for (int j = 0; j < CJ; ++j) {
-    const int co = co0 + lane + 32 * j;
-    if (co >= p.Co) continue;
-    const float dm = p.demod ? __ldg(p.demod + (long long)b * p.Co + co) : 1.f;
-    const float bs = p.bias ? __ldg(p.bias + co) : 0.f;
+  for (int j = 0; j < 8; ++j) {
+    const bool in = co0 + j < p.Co;
+    dm[j] = p.demod && in ? __ldg(p.demod + (long long)b * p.Co + co0 + j) : 1.f;
+    bs[j] = p.bias && in ? __ldg(p.bias + co0 + j) : 0.f;
+  }
+  const bool vec = p.Co % 4 == 0 && co0 + 8 <= p.Co;  // two 16-byte stores a pixel
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      const int ww = w0 + c;
-      if (ww >= p.W) break;
-      float v = acc[j][c] * dm + bs;
-      if (p.has_act) v = (v >= 0.f ? v : v * p.alpha) * p.gain;
-      store(y, (((long long)b * p.H + h) * p.W + ww) * p.Co + co, v);
+  for (int i = 0; i < 8; ++i) {
+    const int ww = w0 + c0 + i;
+    if (ww >= p.W) break;
+    float v[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      v[j] = acc[i][j] * dm[j] + bs[j];
+      if (p.has_act) v[j] = (v[j] >= 0.f ? v[j] : v[j] * p.alpha) * p.gain;
+    }
+    float* dst = y + (((long long)b * p.H + h) * p.W + ww) * p.Co + co0;
+    if (vec) {
+      reinterpret_cast<float4*>(dst)[0] = make_float4(v[0], v[1], v[2], v[3]);
+      reinterpret_cast<float4*>(dst)[1] = make_float4(v[4], v[5], v[6], v[7]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        if (co0 + j < p.Co) dst[j] = v[j];
     }
   }
 }
 
-template <typename T>
-int launch(const Params& p0, cudaStream_t s) {
+template <int NW>
+int launch_f32_width(const Params& p0, cudaStream_t s) {
   Params p = p0;
-  const int cj = p.Co <= 32 ? 1 : 2;
-  p.co_blocks = (p.Co + 32 * cj - 1) / (32 * cj);
+  p.co_blocks = (p.Co + 8 * NW - 1) / (8 * NW);
   const long long nz = (long long)p.B * p.co_blocks;
   if (nz > 65535) return 1003;
-  dim3 grid((p.W + kCols - 1) / kCols, (p.H + kRows - 1) / kRows, (unsigned)nz);
-  if (cj == 1) kconv_kernel<T, 1><<<grid, 256, 0, s>>>(p);
-  else kconv_kernel<T, 2><<<grid, 256, 0, s>>>(p);
+  static std::atomic<unsigned long long> allowed{0};
+  const int err = allow_smem((const void*)kconv_f32<NW>, f32_smem_bytes<NW>(), allowed);
+  if (err) return err;
+  dim3 grid((p.W + kF32Cols - 1) / kF32Cols, (p.H + kRows - 1) / kRows, (unsigned)nz);
+  kconv_f32<NW><<<grid, 32 * NW, f32_smem_bytes<NW>(), s>>>(p);
   return (int)cudaGetLastError();
+}
+
+// output tiles of 32 channels where Co <= 32, else 64 (the layout `pack_weights` gives the weights); at
+// Co = 51 the eighth warp of a 64-channel tile has no channels and only stages (as fast as a 56-channel
+// tile of seven warps, measured on an H100)
+int launch_f32(const Params& p, cudaStream_t s) {
+  return p.Co <= 32 ? launch_f32_width<4>(p, s) : launch_f32_width<8>(p, s);
 }
 
 
@@ -182,19 +290,6 @@ using bf16 = __nv_bfloat16;
 constexpr int kTcChunk = 16;         // input channels per K step: one k16 of the MMA per tap
 constexpr int kPix = 24;             // bf16 per halo pixel in shared memory (48 bytes)
 constexpr int kRw = 2;               // output rows per warp: a block owns 8 * kRw rows
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) { return (unsigned)__cvta_generic_to_shared(p); }
-
-// 16 bytes from src, or zeros where `bytes` is 0 (src is then not read)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes = 16) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 __device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -406,16 +501,9 @@ int launch_tc_instance(const Params& p, dim3 grid, cudaStream_t s) {
   void (*kernel)(Params);
   if constexpr (CO == 64 && !VEC) kernel = kconv_tc_capped<VEC, CO>;
   else kernel = kconv_tc<VEC, CO>;
-  static std::atomic<unsigned long long> allowed{0};  // devices on which its shared memory was allowed
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= 64) return 1006;
-  if (!(allowed.load() >> dev & 1ull)) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, tc_smem_bytes<CO>());
-    if (err != cudaSuccess) return (int)err;
-    allowed.fetch_or(1ull << dev);
-  }
+  static std::atomic<unsigned long long> allowed{0};
+  const int err = allow_smem((const void*)kernel, tc_smem_bytes<CO>(), allowed);
+  if (err) return err;
   kernel<<<grid, 256, tc_smem_bytes<CO>(), s>>>(p);
   return (int)cudaGetLastError();
 }
@@ -438,15 +526,16 @@ int launch_tc(const Params& p, cudaStream_t s) {
 
 }  // namespace
 
-// dtype 0 = f32 with w (3, 3, Ci, Co); 1 = bf16 with w packed as (ceil(Co / T), ceil(Ci / 16), 9, 16, T),
-// zero-padded, 16-byte aligned, T = 32 where Co <= 32, else 64. Returns 0, a cudaError_t, 1003 (bad sizes) or 1004 (bad dtype).
+// w packed as (ceil(Co / T), ceil(Ci / K), 9, K, T), zero-padded, 16-byte aligned, T = 32 where Co <= 32, else
+// 64: dtype 0 = f32 with K = 8; 1 = bf16 with K = 16. Returns 0, a cudaError_t, 1003 (bad sizes), 1004 (bad
+// dtype) or 1006 (device index over 63).
 extern "C" int maua_kconv3x3(const void* x, const void* w, const float* bias, const float* style, const float* demod,
                              void* y, int dtype, int B, int H, int W, int Ci, int Co, float alpha, float gain,
                              int has_act, void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || Ci <= 0 || Co <= 0 || (H + kRows - 1) / kRows > 65535) return 1003;
   Params p{x, w, bias, style, demod, y, B, H, W, Ci, Co, 0, alpha, gain, has_act};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(p, s);
+  if (dtype == 0) return launch_f32(p, s);
   if (dtype == 1) return launch_tc(p, s);
   return 1004;
 }

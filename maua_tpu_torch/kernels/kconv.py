@@ -12,9 +12,10 @@ with each of style, demod and bias optional, f32 or bf16 storage and f32
 accumulation, the output in x's dtype. The input style product is rounded
 to x's dtype and the weights are cast to it, as the TPU kernel does.
 
-The CUDA source is `maua_tpu_torch/csrc/kconv.cu`: f32 on the CUDA cores,
-bf16 as an implicit GEMM on the tensor cores, which reads its weights in
-the tile layout that `pack_weights` makes (one small copy per call).
+The CUDA source is `maua_tpu_torch/csrc/kconv.cu`: an implicit GEMM, in
+f32 on the CUDA cores (exact f32 products) and in bf16 on the tensor
+cores, each reading its weights in the tile layout that `pack_weights`
+makes for it (one small copy per call).
 `kconv3x3` launches it for CUDA tensors and raises on what it does not
 take; CPU tensors take the plain PyTorch version, `kconv3x3_plain` (an f32 `F.conv2d` of the
 styled input, then the epilogue), which is also what the kernel is held
@@ -57,23 +58,25 @@ def _kernel():
 
 
 TILE_CI = 16  # the bf16 kernel's input channels per step, for each of the nine taps
+F32_TILE_CI = 8  # the f32 kernel's
 
 
 def tile_co(co: int) -> int:
-    """The bf16 kernel's output channels per block: 32 where Co <= 32, else 64."""
+    """Either kernel's output channels per block: 32 where Co <= 32, else 64."""
     return 32 if co <= 32 else 64
 
 
-def pack_weights(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """HWIO (3, 3, Ci, Co) -> (ceil(Co / T), ceil(Ci / 16), 9, 16, T) in `dtype`, zero-padded, T = tile_co(Co):
-    tile [n, c, tap, i, j] is w[tap // 3, tap % 3, 16 c + i, T n + j], the bf16 kernel's weight slice for
-    output tile n and input chunk c, whole and contiguous."""
+def pack_weights(w: torch.Tensor, dtype: torch.dtype, tile_ci: int = TILE_CI) -> torch.Tensor:
+    """HWIO (3, 3, Ci, Co) -> (ceil(Co / T), ceil(Ci / K), 9, K, T) in `dtype`, zero-padded, K = tile_ci,
+    T = tile_co(Co): tile [n, c, tap, i, j] is w[tap // 3, tap % 3, K c + i, T n + j], a kernel's weight
+    slice for output tile n and input chunk c, whole and contiguous. K is TILE_CI for the bf16 kernel,
+    F32_TILE_CI for the f32 one."""
     _, _, ci, co = w.shape
     t = tile_co(co)
-    nci, nco = -(-ci // TILE_CI), -(-co // t)
-    wp = torch.zeros(9, nci * TILE_CI, nco * t, dtype=dtype, device=w.device)
+    nci, nco = -(-ci // tile_ci), -(-co // t)
+    wp = torch.zeros(9, nci * tile_ci, nco * t, dtype=dtype, device=w.device)
     wp[:, :ci, :co] = w.reshape(9, ci, co).to(dtype)
-    return wp.view(9, nci, TILE_CI, nco, t).permute(3, 1, 0, 2, 4).contiguous()
+    return wp.view(9, nci, tile_ci, nco, t).permute(3, 1, 0, 2, 4).contiguous()
 
 
 def kconv3x3_plain(x, w, bias=None, style=None, demod=None, alpha=None, gain=1.0):
@@ -127,9 +130,9 @@ def kconv3x3(
         raise ValueError("all tensors must be on the device of x")
     b, h, wd, ci = x.shape
     co = w.shape[3]
-    # the weights in x's dtype (bf16: in the kernel's tiles); the per-channel vectors in f32, the style
-    # rounded to x's dtype first
-    wk = pack_weights(w, x.dtype) if x.dtype == torch.bfloat16 else w.to(x.dtype).contiguous()
+    # the weights in x's dtype, in the kernel's tiles; the per-channel vectors in f32, the style rounded to
+    # x's dtype first
+    wk = pack_weights(w, x.dtype, TILE_CI if x.dtype == torch.bfloat16 else F32_TILE_CI)
     bias32 = None if bias is None else bias.float().contiguous()
     style32 = None if style is None else style.to(x.dtype).float().contiguous()
     demod32 = None if demod is None else demod.float().contiguous()

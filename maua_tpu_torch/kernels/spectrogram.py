@@ -10,8 +10,9 @@ Port of the Pallas TPU kernel `maua_tpu/kernels/spectrogram.py`
     out     = mel_basis @ P                        -> (..., n_mels, T)
 
 with T = L // hop. The CUDA source is `maua_tpu_torch/csrc/spectrogram.cu`:
-one block per frame, a radix-2 FFT in shared memory and the mel product
-over each band's non-zero bins. `melspectrogram` launches it for CUDA
+a frame per warp (or per 16 or 8 lanes below n_fft 2048), a four-step
+FFT in registers, and the mel product of a block's frames over each
+band's non-zero bins. `melspectrogram` launches it for CUDA
 tensors and raises on what it does not take; CPU tensors take the plain
 PyTorch version, `melspectrogram_plain`, which is also what the kernel is
 held against on the card.
@@ -21,6 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -60,22 +62,21 @@ def mel_basis(sr: float, n_fft: int, n_mels: int, fmin: float, fmax: Optional[fl
 
 @functools.lru_cache(maxsize=None)
 def mel_bands(sr: float, n_fft: int, n_mels: int, fmin: float, fmax: Optional[float]):
-    """The basis packed band by band: each band's first non-zero bin, the
-    offsets of its weights, and the weights from its first to its last
-    non-zero bin (an empty band has none)."""
+    """The basis packed for the kernel: each band's first non-zero bin `lo`, its bin count `n` (from the
+    first to the last non-zero bin; 0 for an empty band), and the weights band-minor, (max n, n_mels):
+    weights[i, m] = basis[m, lo[m] + i] for i < n[m], else 0, so that the threads of neighbouring bands
+    read neighbouring weights."""
     basis = mel_basis(sr, n_fft, n_mels, fmin, fmax)
     lo = np.zeros(n_mels, np.int32)
-    off = np.zeros(n_mels + 1, np.int32)
-    weights = []
+    n = np.zeros(n_mels, np.int32)
     for m, row in enumerate(basis):
         nz = np.flatnonzero(row)
         if len(nz):
-            lo[m] = nz[0]
-            weights.append(row[nz[0] : nz[-1] + 1])
-            off[m + 1] = off[m] + nz[-1] + 1 - nz[0]
-        else:
-            off[m + 1] = off[m]
-    return lo, off, np.concatenate(weights).astype(np.float32)
+            lo[m], n[m] = nz[0], nz[-1] + 1 - nz[0]
+    weights = np.zeros((max(int(n.max()), 1), n_mels), np.float32)
+    for m in range(n_mels):
+        weights[: n[m], m] = basis[m, lo[m] : lo[m] + n[m]]
+    return lo, n, weights
 
 
 @functools.lru_cache(maxsize=None)
@@ -116,9 +117,8 @@ def melspectrogram_plain(y: torch.Tensor, basis: torch.Tensor, n_fft: int, hop_l
 def _device_tables(key, device):
     tables = _DEVICE_TABLES.get((key, device))
     if tables is None:
-        lo, off, weights = mel_bands(*key)
         tables = (hann(key[1], device), torch.from_numpy(twiddles(key[1])).to(device),
-                  *(torch.from_numpy(a).to(device) for a in (lo, off, weights)))
+                  *(torch.from_numpy(a).to(device) for a in mel_bands(*key)))
         _DEVICE_TABLES[(key, device)] = tables
     return tables
 
@@ -142,16 +142,16 @@ def melspectrogram(y: torch.Tensor, sr: float, n_fft: int = 2048, hop_length: in
     if hop_length <= 0 or y.dim() == 0 or y.shape[-1] == 0:
         raise ValueError(f"need a positive hop and a non-empty signal, got hop {hop_length}, shape {tuple(y.shape)}")
     lead, length = y.shape[:-1], y.shape[-1]
-    batch = int(np.prod(lead, dtype=np.int64)) if lead else 1
+    batch = math.prod(lead)
     n_frames = length // hop_length
     out = torch.empty(*lead, n_mels, n_frames, dtype=torch.float32, device=y.device)
     if n_frames == 0 or batch == 0:
         return out
     if batch > 65535:
         raise ValueError(f"at most 65535 signals per call, got {batch}")
-    window, twiddle, lo, off, weights = _device_tables(key, y.device)
+    window, twiddle, lo, n, weights = _device_tables(key, y.device)
     err = _kernel()(
-        y.data_ptr(), window.data_ptr(), twiddle.data_ptr(), lo.data_ptr(), off.data_ptr(), weights.data_ptr(),
+        y.data_ptr(), window.data_ptr(), twiddle.data_ptr(), lo.data_ptr(), n.data_ptr(), weights.data_ptr(),
         out.data_ptr(), batch, length, n_fft, hop_length, n_frames, n_mels, float(power),
         torch.cuda.current_stream(y.device).cuda_stream,
     )

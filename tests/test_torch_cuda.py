@@ -301,6 +301,40 @@ def test_melspectrogram_kernel_matches_plain(cuda_device, shape, n_fft, hop, n_m
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape,n_fft,hop,n_mels,power,offset", [
+    ((3, 6000), 256, 128, 40, 2.0, 0),  # 46 frames a signal: 16 a block at n_fft 256, the last tile ragged
+    ((2, 4096), 256, 128, 32, 1.0, 0),  # 32 frames a signal: tiles end where each signal ends
+    ((5000,), 512, 128, 512, 2.0, 0),  # 39 frames (8 a block); 512 mels over 257 bins: empty bands
+    ((2, 4096), 512, 64, 64, 0.5, 0),  # 64 frames a signal: tiles end where each signal ends
+    ((2, 3, 3001), 1024, 300, 64, 2.0, 0),  # 10 frames a signal, 8 a block; a hop that does not divide n_fft
+    ((4, 8192), 2048, 512, 128, 2.0, 0),  # 16 frames a signal, 4 a block: tiles end where each signal ends
+    ((2, 9000), 2048, 333, 512, 1.0, 1),  # an odd float offset: the interior frames' scalar loads
+    ((700,), 2048, 64, 128, 0.5, 0),  # shorter than n_fft / 2: reflected several times
+    ((3, 20000), 4096, 1000, 256, 2.0, 0),  # 20 frames a signal, 4 a block
+    ((2000,), 4096, 256, 128, 1.0, 0),  # shorter than n_fft
+])
+def test_melspectrogram_kernel_edges(cuda_device, shape, n_fft, hop, n_mels, power, offset):
+    """Every n_fft instance of the warp-FFT kernel at its edges: frame counts that are and are not a
+    multiple of a block's frames, signals shorter than n_fft, empty mel bands, each power, unaligned starts."""
+    gen = torch.Generator(device=cuda_device).manual_seed(n_fft + hop)
+    y = _signal(shape, gen, cuda_device)
+    if offset:
+        buf = torch.empty(y.numel() + offset, device=cuda_device)
+        buf[offset:] = y.reshape(-1)
+        y = buf[offset:].view(shape)
+    basis = torch.from_numpy(M.mel_basis(22050.0, n_fft, n_mels, 0.0, None)).to(cuda_device)
+    if n_mels == 512 and n_fft == 512:
+        assert bool((basis.abs().sum(1) == 0).any())  # the case has empty bands
+    M.reset_launches()
+    out = M.melspectrogram(y, 22050, n_fft=n_fft, hop_length=hop, n_mels=n_mels, power=power)
+    torch.cuda.synchronize()
+    assert M.launches == 1
+    ref = M.melspectrogram_plain(y, basis, n_fft, hop, power)
+    assert out.shape == ref.shape == (*shape[:-1], n_mels, shape[-1] // hop)
+    assert float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
 def test_melspectrogram_kernel_rejects_what_it_does_not_take(cuda_device):
     y = torch.randn(2, 4096, device=cuda_device)
     with pytest.raises(TypeError):
@@ -361,6 +395,48 @@ def test_kconv_kernel_matches_plain(cuda_device, dtype, b, h, w, ci, co, epilogu
     assert out.shape == ref.shape == (b, h, w, co) and out.dtype == dtype
     rtol = 2.0**-7 + 1e-5 if dtype == torch.bfloat16 else 1e-5
     torch.testing.assert_close(out.float(), ref.float(), rtol=rtol, atol=1e-5)
+
+
+_KCONV_EPILOGUES = {
+    "none": {},
+    "bias": {"bias": True},
+    "lrelu": {"bias": True, "alpha": 0.2},
+    "style": {"style": True, "alpha": 0.2},
+    "demod": {"demod": True, "bias": True},
+    "modulated": {"style": True, "demod": True, "bias": True, "alpha": 0.2},
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("epilogue", list(_KCONV_EPILOGUES))
+@pytest.mark.parametrize("ci", [5, 51, 81, 192])
+@pytest.mark.parametrize("co", [3, 33, 51, 65])
+def test_kconv_f32_kernel_tile_edges(cuda_device, ci, co, epilogue):
+    """The f32 kernel's edges: output tiles of 32 and 64 channels with ragged ends (Co 3, 33, 51, 65),
+    ragged input chunks of 8, a width not a multiple of 32 and a height not a multiple of 8, two images,
+    every epilogue kind with and without style and demod."""
+    gen = torch.Generator(device=cuda_device).manual_seed(ci * 100 + co)
+    b, h, w = 2, 19, 37
+    x = torch.randn(b, h, w, ci, generator=gen, device=cuda_device)
+    wt = torch.randn(3, 3, ci, co, generator=gen, device=cuda_device) / (9 * ci) ** 0.5
+    kind = _KCONV_EPILOGUES[epilogue]
+    kw = {}
+    if kind.get("bias"):
+        kw["bias"] = torch.randn(co, generator=gen, device=cuda_device)
+    if kind.get("style"):
+        kw["style"] = torch.rand(b, ci, generator=gen, device=cuda_device) + 0.5
+    if kind.get("demod"):
+        kw["demod"] = torch.rand(b, co, generator=gen, device=cuda_device) + 0.5
+    if "alpha" in kind:
+        kw.update(alpha=kind["alpha"], gain=2**0.5)
+    K.reset_launches()
+    out = K.kconv3x3(x, wt, **kw)
+    torch.cuda.synchronize()
+    assert K.launches == 1
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        ref = K.kconv3x3_plain(x, wt, **kw)
+    assert out.shape == ref.shape == (b, h, w, co) and out.dtype == torch.float32
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.cuda

@@ -94,3 +94,25 @@ def test_packed_weights_rebuild_the_conv(ci, co):
     torch.testing.assert_close(y[..., :co].float(), K.kconv3x3_plain(xt, wtt), rtol=1e-5, atol=1e-5)
     assert torch.equal(K.pack_weights(wtt, torch.bfloat16).float(),
                        K.pack_weights(wtt.to(torch.bfloat16).float(), torch.float32))
+
+
+@pytest.mark.parametrize("ci,co", [(81, 51), (51, 32), (5, 3), (17, 33), (192, 64), (8, 65)])
+def test_f32_packed_weights_rebuild_the_conv(ci, co):
+    """The f32 kernel's weight tiles (8 input channels a step, 32 or 64 output channels a block),
+    contracted by im2col in the kernel's K order (per input chunk of 8, the nine taps), give the plain
+    version's conv; padding of Ci and Co is zero."""
+    x, wt, _ = inputs(2, 7, 9, ci, co, 4, False)
+    xt, wtt = torch.from_numpy(x), torch.from_numpy(wt)
+    wp = K.pack_weights(wtt, torch.float32, K.F32_TILE_CI)
+    t = K.tile_co(co)
+    nco, nci = -(-co // t), -(-ci // K.F32_TILE_CI)
+    assert wp.shape == (nco, nci, 9, K.F32_TILE_CI, t) and wp.is_contiguous()
+    wmat = wp.permute(2, 1, 3, 0, 4).reshape(9, nci * K.F32_TILE_CI, nco * t)
+    assert not wmat[:, ci:].any() and not wmat[:, :, co:].any()
+    xpad = torch.nn.functional.pad(xt, (0, nci * K.F32_TILE_CI - ci, 1, 1, 1, 1))
+    cols = torch.stack([xpad[:, dy:dy + 7, dx:dx + 9] for dy in range(3) for dx in range(3)], dim=3)
+    y = torch.zeros(2, 7, 9, nco * t, dtype=torch.float64)
+    for c in range(nci):
+        sl = slice(c * K.F32_TILE_CI, (c + 1) * K.F32_TILE_CI)
+        y += torch.einsum("bhwtc,tcn->bhwn", cols[..., sl].double(), wmat[:, sl].double())
+    torch.testing.assert_close(y[..., :co].float(), K.kconv3x3_plain(xt, wtt), rtol=1e-5, atol=1e-5)

@@ -99,14 +99,18 @@ def test_cpu_tensors_take_the_plain_version():
 
 
 def test_packed_bands_hold_the_basis():
-    """The kernel's packed mel weights rebuild the dense basis exactly."""
-    for n_fft, n_mels in ((2048, 128), (2048, 512), (256, 32)):
+    """The kernel's packed mel weights (band-minor, each band from its first to its last non-zero bin,
+    zero past its count) rebuild the dense basis exactly, empty bands included."""
+    for n_fft, n_mels in ((2048, 128), (2048, 512), (256, 32), (512, 512)):
         basis = TK.mel_basis(float(SR), n_fft, n_mels, 0.0, None)
-        lo, off, weights = TK.mel_bands(float(SR), n_fft, n_mels, 0.0, None)
+        lo, n, weights = TK.mel_bands(float(SR), n_fft, n_mels, 0.0, None)
+        assert weights.shape == (max(n.max(), 1), n_mels) and weights.dtype == np.float32
         dense = np.zeros_like(basis)
         for m in range(n_mels):
-            dense[m, lo[m] : lo[m] + off[m + 1] - off[m]] = weights[off[m] : off[m + 1]]
+            dense[m, lo[m] : lo[m] + n[m]] = weights[: n[m], m]
+            assert not weights[n[m]:, m].any()
         np.testing.assert_array_equal(dense, basis)
+        assert (n == 0).sum() == (np.abs(basis).sum(1) == 0).sum()
 
 
 def test_twiddles_and_window():
