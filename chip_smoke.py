@@ -60,6 +60,23 @@ Phases, each printed as one JSON line with its elapsed seconds:
    MEL_SHAPES case of each (the record prices the song's launches by them).
 17. ar_reference: the song's first 20 s through the features on the card
    and on the CPU, f32 with TF32 off: envelope errors, tempo, boundaries.
+18. gan_load (after ar_reference): full-width StyleGAN2 and StyleGAN3
+   generators from seed 0 written as an NVIDIA ADA .pkl, a rosinality .pt
+   and an NVIDIA-named StyleGAN3 .pt, loaded with load_network (every
+   tensor equal to its source), and the e2e clip rendered from the .pkl
+   and from the StyleGAN3 .pt through the entry point's model_file, the
+   same bytes as from the source passed as params.
+19. sd_load: a full-width SD 1.x CompVis checkpoint in fp16 from seed 0,
+   loaded with load_stable_diffusion (every tensor equal to the fp16
+   source), and one 512^2 10-step image from it and from the source trees:
+   PSNR >= 60 dB.
+20. writer: the FFMPEG renderer end to end (24 frames at 1024^2) through
+   ffmpeg or, without it, OpenCV; the file read back with OpenCV.
+21. delivery (last): render fps by delivery route (the synchronous pageable
+   copy against pipelined_frames, rgb24 and yuv420p) for StyleGAN2 and
+   StyleGAN3 at 1024^2, batch 8 and 32, in one call, with each route's
+   idle share, the copy times pinned and pageable, and rgb_to_yuv420 on
+   the card against the CPU.
 
 `--phases a,b` runs only the named phases after device and build (for
 iterating on one kernel); with no arguments every phase runs. Any
@@ -655,11 +672,13 @@ def example_patch(repo: str, example: str) -> str:
     return os.path.join(repo, "maua_tpu_torch", "audiovisual", "patches", "examples", example)
 
 
-def render_video(wav: str, patch_file: str, kernel_module, per_batch: int, stylegan_kwargs: dict, counted=()):
+def render_video(wav: str, patch_file: str, kernel_module, per_batch: int, stylegan_kwargs: dict, counted=(),
+                 model_file=None):
     """Render the patch over the wav on the card through the normal entry
-    point; the kernel's launch count (and those of the modules in
-    `counted`) is reset just before and read just after, and the kernel's
-    must be `per_batch` times the render batches."""
+    point (from `model_file` when given); the kernel's launch count (and
+    those of the modules in `counted`) is reset just before and read just
+    after, and the kernel's must be `per_batch` times the render batches.
+    Returns (frames, stats)."""
     import numpy as np
     import torch
 
@@ -670,7 +689,7 @@ def render_video(wav: str, patch_file: str, kernel_module, per_batch: int, style
     for module in (kernel_module, *counted):
         module.reset_launches()
     video, _ = generate_audiovisual_from_patch(
-        wav, None, patch_file, renderer="memmap", renderer_kwargs={"batch_size": BATCH}, fps=FPS,
+        wav, model_file, patch_file, renderer="memmap", renderer_kwargs={"batch_size": BATCH}, fps=FPS,
         out_size=(1024, 1024), device="cuda", stylegan_kwargs=stylegan_kwargs, stage_times=stages)
     launches = kernel_module.launches
     other = {f"{m.__name__.rsplit('.', 1)[-1]}_launches": m.launches for m in counted}
@@ -685,15 +704,15 @@ def render_video(wav: str, patch_file: str, kernel_module, per_batch: int, style
     if launches != per_batch * batches:
         raise AssertionError(f"{kernel_module.__name__} launched {launches} times, "
                              f"want {per_batch} x {batches} render batches")
-    return {"frames": list(video.shape), "render_batches": batches, "launches": launches, **other,
-            "stage_seconds": stages, "render_fps": n_frames / stages["render"],
-            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    return video, {"frames": list(video.shape), "render_batches": batches, "launches": launches, **other,
+                   "stage_seconds": stages, "render_fps": n_frames / stages["render"],
+                   "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
 
 
 def run_e2e(wav: str, repo: str):
     from maua_tpu_torch.kernels import epilogue as E
 
-    return render_video(wav, example_patch(repo, "stylegan2.py"), E, 17, {"seed": 0})
+    return render_video(wav, example_patch(repo, "stylegan2.py"), E, 17, {"seed": 0})[1]
 
 
 def run_sg3_e2e(wav: str, repo: str):
@@ -701,7 +720,7 @@ def run_sg3_e2e(wav: str, repo: str):
     from maua_tpu_torch.kernels import filtered_lrelu as FL
 
     cfg = SG3Config(img_resolution=1024, dtype="bfloat16")
-    return render_video(wav, example_patch(repo, "stylegan3.py"), FL, cfg.num_layers - 1, {"cfg": cfg, "seed": 0})
+    return render_video(wav, example_patch(repo, "stylegan3.py"), FL, cfg.num_layers - 1, {"cfg": cfg, "seed": 0})[1]
 
 
 def mel_case(y, sr, n_fft, hop_length, n_mels, power, fmin, fmax) -> str:
@@ -759,7 +778,7 @@ def run_ar_e2e(wav: str, tmp: str):
     with open(patch_file, "w") as f:
         f.write(MEL_PATCH_HEADER + MEL_PATCH_BODY)
     with mel_cases_recorded() as cases:
-        out = render_video(wav, patch_file, E, 17, {"seed": 0}, counted=(M,))
+        _, out = render_video(wav, patch_file, E, 17, {"seed": 0}, counted=(M,))
     if out["spectrogram_launches"] < 1:
         raise AssertionError("the mel patch's video did not launch the mel kernel")
     return {**out, "mel_cases": case_counts(cases, out["spectrogram_launches"], "ar_e2e")}
@@ -1168,6 +1187,604 @@ def sd_card_vs_cpu():
             "cpu_seconds": cpu_s}
 
 
+# ------------------------------------------------------------ checkpoint files
+# chip_smoke writes its checkpoints itself, in the formats users bring: the
+# port's parameter dicts hold NVIDIA's and CompVis's torch layouts, so writing
+# is renaming.
+
+def tree_map(fn, tree):
+    """fn over the tensors of nested dicts and lists."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def assert_trees_equal(got, want, what: str) -> int:
+    """Every tensor of `got` equals its counterpart in `want` exactly (same
+    keys, shapes, dtypes and values); returns the number of tensors."""
+    import torch
+
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or got.keys() != want.keys():
+            raise AssertionError(f"{what}: keys {sorted(got) if isinstance(got, dict) else type(got)} "
+                                 f"!= {sorted(want)}")
+        return sum(assert_trees_equal(got[k], want[k], f"{what}.{k}") for k in want)
+    if isinstance(want, list):
+        if not isinstance(got, list) or len(got) != len(want):
+            raise AssertionError(f"{what}: a list of {len(want)} expected")
+        return sum(assert_trees_equal(g, w, f"{what}[{i}]") for i, (g, w) in enumerate(zip(got, want)))
+    if got.dtype != want.dtype or not torch.equal(got.cpu(), want.cpu()):
+        raise AssertionError(f"{what}: {got.dtype} {tuple(got.shape)} differs from its source "
+                             f"{want.dtype} {tuple(want.shape)}")
+    return 1
+
+
+def ada_state_dict(tree, prefix: str = "") -> dict:
+    """The port's StyleGAN2 (or mapping) parameter dict under NVIDIA's ADA
+    state-dict names: the tree's path, with fc `w`/`b` named weight/bias."""
+    out = {}
+    for k, v in tree.items():
+        name = {"w": "weight", "b": "bias"}.get(k, k)
+        if isinstance(v, dict):
+            out.update(ada_state_dict(v, f"{prefix}{name}."))
+        else:
+            out[prefix + name] = v
+    return out
+
+
+def write_ada_pkl(path: str, sd: dict) -> None:
+    """Write a state dict as stylegan2-ada-pytorch pickles its networks:
+    every nn.Module reduces through torch_utils.persistence's
+    `_reconstruct_persistent_obj(meta)`, meta a dnnlib.EasyDict whose
+    `state` is the module's __dict__ (tensors in `_parameters`/`_buffers`,
+    submodules in `_modules`). Stand-ins for those two modules exist only
+    while pickling, so the loader has to read the file without them."""
+    import pickle
+    import types
+
+    import torch
+
+    class Node(torch.nn.Module):
+        pass
+
+    root = Node()
+    for key, val in sd.items():
+        *parents, leaf = key.split(".")
+        node = root
+        for p in parents:
+            if p not in node._modules:
+                node.add_module(p, Node())
+            node = node._modules[p]
+        if leaf in ("noise_const", "w_avg"):  # ADA's buffers; the rest are parameters
+            node.register_buffer(leaf, val.detach().clone())
+        else:
+            setattr(node, leaf, torch.nn.Parameter(val.detach().clone(), requires_grad=False))
+
+    persistence = types.ModuleType("torch_utils.persistence")
+    dnnlib = types.ModuleType("dnnlib")
+
+    def _reconstruct_persistent_obj(meta):  # referenced by name only; never called
+        raise AssertionError("the writer's stand-in must not run")
+
+    class EasyDict(dict):
+        pass
+
+    _reconstruct_persistent_obj.__module__ = persistence.__name__
+    _reconstruct_persistent_obj.__qualname__ = "_reconstruct_persistent_obj"
+    EasyDict.__module__, EasyDict.__qualname__ = "dnnlib", "EasyDict"
+    persistence._reconstruct_persistent_obj, dnnlib.EasyDict = _reconstruct_persistent_obj, EasyDict
+    stand_ins = {"torch_utils": types.ModuleType("torch_utils"), "torch_utils.persistence": persistence,
+                 "dnnlib": dnnlib}
+
+    class Pickler(pickle.Pickler):
+        def reducer_override(self, obj):
+            if isinstance(obj, torch.nn.Module):
+                meta = EasyDict(type="class", version=6, module_src="# source stripped",
+                                class_name=type(obj).__name__, state=dict(obj.__dict__))
+                return _reconstruct_persistent_obj, (meta,)
+            return NotImplemented
+
+    sys.modules.update(stand_ins)
+    try:
+        with open(path, "wb") as f:
+            Pickler(f, protocol=4).dump({"G": root, "D": None, "G_ema": root, "training_set_kwargs": None,
+                                         "augment_pipe": None})
+    finally:
+        for name in stand_ins:
+            sys.modules.pop(name, None)
+
+
+def rosinality_state_dict(params, cfg) -> dict:
+    """The port's StyleGAN2 parameters under rosinality's names (the inverse
+    of the loader's rosinality_to_ada)."""
+    syn, out = params["synthesis"], {}
+
+    def conv(prefix, p, noise_name):
+        out[f"{prefix}.conv.weight"] = p["weight"][None]
+        out[f"{prefix}.activate.bias"] = p["bias"]
+        out[f"{prefix}.conv.modulation.weight"] = p["affine"]["w"]
+        out[f"{prefix}.conv.modulation.bias"] = p["affine"]["b"]
+        out[f"{prefix}.noise.weight"] = p["noise_strength"].reshape(1)
+        out[f"noises.{noise_name}"] = p["noise_const"][None, None]
+
+    def torgb(prefix, p):
+        out[f"{prefix}.conv.weight"] = p["weight"][None]
+        out[f"{prefix}.bias"] = p["bias"].reshape(1, -1, 1, 1)
+        out[f"{prefix}.conv.modulation.weight"] = p["affine"]["w"]
+        out[f"{prefix}.conv.modulation.bias"] = p["affine"]["b"]
+
+    for i in range(cfg.mapping_layers):
+        out[f"style.{i + 1}.weight"] = params["mapping"][f"fc{i}"]["w"]
+        out[f"style.{i + 1}.bias"] = params["mapping"][f"fc{i}"]["b"]
+    out["input.input"] = syn["b4"]["const"][None]
+    conv("conv1", syn["b4"]["conv1"], "noise_0")
+    torgb("to_rgb1", syn["b4"]["torgb"])
+    for j, res in enumerate(cfg.block_resolutions[1:]):
+        for c in (0, 1):
+            n = 2 * j + c
+            conv(f"convs.{n}", syn[f"b{res}"][f"conv{c}"], f"noise_{n + 1}")
+        torgb(f"to_rgbs.{j}", syn[f"b{res}"]["torgb"])
+    return out
+
+
+def sg3_source_params(cfg, seed: int = 0, device: str = "cuda"):
+    """Random StyleGAN3 parameters (the port's init, seed on `device`) as an
+    NVIDIA file can hold them, and that file's state dict. NVIDIA stores the
+    input's 1x1 mixing weight raw and divides by sqrt(channels) when it
+    runs; the port bakes the division in when it loads (in float64, rounded
+    to float32), so the source's weight is the one the raw value encodes."""
+    import numpy as np
+    import torch
+
+    from maua_tpu_torch.gan.stylegan3 import init_params
+
+    src = tree_map(lambda t: t.cpu(), init_params(cfg, torch.Generator(device=device).manual_seed(seed)))
+    c = src["input"]["weight"].shape[1]
+    raw = (src["input"]["weight"][:, :, 0, 0].double() * math.sqrt(c)).float()
+    src["input"]["weight"] = torch.from_numpy((raw.numpy() / np.sqrt(c)).astype(np.float32)[:, :, None, None])
+    _, _, _, _, sizes, channels = cfg.layer_plan()
+    sd = ada_state_dict({"mapping": src["mapping"]})
+    sd.update({f"synthesis.input.{k}": v for k, v in ada_state_dict(src["input"]).items()})
+    sd["synthesis.input.weight"] = raw
+    for i, layer in enumerate(src["layers"]):
+        name = f"synthesis.L{i}_{int(sizes[i + 1])}_{int(channels[i + 1])}"
+        sd.update({f"{name}.{k}": v for k, v in ada_state_dict(layer).items()})
+    return src, sd
+
+
+def compvis_state_dict(unet, vae, text) -> dict:
+    """The port's SD 1.x UNet, VAE and CLIP-text parameters under the names
+    of a CompVis checkpoint (the inverse of diffusion/load.py's converters)."""
+    sd = {}
+
+    def put(name, p):  # linear and conv {w, b}, norms {scale, bias}
+        for k, n in (("w", "weight"), ("b", "bias"), ("scale", "weight"), ("bias", "bias")):
+            if k in p:
+                sd[f"{name}.{n}"] = p[k]
+
+    def resblock(name, p):
+        put(f"{name}.in_layers.0", p["norm1"])
+        put(f"{name}.in_layers.2", p["conv1"])
+        put(f"{name}.emb_layers.1", p["emb"])
+        put(f"{name}.out_layers.0", p["norm2"])
+        put(f"{name}.out_layers.3", p["conv2"])
+        if "skip" in p:
+            put(f"{name}.skip_connection", p["skip"])
+
+    def spatial(name, p):
+        s = p["spatial"]
+        put(f"{name}.norm", s["norm"])
+        put(f"{name}.proj_in", s["proj_in"])
+        put(f"{name}.proj_out", s["proj_out"])
+        for d, blk in enumerate(s["blocks"]):
+            b = f"{name}.transformer_blocks.{d}"
+            for k in ("norm1", "norm2", "norm3"):
+                put(f"{b}.{k}", blk[k])
+            for a in ("attn1", "attn2"):
+                for k in ("to_q", "to_k", "to_v"):
+                    put(f"{b}.{a}.{k}", blk[a][k])
+                put(f"{b}.{a}.to_out.0", blk[a]["to_out"])
+            put(f"{b}.ff.net.0.proj", blk["ff_in"])
+            put(f"{b}.ff.net.2", blk["ff_out"])
+
+    u = "model.diffusion_model"
+    put(f"{u}.time_embed.0", unet["time_mlp1"])
+    put(f"{u}.time_embed.2", unet["time_mlp2"])
+    put(f"{u}.input_blocks.0.0", unet["conv_in"])
+    for i, blk in enumerate(unet["downs"], start=1):
+        if "down" in blk:
+            put(f"{u}.input_blocks.{i}.0.op", blk["down"])
+            continue
+        resblock(f"{u}.input_blocks.{i}.0", blk["res"])
+        if "attn" in blk:
+            spatial(f"{u}.input_blocks.{i}.1", blk["attn"])
+    resblock(f"{u}.middle_block.0", unet["mid"]["res1"])
+    spatial(f"{u}.middle_block.1", unet["mid"]["attn"])
+    resblock(f"{u}.middle_block.2", unet["mid"]["res2"])
+    for i, blk in enumerate(unet["ups"]):
+        resblock(f"{u}.output_blocks.{i}.0", blk["res"])
+        if "attn" in blk:
+            spatial(f"{u}.output_blocks.{i}.1", blk["attn"])
+        if "up" in blk:
+            put(f"{u}.output_blocks.{i}.{2 if 'attn' in blk else 1}.conv", blk["up"])
+    put(f"{u}.out.0", unet["norm_out"])
+    put(f"{u}.out.2", unet["conv_out"])
+
+    def vres(name, p):
+        for k in ("norm1", "conv1", "norm2", "conv2"):
+            put(f"{name}.{k}", p[k])
+        if "skip" in p:
+            put(f"{name}.nin_shortcut", p["skip"])
+
+    def vmid(name, p):
+        vres(f"{name}.block_1", p["res1"])
+        put(f"{name}.attn_1.norm", p["attn"]["norm"])
+        for k in ("q", "k", "v"):
+            put(f"{name}.attn_1.{k}", p["attn"][k])
+        put(f"{name}.attn_1.proj_out", p["attn"]["proj"])
+        vres(f"{name}.block_2", p["res2"])
+
+    v, enc, dec = "first_stage_model", vae["encoder"], vae["decoder"]
+    put(f"{v}.encoder.conv_in", enc["conv_in"])
+    level, b = 0, 0
+    for blk in enc["blocks"]:
+        if "down" in blk:
+            put(f"{v}.encoder.down.{level}.downsample.conv", blk["down"])
+            level, b = level + 1, 0
+        else:
+            vres(f"{v}.encoder.down.{level}.block.{b}", blk["res"])
+            b += 1
+    vmid(f"{v}.encoder.mid", enc["mid"])
+    put(f"{v}.encoder.norm_out", enc["norm_out"])
+    put(f"{v}.encoder.conv_out", enc["conv_out"])
+    put(f"{v}.quant_conv", enc["quant_conv"])
+    put(f"{v}.post_quant_conv", dec["post_quant_conv"])
+    put(f"{v}.decoder.conv_in", dec["conv_in"])
+    vmid(f"{v}.decoder.mid", dec["mid"])
+    b = 0  # the decoder starts at the encoder's last level
+    for blk in dec["blocks"]:
+        if "up" in blk:
+            put(f"{v}.decoder.up.{level}.upsample.conv", blk["up"])
+            level, b = level - 1, 0
+        else:
+            vres(f"{v}.decoder.up.{level}.block.{b}", blk["res"])
+            b += 1
+    put(f"{v}.decoder.norm_out", dec["norm_out"])
+    put(f"{v}.decoder.conv_out", dec["conv_out"])
+
+    t = "cond_stage_model.transformer.text_model"
+    sd[f"{t}.embeddings.token_embedding.weight"] = text["token_embedding"]
+    sd[f"{t}.embeddings.position_embedding.weight"] = text["positional_embedding"]
+    put(f"{t}.final_layer_norm", text["ln_final"])
+    names = {"ln1": "layer_norm1", "q": "self_attn.q_proj", "k": "self_attn.k_proj", "v": "self_attn.v_proj",
+             "out": "self_attn.out_proj", "ln2": "layer_norm2", "fc1": "mlp.fc1", "fc2": "mlp.fc2"}
+    for i, blk in enumerate(text["blocks"]):
+        for k, n in names.items():
+            put(f"{t}.encoder.layers.{i}.{n}", blk[k])
+    return sd
+
+
+def run_gan_load(wav: str, repo: str, tmp: str):
+    """Full-width StyleGAN2 (config-f, 1024^2) and StyleGAN3 (config T,
+    1024^2) generators from seed 0, written as an NVIDIA ADA .pkl and a
+    rosinality .pt (StyleGAN2) and an NVIDIA-named .pt state dict
+    (StyleGAN3), loaded back with load_network: every tensor must equal its
+    source exactly. Then the e2e clip through the normal entry point with
+    `model_file=` and with the source passed as `params=`: the frames must
+    be the same bytes, with 17 epilogue and 13 filtered-lrelu launches per
+    render batch of each."""
+    import numpy as np
+    import torch
+
+    from maua_tpu_torch.gan.load import load_network
+    from maua_tpu_torch.gan.stylegan2 import SG2Config
+    from maua_tpu_torch.gan.stylegan2 import init_params as sg2_init
+    from maua_tpu_torch.gan.stylegan3 import SG3Config
+    from maua_tpu_torch.kernels import epilogue as E
+    from maua_tpu_torch.kernels import filtered_lrelu as FL
+
+    sg2_cfg, sg3_cfg = SG2Config(dtype="bfloat16"), SG3Config(dtype="bfloat16")
+    sg2 = tree_map(lambda t: t.cpu(), sg2_init(sg2_cfg, torch.Generator(device="cuda").manual_seed(0)))
+    sg3, sg3_sd = sg3_source_params(sg3_cfg)
+    files = {"sg2_ada.pkl": (sg2, sg2_cfg), "sg2_rosinality.pt": (sg2, sg2_cfg), "sg3_nvidia.pt": (sg3, sg3_cfg)}
+    paths = {name: os.path.join(tmp, name) for name in files}
+    write_ada_pkl(paths["sg2_ada.pkl"], ada_state_dict(sg2))
+    torch.save({"g_ema": rosinality_state_dict(sg2, sg2_cfg), "latent_avg": sg2["mapping"]["w_avg"]},
+               paths["sg2_rosinality.pt"])
+    torch.save(sg3_sd, paths["sg3_nvidia.pt"])
+    out = {}
+    for name, (src, cfg) in files.items():
+        t0 = time.perf_counter()
+        params, loaded_cfg = load_network(paths[name], dtype="bfloat16")
+        seconds = time.perf_counter() - t0
+        if loaded_cfg != cfg:
+            raise AssertionError(f"{name}: loaded config {loaded_cfg}, want {cfg}")
+        n = assert_trees_equal(params, src, name)
+        out[name] = {"megabytes": os.path.getsize(paths[name]) / 2**20, "load_seconds": seconds, "tensors": n,
+                     "parameters": sum(t.numel() for t in _leaves(params))}
+    for name, patch, module, per_batch, src, cfg in (
+            ("sg2_ada.pkl", "stylegan2.py", E, 17, sg2, sg2_cfg),
+            ("sg3_nvidia.pt", "stylegan3.py", FL, sg3_cfg.num_layers - 1, sg3, sg3_cfg)):
+        patch_file = example_patch(repo, patch)
+        loaded, stats = render_video(wav, patch_file, module, per_batch, {"dtype": "bfloat16"}, model_file=paths[name])
+        direct, _ = render_video(wav, patch_file, module, per_batch, {"cfg": cfg, "params": src})
+        if not np.array_equal(loaded, direct):
+            raise AssertionError(f"{name}: the frames rendered from the file differ from those of its source "
+                                 f"({int((loaded != direct).sum())} bytes)")
+        out[name].update(render_fps=stats["render_fps"], launches=stats["launches"], frames_bit_identical=True,
+                         render_batches=stats["render_batches"])
+        del loaded, direct
+        torch.cuda.empty_cache()
+    return out
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+SD_LOAD_STEPS = 10  # LMS steps of the sd_load images
+
+
+def run_sd_load(tmp: str):
+    """A full-width SD 1.x checkpoint (UNet, VAE, CLIP text from seed 0) in
+    fp16 under CompVis's names, as the public SD 1.x files ship, saved with
+    torch.save and loaded back with load_stable_diffusion: every tensor
+    must equal the fp16-rounded source. Then one 512^2 image in f32
+    (SD_LOAD_STEPS LMS steps, cfg 5) through image_sample from the loaded
+    trees and from the fp16-rounded source trees: PSNR >= 60 dB (the same
+    bytes expected), 10 attention launches per UNet evaluation and 1 per
+    decode for each."""
+    import numpy as np
+    import torch
+
+    from maua_tpu_torch.diffusion.image import image_sample
+    from maua_tpu_torch.diffusion.load import load_stable_diffusion
+    from maua_tpu_torch.diffusion.models import unet as U
+    from maua_tpu_torch.diffusion.models import vae as V
+    from maua_tpu_torch.kernels import attention as A
+    from maua_tpu_torch.text import clip_text as C
+
+    gen = torch.Generator(device="cuda").manual_seed(0)  # the order StableDiffusion draws them in
+    src = [U.init_params(U.SD1_UNET, gen), V.init_params(V.VAEConfig(), gen), C.init_params(C.CLIPTextConfig(), gen)]
+    src = tree_map(lambda t: t.half().cpu(), src)
+    path = os.path.join(tmp, "sd-v1-synthetic.ckpt")
+    t0 = time.perf_counter()
+    torch.save({"state_dict": compvis_state_dict(*src)}, path)
+    save_seconds = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = load_stable_diffusion(path)
+    load_seconds = time.perf_counter() - t0
+    src = tree_map(lambda t: t.float(), src)
+    n = sum(assert_trees_equal(got, want, name) for got, want, name in zip(loaded, src, ("unet", "vae", "text")))
+    out = {"gigabytes": os.path.getsize(path) / 2**30, "save_seconds": save_seconds, "load_seconds": load_seconds,
+           "tensors": n, "parameters": sum(t.numel() for t in _leaves(src))}
+    os.remove(path)
+    _default_tf32()
+    images = {}
+    for name, (unet, vae, text) in (("loaded", loaded), ("direct", src)):
+        A.reset_launches()
+        img = image_sample(text=SD_PROMPT, sizes=((512, 512),), timesteps=SD_LOAD_STEPS, sampler="lms", cfg_scale=5.0,
+                           device="cuda", seed=0, verbose=False, unet_params=unet, vae_params=vae, text_params=text)
+        torch.cuda.synchronize()
+        want = 10 * SD_LOAD_STEPS + 1
+        if A.launches != want:
+            raise AssertionError(f"sd_load ({name}): flash attention launched {A.launches} times, want {want}")
+        if tuple(img.shape) != (1, 512, 512, 3) or not bool(torch.isfinite(img).all()):
+            raise AssertionError(f"sd_load ({name}): image {tuple(img.shape)}, want finite (1, 512, 512, 3)")
+        images[name] = img.cpu().numpy().astype(np.float64)
+        out[f"{name}_launches"] = A.launches
+        torch.cuda.empty_cache()
+    a, b = (np.clip(images[k], -1, 1) for k in ("loaded", "direct"))
+    mse = float(np.mean((a - b) ** 2))
+    psnr = 10 * math.log10(4.0 / max(mse, 1e-20))
+    if psnr < 60.0:
+        raise AssertionError(f"sd_load: the image from the file is {psnr:.2f} dB from the direct one, < 60 dB")
+    return {**out, "psnr_db": psnr, "bit_identical": bool(np.array_equal(images["loaded"], images["direct"])),
+            "max_abs_diff": float(np.abs(a - b).max())}
+
+
+@contextlib.contextmanager
+def synchronous_delivery():
+    """Within the block the facades' render hands out frames the way the
+    port did before it pipelined them: each batch (converted to I420 on the
+    card for yuv420p) is copied synchronously into pageable memory before
+    the next batch is synthesized."""
+    from maua_tpu_torch.ops import video as V
+
+    pipelined = V.pipelined_frames
+
+    def synchronous(batches, pix_fmt="rgb24"):
+        for item in batches:
+            batch, n = item if isinstance(item, tuple) else (item, None)
+            if pix_fmt == "yuv420p":
+                batch = V.rgb_to_yuv420(batch)
+            frames = batch.cpu().numpy()
+            yield from frames[: frames.shape[0] if n is None else n]
+
+    V.pipelined_frames = synchronous
+    try:
+        yield
+    finally:
+        V.pipelined_frames = pipelined
+
+
+DELIVERY_FRAMES = 96  # frames per timed render: 12 batches of 8, 3 of 32
+DELIVERY_ROUTES = (("sync", "rgb24"), ("pipelined", "rgb24"), ("pipelined", "yuv420p"), ("sync", "yuv420p"))
+DELIVERY_ROUNDS = 3  # timed renders of each route: 2 per round, in the order A B C D D C B A
+
+
+def device_busy_ms(prof) -> float:
+    """The union of the device intervals (kernels, copies) in a profile, ms."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3
+
+
+def run_delivery():
+    """Render fps of DELIVERY_FRAMES frames at 1024^2 through each facade's
+    render, StyleGAN2 (bf16 top resolutions, noise and motion) and
+    StyleGAN3 (bf16 trunk, per-frame translation and rotation), at batch 8
+    and 32, by route: the synchronous pageable copy (sync, chip_smoke's
+    own) and pipelined_frames, each in rgb24 and yuv420p, in the order of
+    DELIVERY_ROUTES and then reversed (A B C D D C B A), DELIVERY_ROUNDS
+    times for each case.
+    Each route's frames must be the bytes of the synchronous route's in
+    the same format. Beside it: the device's idle share over a whole render
+    of 4 batches (3 at batch 32; torch.profiler, the union of device
+    intervals over the wall time), one batch's device-to-host copy into pinned and into pageable
+    memory, and rgb_to_yuv420 on the card against the CPU, byte for byte."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from maua_tpu_torch.gan.stylegan3 import SG3Config, StyleGAN3
+    from maua_tpu_torch.gan.wrappers import StyleGAN2
+    from maua_tpu_torch.ops.video import rgb_to_yuv420
+
+    _default_tf32()
+    n = DELIVERY_FRAMES
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    sg2 = StyleGAN2(device="cuda", seed=0)
+    sg2_inputs = dict(latents=sg2.get_w_latents(f"0-{n}"),
+                      noises=sg2.make_noise_pyramid(torch.randn(n, 1, 64, 64, generator=gen, device="cuda")),
+                      translation=torch.linspace(0, 0.1, n, device="cuda")[:, None].repeat(1, 2),
+                      zoom=torch.linspace(1.0, 0.8, n, device="cuda"),
+                      rotation=torch.linspace(0, 5, n, device="cuda"))
+    sg3 = StyleGAN3(cfg=SG3Config(dtype="bfloat16"), device="cuda", seed=0)
+    sg3_inputs = dict(latent_w_plus=sg3.mapper(sg3.get_z_latents(f"0-{n}")),
+                      translation=torch.linspace(0, 0.1, n)[:, None].repeat(1, 2), rotation=torch.linspace(0, 10, n))
+    nets = {"stylegan2": (sg2, sg2_inputs), "stylegan3": (sg3, sg3_inputs)}
+
+    def head(tree, k):  # the first k frames of every per-frame input
+        if isinstance(tree, dict):
+            return {key: head(v, k) for key, v in tree.items()}
+        return tree[:k]
+
+    def render(model, inputs, batch, route, pix_fmt, frames=n, keep=False):
+        """Consume a whole render of the first `frames` frames; with `keep`, return them."""
+        ctx = synchronous_delivery() if route == "sync" else contextlib.nullcontext()
+        kept = []
+        with ctx:
+            for f in model.render(**head(inputs, frames), batch_size=batch, pix_fmt=pix_fmt):
+                if keep:
+                    kept.append(f)
+        return kept
+
+    out = {"frames": n, "routes": [f"{r}-{p}" for r, p in DELIVERY_ROUTES]}
+    for net, (model, inputs) in nets.items():
+        for batch in (8, 32):
+            case = f"{net}-b{batch}"
+            ref = {}
+            for route, pix_fmt in DELIVERY_ROUTES:  # warm-up and the bytes of each route
+                frames = np.stack(render(model, inputs, batch, route, pix_fmt, keep=True))
+                ref.setdefault(pix_fmt, frames)
+                if frames.shape[0] != n or not np.array_equal(frames, ref[pix_fmt]):
+                    raise AssertionError(f"delivery {case}: the {route} {pix_fmt} frames differ from the sync route's")
+                del frames
+            ref.clear()
+            fps = {f"{r}-{p}": [] for r, p in DELIVERY_ROUTES}
+            for route, pix_fmt in (DELIVERY_ROUTES + DELIVERY_ROUTES[::-1]) * DELIVERY_ROUNDS:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                render(model, inputs, batch, route, pix_fmt)
+                fps[f"{route}-{pix_fmt}"].append(n / (time.perf_counter() - t0))
+            idle, batches = {}, min(4, n // batch)
+            for route, pix_fmt in DELIVERY_ROUTES:
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    render(model, inputs, batch, route, pix_fmt, frames=batches * batch)
+                    torch.cuda.synchronize()
+                    wall_ms = (time.perf_counter() - t0) * 1e3
+                busy = device_busy_ms(prof)
+                idle[f"{route}-{pix_fmt}"] = {"batches": batches, "wall_ms_per_batch": wall_ms / batches,
+                                              "busy_ms_per_batch": busy / batches,
+                                              "idle_share": max(0.0, 1 - busy / wall_ms) if busy else "not measured"}
+            out[case] = {"fps": fps, "fps_median": {k: float(np.median(v)) for k, v in fps.items()}, "profile": idle}
+            print(json.dumps({"delivery": {"case": case, **out[case]}}), flush=True)
+            torch.cuda.empty_cache()
+
+    copies = {}
+    for batch in (8, 32):
+        rgb = torch.randint(0, 256, (batch, 1024, 1024, 3), generator=gen, device="cuda", dtype=torch.uint8)
+        for fmt, x in (("rgb24", rgb), ("yuv420p", rgb_to_yuv420(rgb))):
+            pinned = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+
+            def host_ms(fn, reps=10):
+                fn()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                return (time.perf_counter() - t0) / reps * 1e3
+
+            copies[f"b{batch}-{fmt}"] = {
+                "megabytes": x.numel() / 1e6,
+                "pinned_ms": host_ms(lambda: pinned.copy_(x, non_blocking=True)),
+                "pageable_ms": host_ms(lambda: x.cpu()),
+            }
+        if not np.array_equal(rgb_to_yuv420(rgb).cpu().numpy(), rgb_to_yuv420(rgb.cpu()).numpy()):
+            raise AssertionError(f"rgb_to_yuv420 on the card differs from the CPU at batch {batch}")
+        del rgb, x, pinned
+    frames = np.stack(render(sg2, sg2_inputs, 8, "pipelined", "rgb24", frames=8, keep=True))
+    if not np.array_equal(rgb_to_yuv420(torch.from_numpy(frames).cuda()).cpu().numpy(),
+                          rgb_to_yuv420(torch.from_numpy(frames)).numpy()):
+        raise AssertionError("rgb_to_yuv420 on the card differs from the CPU on rendered frames")
+    out["copies"] = copies
+    out["yuv420_card_equals_cpu"] = True
+    return out
+
+
+def run_writer(repo: str, tmp: str):
+    """The FFMPEG renderer end to end through the normal entry point: 24
+    frames (1 s of the synthetic mix at 24 fps) of the example patch at
+    1024^2 into an mp4, by whichever writer this machine has (ffmpeg, else
+    OpenCV), read back with OpenCV: 24 frames of 1024 x 1024."""
+    import cv2
+    import torch
+
+    from maua_tpu_torch.audiovisual.generate import generate_audiovisual_from_patch
+    from maua_tpu_torch.kernels import epilogue as E
+    from maua_tpu_torch.ops.video import ffmpeg_available
+
+    wav, video = os.path.join(tmp, "one_second.wav"), os.path.join(tmp, "writer", "clip.mp4")
+    synth_wav(wav, seconds=1.0)
+    stages = {}
+    E.reset_launches()
+    path, _ = generate_audiovisual_from_patch(wav, None, example_patch(repo, "stylegan2.py"), renderer="ffmpeg",
+                                              renderer_kwargs={"output_file": video}, fps=FPS, out_size=(1024, 1024),
+                                              device="cuda", stylegan_kwargs={"seed": 0}, stage_times=stages)
+    torch.cuda.synchronize()
+    cap = cv2.VideoCapture(path)
+    size = (int(cap.get(cv2.CAP_PROP_FRAME_WIDTH)), int(cap.get(cv2.CAP_PROP_FRAME_HEIGHT)))
+    count = 0
+    while True:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        count += 1
+        if frame.shape != (1024, 1024, 3):
+            raise AssertionError(f"writer: frame {count} reads back as {frame.shape}")
+    cap.release()
+    if count != FPS or size != (1024, 1024):
+        raise AssertionError(f"writer: {path} reads back as {count} frames of {size}, want {FPS} of (1024, 1024)")
+    return {"writer": "ffmpeg" if ffmpeg_available() else "cv2", "frames": count, "size": list(size),
+            "bytes": os.path.getsize(path), "stage_seconds": stages, "epilogue_launches": E.launches}
+
+
 def main() -> int:
     try:
         import torch
@@ -1192,7 +1809,8 @@ def main() -> int:
         phases = set(sys.argv[2].split(","))
     elif sys.argv[1:]:
         print("usage: chip_smoke.py [--phases kernel,flrelu,attn,mel,kconv,e2e,sg3_e2e,ar_e2e,ar_features,"
-              "ar_reference,profile,sg3_profile,reference,sg3_reference,sd_e2e,sd_steps,sd_profile,sd_reference]",
+              "ar_reference,gan_load,sd_load,writer,profile,sg3_profile,reference,sg3_reference,sd_e2e,sd_steps,sd_profile,"
+              "sd_reference,delivery]",
               file=sys.stderr)
         return 2
 
@@ -1225,13 +1843,15 @@ def main() -> int:
         synth_wav(song, seconds=SONG_SECONDS, seed=1, chords=True)
         for name, fn in (("e2e", lambda: run_e2e(wav, repo)), ("sg3_e2e", lambda: run_sg3_e2e(wav, repo)),
                          ("ar_e2e", lambda: run_ar_e2e(wav, tmp)), ("ar_features", lambda: run_ar_features(song)),
-                         ("ar_reference", lambda: ar_card_vs_cpu(song))):
+                         ("ar_reference", lambda: ar_card_vs_cpu(song)), ("gan_load", lambda: run_gan_load(wav, repo, tmp)),
+                         ("sd_load", lambda: run_sd_load(tmp)), ("writer", lambda: run_writer(repo, tmp))):
             if want(name):
                 results[name] = phase(name, fn)
                 torch.cuda.empty_cache()
     for name, fn in (("profile", profile_render_batch), ("sg3_profile", profile_sg3_render_batch),
                      ("reference", card_vs_cpu), ("sg3_reference", sg3_card_vs_cpu), ("sd_e2e", run_sd_e2e),
-                     ("sd_steps", run_sd_steps), ("sd_profile", profile_sd_step), ("sd_reference", sd_card_vs_cpu)):
+                     ("sd_steps", run_sd_steps), ("sd_profile", profile_sd_step), ("sd_reference", sd_card_vs_cpu),
+                     ("delivery", run_delivery)):
         if want(name):
             results[name] = phase(name, fn)
             torch.cuda.empty_cache()
@@ -1248,32 +1868,37 @@ def main() -> int:
         "source": "maua_tpu_torch/csrc/epilogue.cu",
         "replaces": "maua_tpu/kernels/epilogue.py:112",
         "launches": results["e2e"]["launches"],
+        "loaded_launches": results["gan_load"]["sg2_ada.pkl"]["launches"],
         "max_abs_err": kernel["max_abs_err"],
         "ms": kernel["frame_batch_ms"],
         "plain_ms": kernel["frame_batch_plain_ms"],
         "bound_ms": kernel["frame_batch_bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
-        "scope": f"the 17 launches of one 1024^2 StyleGAN2 frame batch of {BATCH}",
+        "scope": f"the 17 launches of one 1024^2 StyleGAN2 frame batch of {BATCH}; loaded_launches: the e2e clip "
+                 f"rendered from an ADA .pkl (gan_load)",
     }, {
         "name": "filtered_lrelu",
         "route": "cuda",
         "source": "maua_tpu_torch/csrc/filtered_lrelu.cu",
         "replaces": "maua_tpu/kernels/filtered_lrelu.py:361",
         "launches": results["sg3_e2e"]["launches"],
+        "loaded_launches": results["gan_load"]["sg3_nvidia.pt"]["launches"],
         "max_abs_err": flrelu["max_abs_err"],
         "ms": flrelu["frame_batch_ms"],
         "plain_ms": flrelu["frame_batch_plain_ms"],
         "bound_ms": flrelu["frame_batch_bound_ms"],
         "bound_by": flrelu["bound_by"],
         "library_ms": None,
-        "scope": f"the 13 launches of one 1024^2 StyleGAN3 frame batch of {BATCH} in bf16",
+        "scope": f"the 13 launches of one 1024^2 StyleGAN3 frame batch of {BATCH} in bf16; loaded_launches: the e2e "
+                 f"clip rendered from an NVIDIA-named .pt (gan_load)",
     }, {
         "name": "flash_attention",
         "route": "cuda",
         "source": "maua_tpu_torch/csrc/attention.cu",
         "replaces": "maua_tpu/kernels/attention.py:85",
         "launches": results["sd_e2e"]["launches"],
+        "loaded_launches": results["sd_load"]["loaded_launches"],
         "max_abs_err": attn["max_abs_err"],
         "ms": attn["image_f32"]["ms"],
         "plain_ms": attn["image_f32"]["plain_ms"],
@@ -1283,7 +1908,8 @@ def main() -> int:
         "bf16_max_abs_err": attn["max_abs_err_bf16"],
         **{f"bf16_{k}": attn["image_bf16"][k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
         "scope": f"the {10 * SD_STEPS + 1} launches of one 512^2 {SD_STEPS}-step SD 1.x image in f32 (sd_e2e's "
-                 f"path, CUDA cores); bf16_*: the same launches in bf16 (the sd_steps path, tensor cores)",
+                 f"path, CUDA cores); bf16_*: the same launches in bf16 (the sd_steps path, tensor cores); "
+                 f"loaded_launches: one {SD_LOAD_STEPS}-step image from a CompVis checkpoint (sd_load)",
     }, {
         "name": "melspectrogram",
         "route": "cuda",

@@ -40,7 +40,8 @@ def generate_audiovisual_from_patch(
     the frames array for "memmap", the output path for "ffmpeg".
 
     `stylegan_kwargs` go to the patch's StyleGAN2 or StyleGAN3 (cfg,
-    params, seed; dtype for StyleGAN2); `stage_times`, when given,
+    params, seed; dtype, which also sets a `model_file` checkpoint's
+    compute dtype); `stage_times`, when given,
     receives the seconds of each stage (audio_features, mapper,
     modulation, render), each ending in a device synchronization."""
     device = resolve_device(device)
@@ -125,7 +126,7 @@ def main(args=None):
     if args.renderer == "memmap":
         from ..ops.video import write_video
 
-        write_video(video, output_file, fps=args.fps, audio_file=args.audio_file)
+        write_video(video, output_file, fps=args.fps, value_range=(0, 255), audio_file=args.audio_file)
     print(output_file)
 
 

@@ -70,8 +70,9 @@ class StyleGAN2Patch(MauaPatch):
 class StyleGAN3Patch(MauaPatch):
     """The alias-free variant: the synthesizer also takes per-frame
     translation and rotation, which drive the Fourier input transform.
-    Without a `cfg` in `stylegan_kwargs` the net is the default config at
-    the output size's resolution."""
+    A `model_file` brings its own config; otherwise, without a `cfg` in
+    `stylegan_kwargs`, the net is the default config at the output size's
+    resolution."""
 
     def __init__(
         self,

@@ -1,8 +1,8 @@
 """Renderers: drive the synthesizer over per-frame inputs and deliver frames.
 
 Port of `maua_tpu/audiovisual/render.py`: MemMap gathers the frames into
-one array; FFMPEG streams them into a video file through an ffmpeg pipe
-(it needs the ffmpeg binary).
+one array; FFMPEG streams them into a video file through ffmpeg, or
+through OpenCV where there is no ffmpeg binary.
 """
 
 from __future__ import annotations
@@ -22,31 +22,54 @@ def _split_inputs(synthesizer_inputs: Dict):
 
 
 class FFMPEG:
-    def __init__(self, output_file: str, fps: float = 24, audio_file: Optional[str] = None, batch_size: int = 8,
-                 ffmpeg_preset: str = "fast", **_):
+    """Stream frames into a threaded video writer (`ops/video.VideoWriter`:
+    ffmpeg, or OpenCV where there is no ffmpeg binary).
+
+    Frames travel as planar I420 (`pix_fmt="yuv420p"`, half the bytes of
+    rgb24, converted on the device) unless the caller asks for rgb24; odd
+    frame sizes fall back to rgb24. (maua_tpu's default, its DCT frame
+    codec, is not ported yet.)"""
+
+    def __init__(self, output_file: str, fps: float = 24, audio_file: Optional[str] = None,
+                 batch_size: int = 32, pix_fmt: Optional[str] = None, **writer_kwargs):
         self.output_file = output_file
         self.fps = fps
         self.audio_file = audio_file
         self.batch_size = batch_size
-        self.preset = ffmpeg_preset
+        self.pix_fmt = pix_fmt
+        self.writer_kwargs = writer_kwargs
 
     def __call__(self, synthesizer_render, synthesizer_inputs: Dict, postprocess: Optional[Callable] = None):
         from ..ops.video import VideoWriter
 
+        pix_fmt = self.pix_fmt or "yuv420p"
         latents, translation, zoom, rotation, noises = _split_inputs(synthesizer_inputs)
-        frames = synthesizer_render(latents, noises=noises, translation=translation, zoom=zoom, rotation=rotation,
-                                    batch_size=self.batch_size, postprocess=postprocess)
-        writer = None
+
+        def make_iter(fmt):
+            return synthesizer_render(latents, noises=noises, translation=translation, zoom=zoom,
+                                      rotation=rotation, batch_size=self.batch_size, postprocess=postprocess,
+                                      pix_fmt=fmt)
+
+        frame_iter = make_iter(pix_fmt)
         try:
-            for frame in frames:
-                if writer is None:
-                    h, w = frame.shape[:2]
-                    writer = VideoWriter(self.output_file, (w, h), self.fps, audio_file=self.audio_file,
-                                         preset=self.preset)
-                writer.write(frame)
-        finally:
-            if writer is not None:
-                writer.close()
+            first = next(frame_iter)
+        except ValueError as e:
+            # odd frame dimensions cannot be I420: the rgb24 pipe pads them
+            if pix_fmt != "yuv420p" or "even frame dimensions" not in str(e):
+                raise
+            pix_fmt = "rgb24"
+            frame_iter = make_iter(pix_fmt)
+            first = next(frame_iter)
+        if pix_fmt == "yuv420p":
+            h, w = first.shape[0] * 2 // 3, first.shape[1]
+        else:
+            h, w = first.shape[0], first.shape[1]
+        duration = latents.shape[0] / self.fps
+        with VideoWriter(self.output_file, (w, h), self.fps, audio_file=self.audio_file, audio_duration=duration,
+                         value_range=(0, 255), pix_fmt=pix_fmt, **self.writer_kwargs) as video:
+            video.write(first.tobytes())
+            for frame in frame_iter:
+                video.write(frame.tobytes())
         return self.output_file
 
 

@@ -24,7 +24,7 @@ import torch
 from ...prompt import TextPrompt
 from ...text.clip_text import CLIPTextConfig, encode_text, tokenize
 from ...text.clip_text import init_params as init_text_params
-from ...utility import resolve_device
+from ...utility import resolve_device, to_device
 from ..models import unet as unet_mod
 from ..models import vae as vae_mod
 from ..samplers import ANCESTRAL, get_sampler, make_ddpm_schedule
@@ -43,7 +43,8 @@ class StableDiffusion(BaseDiffusionProcessor):
     Without given parameters the UNet, VAE and text encoder are drawn at
     random, in that order, from one torch.Generator seeded with `seed` on
     `device`. Given parameters are in the port's layout (see
-    `maua_tpu_torch.bridge.diffusion_params_to_torch`)."""
+    `maua_tpu_torch.bridge.diffusion_params_to_torch` and
+    `maua_tpu_torch.diffusion.load`) and move to `device`."""
 
     def __init__(
         self,
@@ -69,9 +70,12 @@ class StableDiffusion(BaseDiffusionProcessor):
         self.device = resolve_device(device)
         gen = torch.Generator(device=self.device).manual_seed(seed)
         self.unet_cfg, self.vae_cfg, self.text_cfg = unet_cfg, vae_cfg, text_cfg
-        self.unet_params = unet_params if unet_params is not None else unet_mod.init_params(unet_cfg, gen)
-        self.vae_params = vae_params if vae_params is not None else vae_mod.init_params(vae_cfg, gen)
-        self.text_params = text_params if text_params is not None else init_text_params(text_cfg, gen)
+        self.unet_params = to_device(unet_params, self.device) if unet_params is not None \
+            else unet_mod.init_params(unet_cfg, gen)
+        self.vae_params = to_device(vae_params, self.device) if vae_params is not None \
+            else vae_mod.init_params(vae_cfg, gen)
+        self.text_params = to_device(text_params, self.device) if text_params is not None \
+            else init_text_params(text_cfg, gen)
         self.alphas_cumprod = make_ddpm_schedule(1000, schedule="scaled_linear")
         self.denoiser = EpsDenoiser(
             lambda x, t, context=None: unet_mod.forward(self.unet_params, x, t, self.unet_cfg, context),

@@ -27,10 +27,10 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.filtered_lrelu import filtered_lrelu
-from ..utility import resolve_device
+from ..utility import resolve_device, to_device
 from . import ops
 from .stylegan2 import _init_fc, _randn, fc_forward
-from .wrappers import _to_device, get_z_latents
+from .wrappers import get_z_latents
 
 
 @dataclasses.dataclass(frozen=True)
@@ -255,19 +255,27 @@ def make_transform_mat(translate: Tuple[float, float], angle_deg: float) -> torc
 class StyleGAN3:
     """Mapper + synthesizer facade over the functional generator.
 
-    Without a checkpoint the parameters are drawn from a torch.Generator
-    seeded with `seed` on `device`; `params` (the port's layout, see
-    `maua_tpu_torch.bridge`) takes given ones. Frames render at the
-    config's native resolution."""
+    `model_file` loads an alias-free checkpoint (any format of
+    `gan/load.py`) with `dtype` as its trunk's compute dtype, in place of
+    `cfg`; without one, `params` (the port's layout, see
+    `maua_tpu_torch.bridge`) takes given parameters, and otherwise they are
+    drawn from a torch.Generator seeded with `seed` on `device`. The
+    parameters live on `device`. Frames render at the config's native
+    resolution."""
 
     def __init__(self, cfg: Optional[SG3Config] = None, params: Optional[Dict] = None,
-                 model_file: Optional[str] = None, output_size=None, device=None, seed: int = 0):
+                 model_file: Optional[str] = None, output_size=None, device=None, seed: int = 0,
+                 dtype: str = "float32"):
         self.device = resolve_device(device)
         if model_file not in (None, "None"):
-            raise NotImplementedError("loading StyleGAN3 checkpoints is not ported yet (gan/load.py)")
+            from .load import load_network
+
+            params, cfg = load_network(model_file, dtype=dtype)
+            if not isinstance(cfg, SG3Config):
+                raise ValueError(f"{model_file} is not an alias-free checkpoint")
         self.cfg = cfg or SG3Config()
         if params is not None:
-            self.params = _to_device(params, self.device)
+            self.params = to_device(params, self.device)
         else:
             self.params = init_params(self.cfg, torch.Generator(device=self.device).manual_seed(seed))
         self.num_ws = self.cfg.num_ws
@@ -298,7 +306,6 @@ class StyleGAN3:
     def __call__(self, z, truncation: float = 1.0, translation=None, rotation=None) -> torch.Tensor:
         return self.synthesizer(self.mapper(z, truncation), translation, rotation)
 
-    @torch.no_grad()
     def render(
         self,
         latent_w_plus: torch.Tensor,  # (T, num_ws, w_dim)
@@ -306,13 +313,18 @@ class StyleGAN3:
         rotation=None,  # (T,) degrees
         batch_size: int = 8,
         postprocess=None,
+        pix_fmt: str = "rgb24",
         **_ignored,  # the SG2 renderer's noises and zoom: SG3 has no noise inputs or zoom
     ) -> Iterator[np.ndarray]:
-        """Yield uint8 (H, W, C) frames, synthesized `batch_size` at a time;
+        """Yield uint8 frames, synthesized `batch_size` at a time: (H, W, C)
+        with pix_fmt "rgb24", planar I420 (3H/2, W) with "yuv420p";
         per-frame translation and rotation drive the Fourier input
         transform. `postprocess` gets each batch as (B, H, W, C), the layout
-        of maua_tpu. The tail batch is padded with its last frame. A device
-        out-of-memory error halves the batch and retries."""
+        of maua_tpu. Frames are converted on the device and delivered by
+        `ops.video.pipelined_frames`. The tail batch is padded with its last
+        frame. A device out-of-memory error halves the batch and retries."""
+        from ..ops.video import pipelined_frames
+
         latents = torch.as_tensor(latent_w_plus, device=self.device)
         T = latents.shape[0]
         mats = None
@@ -321,31 +333,36 @@ class StyleGAN3:
             ro = np.zeros((T,)) if rotation is None else _numpy(rotation).reshape(-1)
             mats = torch.stack([make_transform_mat((float(tr[i, 0]), float(tr[i, 1])), float(ro[i]))
                                 for i in range(T)]).to(self.device)
-        lo = 0
-        while lo < T:
-            hi = min(lo + batch_size, T)
-            pad = batch_size - (hi - lo)
 
-            def take(arr):
-                if arr is None:
-                    return None
-                sl = arr[lo:hi]
-                return torch.cat([sl, sl[-1:].repeat_interleave(pad, dim=0)], dim=0) if pad else sl
+        @torch.no_grad()
+        def batches():
+            nonlocal batch_size
+            lo = 0
+            while lo < T:
+                hi = min(lo + batch_size, T)
+                pad = batch_size - (hi - lo)
 
-            try:
-                imgs = synthesis(self.params, take(latents), self.cfg, take(mats))
-            except torch.OutOfMemoryError:
-                if batch_size <= 1:
-                    raise
-                batch_size = max(batch_size // 2, 1)
-                print(f"device OOM during render; retrying with batch_size={batch_size}")
-                continue
-            imgs = imgs.permute(0, 2, 3, 1)  # NHWC, the layout a patch's process_outputs gets in maua_tpu
-            if postprocess is not None:
-                imgs = postprocess(imgs)
-            frames = ((imgs.clamp(-1, 1) + 1.0) * 127.5).clamp(0, 255).to(torch.uint8)
-            yield from frames[: hi - lo].cpu().numpy()
-            lo = hi
+                def take(arr):
+                    if arr is None:
+                        return None
+                    sl = arr[lo:hi]
+                    return torch.cat([sl, sl[-1:].repeat_interleave(pad, dim=0)], dim=0) if pad else sl
+
+                try:
+                    imgs = synthesis(self.params, take(latents), self.cfg, take(mats))
+                except torch.OutOfMemoryError:
+                    if batch_size <= 1:
+                        raise
+                    batch_size = max(batch_size // 2, 1)
+                    print(f"device OOM during render; retrying with batch_size={batch_size}")
+                    continue
+                imgs = imgs.permute(0, 2, 3, 1)  # NHWC, the layout a patch's process_outputs gets in maua_tpu
+                if postprocess is not None:
+                    imgs = postprocess(imgs)
+                yield ((imgs.clamp(-1, 1) + 1.0) * 127.5).clamp(0, 255).to(torch.uint8), hi - lo
+                lo = hi
+
+        yield from pipelined_frames(batches(), pix_fmt)
 
 
 def _numpy(a) -> np.ndarray:

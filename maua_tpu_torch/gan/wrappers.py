@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from ..ops import warp as W
-from ..utility import resolve_device
+from ..utility import resolve_device, to_device
 from . import ops
 from .stylegan2 import SG2Config, init_params, layer_noise_input, mapping, synthesis_layer, torgb_layer
 
@@ -239,9 +239,11 @@ def get_z_latents(seeds, z_dim: int = 512) -> np.ndarray:
 class StyleGAN2:
     """Mapper + synthesizer facade over the functional generator.
 
-    Without a checkpoint the parameters are drawn from a torch.Generator
-    seeded with `seed` on `device`; `params` (the port's layout, see
-    `maua_tpu_torch.bridge`) with `cfg` takes given ones."""
+    `model_file` loads a checkpoint (any format of `gan/load.py`) with
+    `dtype` as its compute dtype; without one, `params` (the port's layout,
+    see `maua_tpu_torch.bridge`) with `cfg` takes given parameters, and
+    otherwise they are drawn from a torch.Generator seeded with `seed` on
+    `device`. The parameters live on `device`."""
 
     def __init__(
         self,
@@ -257,10 +259,13 @@ class StyleGAN2:
     ):
         self.device = resolve_device(device)
         if model_file not in (None, "None"):
-            raise NotImplementedError("loading StyleGAN2 checkpoints is not ported yet (gan/load.py)")
-        if params is not None and cfg is not None:
+            from .load import load_network
+
+            params, self.cfg = load_network(model_file, dtype=dtype)
+            self.params = to_device(params, self.device)
+        elif params is not None and cfg is not None:
             self.cfg = cfg
-            self.params = _to_device(params, self.device)
+            self.params = to_device(params, self.device)
         else:
             self.cfg = cfg or SG2Config(dtype=dtype)
             self.params = init_params(self.cfg, torch.Generator(device=self.device).manual_seed(seed))
@@ -303,48 +308,49 @@ class StyleGAN2:
         rotation: Optional[torch.Tensor] = None,  # (T,)
         batch_size: int = 8,
         postprocess=None,
+        pix_fmt: str = "rgb24",
     ) -> Iterator[np.ndarray]:
-        """Yield uint8 (H, W, C) frames, synthesized `batch_size` at a time.
+        """Yield uint8 frames, synthesized `batch_size` at a time: (H, W, C)
+        with pix_fmt "rgb24", planar I420 (3H/2, W) with "yuv420p".
         `postprocess` gets each batch as (B, H, W, C) in [-1, 1], the layout
-        of maua_tpu. The tail batch is padded with its last frame. A device
-        out-of-memory error halves the batch and retries."""
+        of maua_tpu. Frames are converted on the device and delivered by
+        `ops.video.pipelined_frames`, which copies a batch while the next
+        ones are synthesized. The tail batch is padded with its last frame.
+        A device out-of-memory error halves the batch and retries."""
+        from ..ops.video import pipelined_frames
+
         T = latents.shape[0]
-        lo = 0
-        while lo < T:
-            hi = min(lo + batch_size, T)
-            pad = batch_size - (hi - lo)
 
-            def take(arr):
-                if arr is None:
-                    return None
-                sl = torch.as_tensor(arr[lo:hi], device=self.device)
-                if pad:
-                    sl = torch.cat([sl, sl[-1:].repeat_interleave(pad, dim=0)], dim=0)
-                return sl
+        def batches():
+            nonlocal batch_size
+            lo = 0
+            while lo < T:
+                hi = min(lo + batch_size, T)
+                pad = batch_size - (hi - lo)
 
-            try:
-                imgs = self.synthesizer(
-                    take(latents), translation=take(translation), zoom=take(zoom), rotation=take(rotation),
-                    noises=None if noises is None else {k: take(v) for k, v in noises.items()},
-                )
-            except torch.OutOfMemoryError:
-                if batch_size <= 1:
-                    raise
-                batch_size = max(batch_size // 2, 1)
-                print(f"device OOM during render; retrying with batch_size={batch_size}")
-                continue
-            imgs = imgs.permute(0, 2, 3, 1)  # NHWC, the layout a patch's process_outputs gets in maua_tpu
-            if postprocess is not None:
-                imgs = postprocess(imgs)
-            frames = ((imgs + 1.0) * 127.5).clamp(0, 255).to(torch.uint8)
-            yield from frames[: hi - lo].cpu().numpy()
-            lo = hi
+                def take(arr):
+                    if arr is None:
+                        return None
+                    sl = torch.as_tensor(arr[lo:hi], device=self.device)
+                    if pad:
+                        sl = torch.cat([sl, sl[-1:].repeat_interleave(pad, dim=0)], dim=0)
+                    return sl
 
+                try:
+                    imgs = self.synthesizer(
+                        take(latents), translation=take(translation), zoom=take(zoom), rotation=take(rotation),
+                        noises=None if noises is None else {k: take(v) for k, v in noises.items()},
+                    )
+                except torch.OutOfMemoryError:
+                    if batch_size <= 1:
+                        raise
+                    batch_size = max(batch_size // 2, 1)
+                    print(f"device OOM during render; retrying with batch_size={batch_size}")
+                    continue
+                imgs = imgs.permute(0, 2, 3, 1)  # NHWC, the layout a patch's process_outputs gets in maua_tpu
+                if postprocess is not None:
+                    imgs = postprocess(imgs)
+                yield ((imgs + 1.0) * 127.5).clamp(0, 255).to(torch.uint8), hi - lo
+                lo = hi
 
-def _to_device(tree, device):
-    """A parameter tree (nested dicts and lists of tensors) on `device`."""
-    if isinstance(tree, dict):
-        return {k: _to_device(v, device) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_to_device(v, device) for v in tree]
-    return tree.to(device)
+        yield from pipelined_frames(batches(), pix_fmt)

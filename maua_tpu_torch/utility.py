@@ -15,6 +15,15 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
+def to_device(tree, device):
+    """A parameter tree (nested dicts and lists of tensors) on `device`."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_device(v, device) for v in tree]
+    return tree.to(device)
+
+
 def parse_prompt(prompt: str):
     """Split "text:weight" (URL-aware) into (text, weight)."""
     if prompt.startswith("http://") or prompt.startswith("https://"):

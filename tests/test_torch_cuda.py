@@ -20,7 +20,8 @@ The mel kernel's FFT and the plain version's cuFFT round differently:
 1e-4 of the largest output, the bar of the JAX package's own mel kernel
 test. kconv sums 9 Ci products in another order than cuDNN's f32 conv
 (TF32 off): 1e-5 relative plus 1e-5 absolute in f32, and one bf16 ulp on
-top of that in bf16.
+top of that in bf16. Frame delivery and I420 conversion are exact: the
+same bytes as the CPU and as a synchronous copy.
 """
 
 import pytest
@@ -33,6 +34,7 @@ from maua_tpu_torch.kernels import epilogue as E
 from maua_tpu_torch.kernels import filtered_lrelu as FL
 from maua_tpu_torch.kernels import kconv as K
 from maua_tpu_torch.kernels import spectrogram as M
+from maua_tpu_torch.ops import video as V
 
 
 @pytest.fixture
@@ -498,3 +500,78 @@ def test_kconv_kernel_rejects_what_it_does_not_take(cuda_device):
         K.kconv3x3(x, torch.randn(1, 1, 4, 6, device=cuda_device))
     with pytest.raises(ValueError):
         K.kconv3x3(x, w, bias=torch.zeros(5, device=cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 64, 96, 3), (3, 2, 2, 3)])
+def test_rgb_to_yuv420_on_the_card_equals_the_cpu(cuda_device, shape):
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    rgb = torch.randint(0, 256, shape, generator=gen, device=cuda_device, dtype=torch.uint8)
+    out = V.rgb_to_yuv420(rgb)
+    assert out.is_cuda and out.dtype == torch.uint8
+    assert torch.equal(out.cpu(), V.rgb_to_yuv420(rgb.cpu()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pix_fmt", ["rgb24", "yuv420p"])
+def test_pipelined_frames_on_the_card_equal_the_synchronous_copy(cuda_device, pix_fmt):
+    """Seven card batches (buffers reused past the pipeline's depth), a
+    padded tail and a batch of another size: the frames of a synchronous
+    copy of each batch, in order, byte for byte, each a copy of its own."""
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    shapes = [(4, 32, 48, 3)] * 6 + [(2, 32, 48, 3)]
+    valid = [4, 4, 4, 4, 4, 3, 2]
+
+    def batches():
+        for shape, n in zip(shapes, valid):
+            # work queued behind each batch on the compute stream, as synthesis queues it
+            yield torch.randint(0, 256, shape, generator=gen, device=cuda_device, dtype=torch.uint8) * 1, n
+
+    got = list(V.pipelined_frames(batches(), pix_fmt))
+    gen.manual_seed(6)
+    want = []
+    for batch, n in batches():
+        want.extend((V.rgb_to_yuv420(batch) if pix_fmt == "yuv420p" else batch)[:n].cpu().numpy())
+    assert len(got) == sum(valid)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and (g == w).all()
+    assert len({g.__array_interface__["data"][0] for g in got}) == len(got)
+
+
+@pytest.mark.cuda
+def test_loaded_checkpoints_land_on_the_card_and_render(cuda_device, tmp_path):
+    """A StyleGAN2 ADA .pkl and a StyleGAN3 .pt (written as chip_smoke
+    writes them) load onto the card through the facades and render the
+    frames of the CPU facades on the same files: f32 with TF32 off, PSNR
+    >= 40 dB (kernels against plain versions)."""
+    import numpy as np
+
+    import chip_smoke
+    from maua_tpu_torch.gan import stylegan2 as S2
+    from maua_tpu_torch.gan import stylegan3 as S3
+    from maua_tpu_torch.gan import wrappers as W
+
+    cfg2 = S2.SG2Config(img_resolution=64, channel_base=2048, channel_max=64, z_dim=64, w_dim=64, mapping_layers=2)
+    pkl = str(tmp_path / "g.pkl")
+    chip_smoke.write_ada_pkl(pkl, chip_smoke.ada_state_dict(S2.init_params(cfg2, torch.Generator().manual_seed(0))))
+    cfg3 = S3.SG3Config(z_dim=32, w_dim=32, img_resolution=64, channel_base=1024, channel_max=64, num_layers=6,
+                        mapping_layers=2, margin_size=4)
+    pt = str(tmp_path / "g3.pt")
+    torch.save(chip_smoke.sg3_source_params(cfg3, device="cpu")[1], pt)
+    flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        for make, launches in ((lambda d: W.StyleGAN2(model_file=pkl, dtype="float32", device=d), E),
+                               (lambda d: S3.StyleGAN3(model_file=pt, device=d), FL)):
+            card, cpu = make(cuda_device), make("cpu")
+            assert all(t.is_cuda for t in chip_smoke._leaves(card.params))
+            ws = cpu.mapper(cpu.get_z_latents("0-5"))
+            launches.reset_launches()
+            frames = np.stack(list(card.render(ws.to(cuda_device), batch_size=2)))
+            assert launches.launches > 0
+            ref = np.stack(list(cpu.render(ws, batch_size=2)))
+            assert frames.shape == ref.shape == (5, 64, 64, 3) and frames.dtype == np.uint8
+            mse = float(np.mean((frames.astype(np.float64) - ref) ** 2))
+            assert 10 * np.log10(255.0**2 / max(mse, 1e-12)) >= 40.0
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags

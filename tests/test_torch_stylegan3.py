@@ -207,7 +207,7 @@ def test_facade_render_halves_the_batch_on_oom(net, monkeypatch, capsys):
 
 def test_facade_raises_on_what_is_not_ported(net):
     _, tcfg, _, tparams, _, _ = net
-    with pytest.raises(NotImplementedError, match="checkpoints"):
+    with pytest.raises(FileNotFoundError):  # checkpoints load now (tests/test_torch_load.py): a missing one raises
         T.StyleGAN3(model_file="net.pkl", device="cpu")
     with pytest.raises(NotImplementedError, match="resizing"):
         T.StyleGAN3(cfg=tcfg, params=tparams, output_size=(32, 32), device="cpu")
