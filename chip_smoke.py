@@ -72,11 +72,30 @@ Phases, each printed as one JSON line with its elapsed seconds:
    PSNR >= 60 dB.
 20. writer: the FFMPEG renderer end to end (24 frames at 1024^2) through
    ffmpeg or, without it, OpenCV; the file read back with OpenCV.
-21. delivery (last): render fps by delivery route (the synchronous pageable
+21. delivery (last of all): render fps by delivery route (the synchronous pageable
    copy against pipelined_frames, rgb24 and yuv420p) for StyleGAN2 and
    StyleGAN3 at 1024^2, batch 8 and 32, in one call, with each route's
    idle share, the copy times pinned and pageable, and rgb_to_yuv420 on
    the card against the CPU.
+22. super_load (after writer): a basicsr .pth of RealESRGAN-x4plus, an
+   SRVGG .pth, an official SwinIR-M .pth and a waifu2x .json written from
+   seed-1 weights into a temporary MODELZOO, loaded by the Upscaler (every
+   tensor equal to its source) and upscaling to the source's bytes.
+23. super_video: a synthetic 24-frame 256^2 clip upscaled with
+   RealESRGAN-x4plus and interpolated with RIFE at factors 2 and 4
+   through the video entry points and this machine's writer, read back.
+24. super (after sd_reference): RealESRGAN-x4plus through the Upscaler, 8
+   frames 256^2 -> 1024^2, img/s in f32 (cuDNN TF32) and bf16, peak
+   memory, one profiled batch, beside the operations bound; then each
+   registry kind once at full width on a small input.
+25. super_reference: every registry kind but latent-diffusion on the card
+   and on the CPU, f32 with TF32 off, 64^2 input, PSNR.
+26. sd_multires: image_sample at 512^2 -> RealESRGAN-x4plus -> lanczos to
+   1024^2 -> nine 512^2 tiles in batches of 4, 4 and 1 from t 0.5 (20 LMS
+   steps, SD 1.x f32, seed 0), with the attention kernel's launch count
+   reset just before and read just after (507).
+Phases that upscale fail if an out-of-memory ladder took a rung past its
+first.
 
 `--phases a,b` runs only the named phases after device and build (for
 iterating on one kernel); with no arguments every phase runs. Any
@@ -100,6 +119,7 @@ import time
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 BF16_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense
+TF32_FLOPS = 495e12  # H100 SXM tf32 tensor cores, dense
 FPS = 24
 SECONDS = 3.0
 SR = 22050
@@ -1466,6 +1486,84 @@ def compvis_state_dict(unet, vae, text) -> dict:
     return sd
 
 
+def _put_conv(sd: dict, name: str, p) -> None:
+    sd[f"{name}.weight"], sd[f"{name}.bias"] = p["w"], p["b"]
+
+
+def _cpu_state_dict(sd: dict) -> dict:
+    return {k: v.detach().float().cpu().contiguous() for k, v in sd.items()}
+
+
+def rrdb_state_dict(params) -> dict:
+    """The port's RRDBNet tree as a basicsr RRDBNet state dict."""
+    sd = {}
+    _put_conv(sd, "conv_first", params["conv_first"])
+    for b, blk in enumerate(params["body"]):
+        for r in range(1, 4):
+            for c in range(1, 6):
+                _put_conv(sd, f"body.{b}.rdb{r}.conv{c}", blk[f"rdb{r}"][f"conv{c}"])
+    for name in ("conv_body", "conv_up1", "conv_up2", "conv_hr", "conv_last"):
+        _put_conv(sd, name, params[name])
+    return _cpu_state_dict(sd)
+
+
+def srvgg_state_dict(params) -> dict:
+    """The port's SRVGG tree as a realesrgan SRVGGNetCompact state dict (a flat
+    Sequential: conv, prelu, ..., conv)."""
+    sd = {}
+    for i, (p, a) in enumerate(zip(params["convs"], params["prelu"])):
+        _put_conv(sd, f"body.{2 * i}", p)
+        sd[f"body.{2 * i + 1}.weight"] = a
+    _put_conv(sd, f"body.{2 * len(params['convs'])}", params["conv_last"])
+    return _cpu_state_dict(sd)
+
+
+def swinir_state_dict(params, cfg) -> dict:
+    """The port's SwinIR tree as an official SwinIR state dict."""
+    sd = {}
+
+    def ln(name, p):
+        sd[f"{name}.weight"], sd[f"{name}.bias"] = p["g"], p["b"]
+
+    def resi(base, p):
+        if cfg.resi_connection == "1conv":
+            _put_conv(sd, base, p["conv"])
+        else:
+            for i, name in enumerate(("conv0", "conv1", "conv2")):
+                _put_conv(sd, f"{base}.{2 * i}", p[name])
+
+    _put_conv(sd, "conv_first", params["conv_first"])
+    ln("patch_embed.norm", params["patch_norm"])
+    for li, layer in enumerate(params["layers"]):
+        for bi, blk in enumerate(layer["blocks"]):
+            base = f"layers.{li}.residual_group.blocks.{bi}"
+            ln(f"{base}.norm1", blk["norm1"])
+            ln(f"{base}.norm2", blk["norm2"])
+            for name, key in (("attn.qkv", "qkv"), ("attn.proj", "proj"), ("mlp.fc1", "fc1"), ("mlp.fc2", "fc2")):
+                _put_conv(sd, f"{base}.{name}", blk[key])
+            sd[f"{base}.attn.relative_position_bias_table"] = blk["rpb"]
+        resi(f"layers.{li}.conv", layer["conv"])
+    ln("norm", params["norm"])
+    resi("conv_after_body", params["conv_after_body"])
+    _put_conv(sd, "conv_before_upsample.0", params["conv_before_upsample"])
+    for name in ("conv_up1", "conv_up2", "conv_hr", "conv_last"):
+        _put_conv(sd, name, params[name])
+    return _cpu_state_dict(sd)
+
+
+def upconv7_json(params) -> list:
+    """The port's UpConv7 tree as a waifu2x JSON model (a list of layers, the
+    last a transposed conv with its weight (in, out, kh, kw))."""
+    layers = []
+    for name in [f"conv{i}" for i in range(6)] + ["deconv"]:
+        w, b = params[name]["w"].detach().float().cpu(), params[name]["b"].detach().float().cpu()
+        n_in, n_out = (w.shape[0], w.shape[1]) if name == "deconv" else (w.shape[1], w.shape[0])
+        layers.append({"class_name": "nn.SpatialFullConvolution" if name == "deconv" else "nn.SpatialConvolutionMM",
+                       "nInputPlane": n_in, "nOutputPlane": n_out, "kW": w.shape[3], "kH": w.shape[2],
+                       "weight": w.tolist(), "bias": b.tolist()})
+    return layers
+
+
 def run_gan_load(wav: str, repo: str, tmp: str):
     """Full-width StyleGAN2 (config-f, 1024^2) and StyleGAN3 (config T,
     1024^2) generators from seed 0, written as an NVIDIA ADA .pkl and a
@@ -1748,6 +1846,390 @@ def run_delivery():
     return out
 
 
+# ------------------------------------------------------------ super-resolution
+SUPER_BATCH, SUPER_SIZE = 8, 256  # BASELINE config #4 as bench_super.py defines it: 8 frames, 256^2 -> 1024^2
+SUPER_TIMED = 7  # batches timed after two warm-ups; the median is reported
+SUPER_FORM_BATCHES = 5  # batches of each turn of the dense-block forms' A/B
+# one model of each registry kind but latent-diffusion, on a small input (SwinIR's odd: its window padding)
+SUPER_KINDS = (("RealESRGAN-xsx4-animevideo", (64, 64)), ("SwinIR-M-DFO-GAN", (61, 75)),
+               ("SwinIR-L-DFOWMFC-GAN", (61, 75)), ("waifu2x-photo-noise1", (64, 64)), ("CARN", (64, 64)))
+SUPER_LOAD = ("RealESRGAN-x4plus", "RealESRGAN-xsx4-animevideo", "SwinIR-M-DFO-GAN", "waifu2x-anime-noise0")
+SUPER_REFERENCE = ("RealESRGAN-x4plus", "RealESRGAN-xsx4-animevideo", "SwinIR-M-DFO-GAN", "waifu2x-anime-noise0",
+                   "CARN")
+
+
+def rrdb_macs(cfg, h: int, w: int) -> int:
+    """Multiply-adds of one RRDBNet forward on an h x w input: the 3 x 23
+    dense blocks, the head and body convs at h x w, the x2 conv at 2h x 2w,
+    and the x4, hr and last convs at 4h x 4w (scale 4)."""
+    nf, gc = cfg.num_feat, cfg.num_grow_ch
+    rdb = sum((nf + i * gc) * (gc if i < 4 else nf) for i in range(5)) * 9
+    low = cfg.num_in_ch * nf * 9 + 3 * cfg.num_block * rdb + nf * nf * 9
+    high = nf * nf * 9 * 4 + (2 * nf * nf * 9 + nf * cfg.num_out_ch * 9) * 16
+    return (low + high) * h * w
+
+
+@contextlib.contextmanager
+def first_rungs_only(what: str):
+    """Fails if an out-of-memory ladder (the upscaler's tile rungs, the
+    diffusion pipeline's skipped super-resolution and halved tile batches)
+    went past its first rung: records the rungs the upscaler tried and
+    reads the pipeline's "device OOM" prints (echoed after)."""
+    import io
+
+    from maua_tpu_torch import oom
+    from maua_tpu_torch.super import image as SI
+
+    rungs = []
+
+    def recording(attempts, verbose=True):
+        return oom.run_with_oom_fallback([(d, (lambda i, fn: lambda: (rungs.append(i), fn())[1])(i, fn))
+                                          for i, (d, fn) in enumerate(attempts)], verbose)
+
+    SI.run_with_oom_fallback = recording
+    captured = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(captured):
+            yield rungs
+    finally:
+        SI.run_with_oom_fallback = oom.run_with_oom_fallback
+        sys.stdout.write(captured.getvalue())
+    if any(rungs) or "device OOM" in captured.getvalue():
+        raise AssertionError(f"{what}: an out-of-memory rung was taken (upscaler rungs {rungs}; "
+                             f"{captured.getvalue().strip()!r})")
+
+
+def batch_times(fn, n: int):
+    """Seconds of each of n calls of fn, each synchronised; and the last result."""
+    import torch
+
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        y = fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return times, y
+
+
+def rdb_forms(params, x, cfg):
+    """The dense block's two forms on the same tree and input, in turns
+    (grouped, concat, concat, grouped): the median ms of SUPER_FORM_BATCHES
+    batches of each turn. `forward` runs whichever `rrdbnet._rdb` names."""
+    import statistics
+
+    from maua_tpu_torch.super.models import rrdbnet
+
+    grouped = rrdbnet._rdb
+    out = {"grouped": [], "concat": []}
+    try:
+        for form in ("grouped", "concat", "concat", "grouped"):
+            rrdbnet._rdb = grouped if form == "grouped" else rrdbnet._rdb_concat
+            rrdbnet.forward(params, x, cfg)
+            out[form].append(statistics.median(batch_times(lambda: rrdbnet.forward(params, x, cfg),
+                                                           SUPER_FORM_BATCHES)[0]) * 1e3)
+    finally:
+        rrdbnet._rdb = grouped
+    return out
+
+
+def run_super():
+    """RealESRGAN-x4plus, 8 frames 256^2 -> 1024^2: f32 through the Upscaler
+    (cuDNN TF32, the default) and bf16 through `rrdbnet.forward` on a bf16
+    tree, as bench_super.py times it: img/s over SUPER_TIMED batches, peak
+    memory, one batch under torch.profiler, beside the operations bound;
+    the dense block's grouped and concat forms in turns; then each registry
+    kind once at full width."""
+    import statistics
+
+    import torch
+
+    from maua_tpu_torch.super import image as SI
+    from maua_tpu_torch.super.models import rrdbnet
+
+    tf32 = _default_tf32()
+    x = torch.rand((SUPER_BATCH, SUPER_SIZE, SUPER_SIZE, 3), generator=torch.Generator(device="cuda").manual_seed(1),
+                   device="cuda")
+    f32 = SI.Upscaler("RealESRGAN-x4plus", device="cuda", seed=0)
+    macs = rrdb_macs(f32.cfg, SUPER_SIZE, SUPER_SIZE) * SUPER_BATCH
+    out = {"macs_per_image": macs // SUPER_BATCH, **tf32}
+    bf16_cfg = rrdbnet.RRDBConfig(dtype="bfloat16")
+    bf16_params = rrdbnet.prepare(f32.params, bf16_cfg)
+    x_nchw = x.permute(0, 3, 1, 2)
+    with first_rungs_only("super"), torch.no_grad():
+        for dtype, batch, peak in (("float32", lambda: f32(x), TF32_FLOPS),
+                                   ("bfloat16", lambda: rrdbnet.forward(bf16_params, x_nchw, bf16_cfg), BF16_FLOPS)):
+            for _ in range(2):
+                batch()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            times, y = batch_times(batch, SUPER_TIMED)
+            want = (SUPER_BATCH, 4 * SUPER_SIZE, 4 * SUPER_SIZE, 3)
+            if dtype == "bfloat16":
+                y = y.permute(0, 2, 3, 1)
+            if tuple(y.shape) != want or not bool(torch.isfinite(y).all()):
+                raise AssertionError(f"super {dtype}: {tuple(y.shape)}, want finite {want}")
+            ms = statistics.median(times) * 1e3
+            bound_ms = 2 * macs / peak * 1e3
+            out[dtype] = {"img_per_s": SUPER_BATCH / (ms / 1e3), "batch_ms": ms,
+                          "batch_ms_all": [t * 1e3 for t in times],
+                          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "bound_ms": bound_ms,
+                          "bound_by": "operations", "bound_share": bound_ms / ms,
+                          "profile": profile_batch(batch, "conv")}
+            if dtype == "float32":
+                out[dtype]["f32_cuda_core_bound_ms"] = 2 * macs / F32_FLOPS * 1e3
+            torch.cuda.empty_cache()
+        out["rdb_forms"] = {"float32": rdb_forms(f32._run_params, x_nchw, f32.cfg),
+                            "bfloat16": rdb_forms(bf16_params, x_nchw, bf16_cfg)}
+        del f32, bf16_params
+        torch.cuda.empty_cache()
+        kinds = {}
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        for name, size in SUPER_KINDS:
+            up = SI.Upscaler(name, device="cuda", seed=0)
+            t0 = time.perf_counter()
+            y = up(torch.rand((1, *size, 3), generator=gen, device="cuda"))
+            torch.cuda.synchronize()
+            want = (1, size[0] * up.scale, size[1] * up.scale, 3)
+            if tuple(y.shape) != want or not bool(torch.isfinite(y).all()):
+                raise AssertionError(f"super {name}: {tuple(y.shape)}, want finite {want}")
+            kinds[name] = {"kind": up.kind, "input": list(size), "output": list(y.shape),
+                           "seconds": time.perf_counter() - t0}
+    out["kinds"] = kinds
+    return out
+
+
+def super_card_vs_cpu():
+    """Every registry kind but latent-diffusion at full width, the same random
+    weights on the card and on the CPU, f32 with TF32 off, a 64^2 input:
+    PSNR (peak 1) of the upscaled images."""
+    import numpy as np
+    import torch
+
+    from maua_tpu_torch.super import image as SI
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    img = torch.rand((1, 64, 64, 3), generator=torch.Generator().manual_seed(3))
+    out = {}
+    with first_rungs_only("super_reference"):
+        for name in SUPER_REFERENCE:
+            card = SI.Upscaler(name, device="cuda", seed=0)
+            host = SI.Upscaler(name, device="cpu", params=tree_map(lambda t: t.cpu(), card.params))
+            a = card(img).cpu().numpy().astype(np.float64)
+            t0 = time.perf_counter()
+            b = host(img).numpy().astype(np.float64)
+            psnr = 10 * math.log10(1.0 / max(float(np.mean((a - b) ** 2)), 1e-20))
+            out[name] = {"kind": card.kind, "psnr_db": psnr, "max_abs_diff": float(np.abs(a - b).max()),
+                         "cpu_seconds": time.perf_counter() - t0}
+            if psnr < 40.0:
+                raise AssertionError(f"super {name} card vs CPU PSNR {psnr:.2f} dB < 40 dB")
+    return out
+
+
+def run_super_load(tmp: str):
+    """A basicsr .pth (params_ema) of RealESRGAN-x4plus, a realesrgan SRVGG
+    .pth (params), an official SwinIR-M .pth and a waifu2x .json, written
+    from seed-1 weights into a temporary MODELZOO: the Upscaler loads each
+    tensor for tensor, and upscales a 64^2 image to the source's bytes
+    (with cuDNN's deterministic algorithms)."""
+    import io
+    import json
+
+    import torch
+
+    from maua_tpu_torch import utility
+    from maua_tpu_torch.super import image as SI
+
+    _default_tf32()
+    zoo = os.path.join(tmp, "modelzoo")
+    img = torch.rand((1, 64, 64, 3), generator=torch.Generator(device="cuda").manual_seed(4), device="cuda")
+    out = {}
+    saved = utility.MODELZOO
+    utility.MODELZOO = zoo
+    try:
+        with first_rungs_only("super_load"):
+            for name in SUPER_LOAD:
+                kind, cfg = SI.MODEL_REGISTRY[name]
+                src = SI._INIT_FNS[kind](torch.Generator(device="cuda").manual_seed(1), cfg)
+                path = os.path.join(zoo, SI._CHECKPOINT_FILES[name])
+                os.makedirs(os.path.dirname(path), exist_ok=True)
+                if kind == "upconv7":
+                    with open(path, "w") as f:
+                        json.dump(upconv7_json(src), f)
+                else:
+                    sd = {"rrdb": lambda: {"params_ema": rrdb_state_dict(src)},
+                          "srvgg": lambda: {"params": srvgg_state_dict(src)},
+                          "swinir": lambda: swinir_state_dict(src, cfg)}[kind]()
+                    torch.save(sd, path)
+                log = io.StringIO()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(log):
+                    loaded = SI.Upscaler(name, device="cuda")
+                load_s = time.perf_counter() - t0
+                if log.getvalue():
+                    raise AssertionError(f"super_load {name}: {log.getvalue().strip()}")
+                n = assert_trees_equal(loaded.params, src, name)
+                # deterministic algorithms: cuDNN's transposed convs may otherwise sum with atomics
+                with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True, allow_tf32=True):
+                    same = torch.equal(loaded(img), SI.Upscaler(name, device="cuda", params=src)(img))
+                if not same:
+                    raise AssertionError(f"super_load {name}: the loaded model's image differs from the source's")
+                out[name] = {"file": os.path.basename(path), "bytes": os.path.getsize(path), "tensors_equal": n,
+                             "load_seconds": load_s, "same_image": same}
+    finally:
+        utility.MODELZOO = saved
+    return out
+
+
+SUPER_VIDEO_FRAMES = 24
+
+
+def run_super_video(tmp: str):
+    """A synthetic 24-frame 256^2 clip (a moving gradient with noise, seed 5),
+    upscaled with RealESRGAN-x4plus and interpolated with RIFE at factors 2
+    and 4 through the video entry points and the writer this machine has (ffmpeg, else
+    OpenCV), each file read back with OpenCV: 24 frames of 1024^2, and
+    (T - 1) * factor + 1 frames of 256^2 at fps * factor."""
+    import numpy as np
+
+    from maua_tpu_torch.ops.video import ffmpeg_available, read_video, write_video
+    from maua_tpu_torch.super.video import interpolate_video, upscale_video
+
+    _default_tf32()
+    rs = np.random.RandomState(5)
+    y, x = np.mgrid[0:SUPER_SIZE, 0:SUPER_SIZE] / SUPER_SIZE
+    clip = np.stack([np.stack([np.sin(8 * x + t / 4) * 0.5 + 0.5, y, np.cos(6 * y - t / 3) * 0.5 + 0.5], -1)
+                     for t in range(SUPER_VIDEO_FRAMES)])
+    clip = np.clip(clip + 0.03 * rs.randn(*clip.shape), 0, 1).astype(np.float32)
+    folder = os.path.join(tmp, "super_video")
+    src = os.path.join(folder, "clip.mp4")
+    write_video(clip, src, fps=FPS, value_range=(0, 1))
+    out = {"writer": "ffmpeg" if ffmpeg_available() else "cv2"}
+    with first_rungs_only("super_video"):
+        runs = [("upscale", lambda: upscale_video(src, os.path.join(folder, "up.mp4"), device="cuda"),
+                 SUPER_VIDEO_FRAMES, 4 * SUPER_SIZE, FPS)]
+        for factor in (2, 4):
+            runs.append((f"rife_x{factor}", (lambda f: lambda: interpolate_video(
+                src, os.path.join(folder, f"x{f}.mp4"), factor=f, device="cuda"))(factor),
+                (SUPER_VIDEO_FRAMES - 1) * factor + 1, SUPER_SIZE, FPS * factor))
+        for name, fn, want_frames, want_size, want_fps in runs:
+            t0 = time.perf_counter()
+            path = fn()
+            seconds = time.perf_counter() - t0
+            frames, fps = read_video(path)
+            if frames.shape != (want_frames, want_size, want_size, 3) or abs(fps - want_fps) > 0.01:
+                raise AssertionError(f"super_video {name}: {path} reads back as {frames.shape} at {fps} fps, "
+                                     f"want {want_frames} frames of {want_size}^2 at {want_fps}")
+            out[name] = {"frames": frames.shape[0], "size": want_size, "fps": fps, "seconds": seconds,
+                         "bytes": os.path.getsize(path)}
+    return out
+
+
+MULTIRES_STEPS = 20  # LMS steps of the sd_multires schedule (the 1024^2 tiles start at t 0.5: 10 of them)
+
+
+@contextlib.contextmanager
+def attention_cases_recorded():
+    """Counts the attention kernel's calls by case: the dtype, the scale,
+    and the size, strides and storage offset of q, k and v as the wrapper
+    gets them (the UNet's and the VAE's calls go through the module's
+    `flash_attention_fused`)."""
+    import collections
+
+    from maua_tpu_torch.kernels import attention as A
+
+    cases = collections.Counter()
+    real = A.flash_attention_fused
+
+    def recording(q, k, v, scale=None):
+        cases[(str(q.dtype).removeprefix("torch."), scale,
+               *((tuple(t.shape), t.stride(), t.storage_offset()) for t in (q, k, v)))] += 1
+        return real(q, k, v, scale)
+
+    A.flash_attention_fused = recording
+    try:
+        yield cases
+    finally:
+        A.flash_attention_fused = real
+
+
+def check_attention_cases(cases, what: str):
+    """The attention kernel against its plain version at every recorded case,
+    on random card tensors laid out as that case's q, k and v (the same
+    sizes, strides and storage offsets), with `attention_tolerance`. The
+    comparison launches do not count."""
+    import torch
+
+    from maua_tpu_torch.kernels import attention as A
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    rows = []
+    for (dtype, scale, *layouts), n in sorted(cases.items(), key=lambda c: -c[1]):
+        dt = getattr(torch, dtype)
+        q, k, v = (torch.randn(off + sum((m - 1) * st for m, st in zip(size, stride)) + 1, generator=gen,
+                               device="cuda").to(dt).as_strided(size, stride, off) for size, stride, off in layouts)
+        got = A.flash_attention_fused(q, k, v, scale)
+        ref = A.flash_attention_plain(q, k, v, scale)
+        diff = (got.float() - ref.float()).abs()
+        err = float(diff.max())
+        row = {"q": list(q.shape), "kv": list(k.shape), "strides": [list(t.stride()) for t in (q, k, v)],
+               "dtype": dtype, "launches": n, "max_abs_err": err}
+        if got.shape != ref.shape or got.dtype != dt or not bool((diff <= attention_tolerance(ref, dt)).all()):
+            raise AssertionError(f"{what}: attention disagrees with its plain version at {row}")
+        rows.append(row)
+    A.reset_launches()
+    return rows
+
+
+def run_sd_multires():
+    """The reference's multi-size text to image through image_sample: SD 1.x at
+    full width, random weights from seed 0, f32, 512^2 (MULTIRES_STEPS LMS
+    steps) -> RealESRGAN-x4plus to 2048^2 -> lanczos to 1024^2 -> nine 512^2
+    tiles denoised from t 0.5 in batches of 4, 4 and 1 -> restitched. The
+    attention kernel's launches are reset just before and read just after:
+    10 per UNet evaluation, one per encode and one per decode. Then the
+    kernel is held against its plain version at each case the run gave it
+    (the tile batches' shapes among them)."""
+    import torch
+
+    from maua_tpu_torch.diffusion.image import image_sample
+    from maua_tpu_torch.kernels import attention as A
+
+    tf32 = _default_tf32()
+    stages = {}
+    torch.cuda.reset_peak_memory_stats()
+    with first_rungs_only("sd_multires"), attention_cases_recorded() as cases:
+        A.reset_launches()
+        t0 = time.perf_counter()
+        img = image_sample(text=SD_PROMPT, sizes=((512, 512), (1024, 1024)), skips=(0.0, 0.5),
+                           timesteps=MULTIRES_STEPS, sampler="lms", cfg_scale=5.0,
+                           super_res_model="RealESRGAN-x4plus", tile_size=512, stitch=True, max_batch=4,
+                           device="cuda", seed=0, stage_times=stages,
+                           verbose=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = A.launches
+    if tuple(img.shape) != (1, 1024, 1024, 3) or not bool(torch.isfinite(img).all()):
+        raise AssertionError(f"sd_multires: image {tuple(img.shape)}, want finite (1, 1024, 1024, 3)")
+    if float(img.std()) < 1e-3:
+        raise AssertionError("sd_multires: the image is constant")
+    tile_steps = round(MULTIRES_STEPS * 0.5)
+    want = 10 * MULTIRES_STEPS + 1 + 3 * (10 * (MULTIRES_STEPS - tile_steps) + 2)
+    if launches != want or sum(cases.values()) != launches:
+        raise AssertionError(f"sd_multires: flash attention launched {launches} times in {sum(cases.values())} "
+                             f"calls, want {want}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    value_range = [float(img.min()), float(img.max())]
+    del img
+    torch.cuda.empty_cache()
+    attention_cases = check_attention_cases(cases, "sd_multires")
+    return {"image": [1, 1024, 1024, 3], "launches": launches, "stage_seconds": stages, "wall_seconds": wall,
+            "peak_mem_gib": peak, "value_range": value_range, "oom_rungs": 0,
+            "attention_cases": attention_cases,
+            "attention_max_abs_err": max(r["max_abs_err"] for r in attention_cases), **tf32}
+
+
 def run_writer(repo: str, tmp: str):
     """The FFMPEG renderer end to end through the normal entry point: 24
     frames (1 s of the synthetic mix at 24 fps) of the example patch at
@@ -1809,8 +2291,8 @@ def main() -> int:
         phases = set(sys.argv[2].split(","))
     elif sys.argv[1:]:
         print("usage: chip_smoke.py [--phases kernel,flrelu,attn,mel,kconv,e2e,sg3_e2e,ar_e2e,ar_features,"
-              "ar_reference,gan_load,sd_load,writer,profile,sg3_profile,reference,sg3_reference,sd_e2e,sd_steps,sd_profile,"
-              "sd_reference,delivery]",
+              "ar_reference,gan_load,sd_load,writer,super_load,super_video,profile,sg3_profile,reference,"
+              "sg3_reference,sd_e2e,sd_steps,sd_profile,sd_reference,super,super_reference,sd_multires,delivery]",
               file=sys.stderr)
         return 2
 
@@ -1844,13 +2326,15 @@ def main() -> int:
         for name, fn in (("e2e", lambda: run_e2e(wav, repo)), ("sg3_e2e", lambda: run_sg3_e2e(wav, repo)),
                          ("ar_e2e", lambda: run_ar_e2e(wav, tmp)), ("ar_features", lambda: run_ar_features(song)),
                          ("ar_reference", lambda: ar_card_vs_cpu(song)), ("gan_load", lambda: run_gan_load(wav, repo, tmp)),
-                         ("sd_load", lambda: run_sd_load(tmp)), ("writer", lambda: run_writer(repo, tmp))):
+                         ("sd_load", lambda: run_sd_load(tmp)), ("writer", lambda: run_writer(repo, tmp)),
+                         ("super_load", lambda: run_super_load(tmp)), ("super_video", lambda: run_super_video(tmp))):
             if want(name):
                 results[name] = phase(name, fn)
                 torch.cuda.empty_cache()
     for name, fn in (("profile", profile_render_batch), ("sg3_profile", profile_sg3_render_batch),
                      ("reference", card_vs_cpu), ("sg3_reference", sg3_card_vs_cpu), ("sd_e2e", run_sd_e2e),
                      ("sd_steps", run_sd_steps), ("sd_profile", profile_sd_step), ("sd_reference", sd_card_vs_cpu),
+                     ("super", run_super), ("super_reference", super_card_vs_cpu), ("sd_multires", run_sd_multires),
                      ("delivery", run_delivery)):
         if want(name):
             results[name] = phase(name, fn)
@@ -1899,6 +2383,8 @@ def main() -> int:
         "replaces": "maua_tpu/kernels/attention.py:85",
         "launches": results["sd_e2e"]["launches"],
         "loaded_launches": results["sd_load"]["loaded_launches"],
+        "multires_launches": results["sd_multires"]["launches"],
+        "multires_max_abs_err": results["sd_multires"]["attention_max_abs_err"],
         "max_abs_err": attn["max_abs_err"],
         "ms": attn["image_f32"]["ms"],
         "plain_ms": attn["image_f32"]["plain_ms"],
@@ -1909,7 +2395,9 @@ def main() -> int:
         **{f"bf16_{k}": attn["image_bf16"][k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
         "scope": f"the {10 * SD_STEPS + 1} launches of one 512^2 {SD_STEPS}-step SD 1.x image in f32 (sd_e2e's "
                  f"path, CUDA cores); bf16_*: the same launches in bf16 (the sd_steps path, tensor cores); "
-                 f"loaded_launches: one {SD_LOAD_STEPS}-step image from a CompVis checkpoint (sd_load)",
+                 f"loaded_launches: one {SD_LOAD_STEPS}-step image from a CompVis checkpoint (sd_load); "
+                 f"multires_launches: one 512^2 -> 1024^2 image in nine tiles, {MULTIRES_STEPS} LMS steps "
+                 f"(sd_multires), whose every case the kernel matches with multires_max_abs_err",
     }, {
         "name": "melspectrogram",
         "route": "cuda",

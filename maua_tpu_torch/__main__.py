@@ -1,20 +1,23 @@
-"""`python -m maua_tpu_torch audiovisual generate ...` and `python -m maua_tpu_torch diffusion image ...`"""
+"""`python -m maua_tpu_torch <command> <subcommand> [options]`: audiovisual
+generate, diffusion image, super image, super video."""
 
+import importlib
 import sys
+
+COMMANDS = {
+    ("audiovisual", "generate"): "maua_tpu_torch.audiovisual.generate",
+    ("diffusion", "image"): "maua_tpu_torch.diffusion.image",
+    ("super", "image"): "maua_tpu_torch.super.image",
+    ("super", "video"): "maua_tpu_torch.super.video",
+}
 
 
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
-    if argv[:2] == ["audiovisual", "generate"]:
-        from .audiovisual.generate import main as generate_main
-
-        generate_main(argv[2:])
-    elif argv[:2] == ["diffusion", "image"]:
-        from .diffusion.image import main as image_main
-
-        image_main(argv[2:])
-    else:
-        sys.exit("usage: python -m maua_tpu_torch {audiovisual generate | diffusion image} [options]")
+    module = COMMANDS.get(tuple(argv[:2]))
+    if module is None:
+        sys.exit("usage: python -m maua_tpu_torch {" + " | ".join(" ".join(c) for c in COMMANDS) + "} [options]")
+    importlib.import_module(module).main(argv[2:])
 
 
 if __name__ == "__main__":

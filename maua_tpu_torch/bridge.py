@@ -10,7 +10,8 @@ buffers (`noise_const` (H, W), `noise_strength` ()), biases, `w_avg`,
 and StyleGAN3's `freqs` (C, 2), `phases`, `transform` (3, 3) and
 `magnitude_ema` (). StyleGAN3's `layers` is a list of layer dicts and
 stays a list. The diffusion trees convert by rank (see
-`diffusion_params_to_torch`). Neither direction imports JAX.
+`diffusion_params_to_torch`), and so do the super-resolution and RIFE
+trees (see `super_params_to_torch`). Neither direction imports JAX.
 """
 
 from __future__ import annotations
@@ -86,3 +87,29 @@ def diffusion_params_to_jax(torch_params: Dict) -> Dict:
         return np.array(a, order="C")
 
     return _walk(torch_params, conv)
+
+
+def super_params_to_torch(jax_params: Dict, device: Optional[torch.device | str] = None) -> Dict:
+    """JAX super-resolution (RRDBNet, SRVGG, SwinIR, UpConv7, CARN) or RIFE
+    pytree -> the port's dict of f32 tensors: conv weights HWIO -> OIHW,
+    UpConv7's transposed conv (kh, kw, in, out) -> (in, out, kh, kw), linear
+    weights (in, out) -> (out, in); biases, norms, PReLU slopes and SwinIR's
+    relative-position tables unchanged."""
+
+    def conv(v, perm):
+        a = np.asarray(v, dtype=np.float32)
+        if perm is not None:
+            a = a.transpose(perm)
+        return torch.from_numpy(np.array(a, order="C")).to(device)
+
+    def walk(tree, name=None, deconv=False):
+        if isinstance(tree, dict):
+            return {k: walk(v, k, deconv or k == "deconv") for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [walk(v, name, deconv) for v in tree]
+        perm = None
+        if name == "w":
+            perm = (2, 3, 0, 1) if deconv else _DIFFUSION_TO_TORCH[np.ndim(tree)]
+        return conv(tree, perm)
+
+    return walk(jax_params)

@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.filtered_lrelu import filtered_lrelu
+from ..oom import is_oom_error
 from ..utility import resolve_device, to_device
 from . import ops
 from .stylegan2 import _init_fc, _randn, fc_forward
@@ -350,8 +351,8 @@ class StyleGAN3:
 
                 try:
                     imgs = synthesis(self.params, take(latents), self.cfg, take(mats))
-                except torch.OutOfMemoryError:
-                    if batch_size <= 1:
+                except Exception as e:  # noqa: BLE001 - filtered below
+                    if not is_oom_error(e) or batch_size <= 1:
                         raise
                     batch_size = max(batch_size // 2, 1)
                     print(f"device OOM during render; retrying with batch_size={batch_size}")

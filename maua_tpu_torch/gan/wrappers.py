@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..ops import warp as W
+from ..oom import is_oom_error
 from ..utility import resolve_device, to_device
 from . import ops
 from .stylegan2 import SG2Config, init_params, layer_noise_input, mapping, synthesis_layer, torgb_layer
@@ -341,8 +342,8 @@ class StyleGAN2:
                         take(latents), translation=take(translation), zoom=take(zoom), rotation=take(rotation),
                         noises=None if noises is None else {k: take(v) for k, v in noises.items()},
                     )
-                except torch.OutOfMemoryError:
-                    if batch_size <= 1:
+                except Exception as e:  # noqa: BLE001 - filtered below
+                    if not is_oom_error(e) or batch_size <= 1:
                         raise
                     batch_size = max(batch_size // 2, 1)
                     print(f"device OOM during render; retrying with batch_size={batch_size}")

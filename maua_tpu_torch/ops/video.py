@@ -3,7 +3,8 @@ device-to-host copies, an ffmpeg rawvideo pipe with audio muxing, and an
 OpenCV writer where there is no ffmpeg binary.
 
 Port of `maua_tpu/ops/video.py` (ffmpeg_available, rgb_to_yuv420,
-pipelined_frames, WriteWorker, _CV2Worker, VideoWriter, write_video).
+pipelined_frames, WriteWorker, _CV2Worker, VideoWriter, write_video,
+read_video).
 On a CUDA tensor `pipelined_frames` overlaps the synthesis of the next
 batch with the copy of this one: each batch goes to a reused pinned host
 buffer on a copy stream that an event orders after the compute stream,
@@ -297,3 +298,23 @@ def write_video(frames, output_file: str, fps: float = 24, value_range=(-1, 1), 
     with VideoWriter(output_file, (w, h), fps, audio_file=audio_file, value_range=value_range, **kw) as v:
         for f in frames:
             v.write(f)
+
+
+def read_video(path: str, max_frames: Optional[int] = None) -> Tuple[np.ndarray, float]:
+    """Decode a video with OpenCV to (T, H, W, 3) float32 RGB in [0, 1] and its fps."""
+    import cv2
+
+    if not os.path.exists(path):
+        raise FileNotFoundError(path)
+    cap = cv2.VideoCapture(path)
+    fps = cap.get(cv2.CAP_PROP_FPS) or 24.0
+    frames = []
+    while True:
+        ok, frame = cap.read()
+        if not ok or (max_frames is not None and len(frames) >= max_frames):
+            break
+        frames.append(cv2.cvtColor(frame, cv2.COLOR_BGR2RGB))
+    cap.release()
+    if not frames:
+        raise ValueError(f"could not decode any frames from {path!r}")
+    return np.stack(frames).astype(np.float32) / 255.0, fps

@@ -1,13 +1,14 @@
 """Spatial warps on NCHW tensors: grid_sample, translate / zoom / rotate, and
-the bicubic resize of `jax.image.resize`.
+the resizes of `jax.image.resize` (bicubic, bilinear, lanczos3).
 
 Port of `maua_tpu/ops/warp.py`. `grid_sample` keeps the JAX function's
 own reflection rule (period 2 * (size - 1), border pixels not repeated),
 which is not `torch.nn.functional.grid_sample`'s, so it gathers the four
-corners itself. `resize_bicubic` builds `jax.image.resize`'s separable
-weights (Keys cubic, a = -0.5, kernel widened when downsampling) in
-numpy and applies them as two matrix products;
-`F.interpolate(mode="bicubic")` uses a = -0.75 and does not antialias.
+corners itself. `resize` builds `jax.image.resize`'s separable weights
+(Keys cubic with a = -0.5, the triangle, lanczos3; the kernel widened
+when downsampling) in numpy and applies them as two matrix products;
+`F.interpolate(mode="bicubic")` uses a = -0.75, its antialiased bilinear
+is not JAX's scale-and-translate, and it has no lanczos.
 """
 
 from __future__ import annotations
@@ -135,16 +136,34 @@ def _keys_cubic(x: np.ndarray) -> np.ndarray:
     return np.where(x >= 2.0, 0.0, out)
 
 
+def _lanczos3(x: np.ndarray) -> np.ndarray:
+    radius = np.float32(3.0)
+    y = radius * np.sin(np.float32(np.pi) * x) * np.sin(np.float32(np.pi) * x / radius)
+    out = np.where(x > 1e-3, y / np.where(x != 0, np.float32(np.pi**2) * x * x, 1), 1)
+    return np.where(x > radius, 0.0, out)
+
+
+def _triangle(x: np.ndarray) -> np.ndarray:
+    return np.maximum(0, 1 - np.abs(x))
+
+
+# jax.image.resize's method names -> its kernels (jax/_src/image/scale.py)
+_KERNELS = {"bicubic": _keys_cubic, "bilinear": _triangle, "lanczos3": _lanczos3}
+
+
 @functools.lru_cache(maxsize=None)
-def resize_weights(in_size: int, out_size: int) -> np.ndarray:
-    """(in_size, out_size) f32 weights of jax.image.resize "bicubic" with
-    antialias (jax/_src/image/scale.py compute_weight_mat)."""
+def resize_weights(in_size: int, out_size: int, method: str = "bicubic") -> np.ndarray:
+    """(in_size, out_size) f32 weights of jax.image.resize with antialias
+    (jax/_src/image/scale.py compute_weight_mat): the kernel is widened by
+    the scale when downsampling, each output's weights are normalised, and
+    an output whose sample lies outside the input gets none."""
+    kernel = _KERNELS[method]
     scale = np.float32(out_size / in_size)
     inv_scale = np.float32(1.0) / scale
     kernel_scale = max(inv_scale, np.float32(1.0))
     sample_f = (np.arange(out_size, dtype=np.float32) + np.float32(0.5)) * inv_scale - np.float32(0.5)
     x = np.abs(sample_f[None, :] - np.arange(in_size, dtype=np.float32)[:, None]) / kernel_scale
-    weights = _keys_cubic(x).astype(np.float32)
+    weights = kernel(x).astype(np.float32)
     total = weights.sum(axis=0, keepdims=True)
     weights = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
                        weights / np.where(total != 0, total, 1), 0)
@@ -152,13 +171,20 @@ def resize_weights(in_size: int, out_size: int) -> np.ndarray:
     return np.where(inside[None, :], weights, 0).astype(np.float32)
 
 
-def resize_bicubic(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
-    """Bicubic resize of (B, C, H, W) to size (H', W'), as jax.image.resize."""
+def resize(x: torch.Tensor, size: Tuple[int, int], method: str = "bicubic") -> torch.Tensor:
+    """Resize (B, C, H, W) to size (H', W') as jax.image.resize(method,
+    antialias=True) does: separable weight matrices applied as two matrix
+    products, an axis of unchanged size left alone."""
     h, w = x.shape[-2:]
     if h != size[0]:
-        wh = torch.as_tensor(resize_weights(h, size[0]), dtype=x.dtype, device=x.device)
+        wh = torch.as_tensor(resize_weights(h, size[0], method), dtype=x.dtype, device=x.device)
         x = torch.einsum("bchw,hk->bckw", x, wh)
     if w != size[1]:
-        ww = torch.as_tensor(resize_weights(w, size[1]), dtype=x.dtype, device=x.device)
+        ww = torch.as_tensor(resize_weights(w, size[1], method), dtype=x.dtype, device=x.device)
         x = torch.einsum("bchw,wk->bchk", x, ww)
     return x
+
+
+def resize_bicubic(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """Bicubic resize of (B, C, H, W) to size (H', W'), as jax.image.resize."""
+    return resize(x, size, "bicubic")

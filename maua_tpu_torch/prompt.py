@@ -2,8 +2,8 @@
 
 Port of `maua_tpu/prompt.py` (Prompt, TextPrompt, ImagePrompt,
 StylePrompt, ContentPrompt). Images are numpy (1, H, W, C) float32 in
-[-1, 1]. Fetching a URL and resizing to another size (lanczos) are not
-ported and raise.
+[-1, 1], lanczos-resampled to `size` where one is given. Fetching a URL is
+not ported and raises.
 """
 
 from __future__ import annotations
@@ -11,7 +11,9 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
+from .ops.image import resample
 from .ops.io import load_image
 from .utility import parse_prompt
 
@@ -45,8 +47,8 @@ class ImagePrompt(Prompt):
                 path, weight = parse_prompt(path)
             img = path
         arr = load_image(img) * 2.0 - 1.0
-        if size is not None and tuple(size) != tuple(arr.shape[1:3]):
-            raise NotImplementedError("resizing an image prompt (lanczos) is not ported yet")
+        if size is not None:
+            arr = resample(torch.from_numpy(np.ascontiguousarray(arr, np.float32)), tuple(size)).numpy()
         super().__init__(arr.astype(np.float32), weight)
 
     @property

@@ -1,8 +1,14 @@
-"""Device selection and prompt parsing shared by the port's entry points."""
+"""Device selection, prompt parsing and the model directory shared by the
+port's entry points."""
 
 from __future__ import annotations
 
+import os
+
 import torch
+
+# where checkpoints are looked up by file name, as in maua_tpu
+MODELZOO = os.environ.get("MAUA_MODELZOO", os.path.join(os.getcwd(), "modelzoo"))
 
 
 def resolve_device(device=None) -> torch.device:

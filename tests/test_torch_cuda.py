@@ -21,7 +21,12 @@ The mel kernel's FFT and the plain version's cuFFT round differently:
 test. kconv sums 9 Ci products in another order than cuDNN's f32 conv
 (TF32 off): 1e-5 relative plus 1e-5 absolute in f32, and one bf16 ulp on
 top of that in bf16. Frame delivery and I420 conversion are exact: the
-same bytes as the CPU and as a synchronous copy.
+same bytes as the CPU and as a synchronous copy. The super-resolution
+models, the lanczos resample and RIFE's midpoint run cuDNN / cuBLAS on the
+card and oneDNN / BLAS on the CPU, f32 with TF32 off: 1e-3 absolute on
+upscaled images in [0, 1] (up to 23 residual blocks of convolutions summed
+in other orders), 1e-5 for the resample (one weighted sum per axis) and
+1e-4 for the midpoint.
 """
 
 import pytest
@@ -575,3 +580,52 @@ def test_loaded_checkpoints_land_on_the_card_and_render(cuda_device, tmp_path):
             assert 10 * np.log10(255.0**2 / max(mse, 1e-12)) >= 40.0
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+
+
+@pytest.fixture
+def no_tf32():
+    flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_cpu(v) for v in tree]
+    return tree.cpu()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,size", [
+    ("RealESRGAN-x4plus", (24, 20)), ("RealESRGAN-xsx4-animevideo", (24, 20)),
+    ("SwinIR-M-DFO-GAN", (19, 23)),  # padded to the window multiple
+    ("waifu2x-anime-noise0", (24, 20)), ("CARN", (24, 20)),
+])
+def test_upscaler_on_the_card_matches_the_cpu(cuda_device, no_tf32, name, size):
+    from maua_tpu_torch.super import image as SI
+
+    card = SI.Upscaler(name, device=cuda_device, seed=0)
+    host = SI.Upscaler(name, device="cpu", params=_to_cpu(card.params))
+    img = torch.rand((2, *size, 3), generator=torch.Generator().manual_seed(1))
+    out = card(img)
+    assert out.is_cuda and out.shape == (2, size[0] * card.scale, size[1] * card.scale, 3)
+    assert float((out.cpu() - host(img)).abs().max()) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_resample_and_rife_midpoint_on_the_card_match_the_cpu(cuda_device, no_tf32):
+    from maua_tpu_torch.ops.image import resample
+    from maua_tpu_torch.super import rife
+
+    img = torch.rand((1, 300, 410, 3), generator=torch.Generator().manual_seed(2))
+    for size in ((1024, 1400), (150, 97), 256):
+        card = resample(img.to(cuda_device), size)
+        assert float((card.cpu() - resample(img, size)).abs().max()) <= 1e-5
+    params = rife.init_params(torch.Generator(device=cuda_device).manual_seed(0))
+    f0, f1 = torch.rand((2, 1, 3, 64, 96), generator=torch.Generator().manual_seed(3))
+    card = rife.midpoint(params, f0.to(cuda_device), f1.to(cuda_device))
+    host = rife.midpoint(_to_cpu(params), f0, f1)
+    assert float((card.cpu() - host).abs().max()) <= 1e-4

@@ -335,12 +335,6 @@ def test_not_ported_paths_raise(pair):
         TI.get_diffusion_model("guided")
     with pytest.raises(NotImplementedError):
         TI.get_diffusion_model("stable", clip_scale=1.0)
-    with pytest.raises(NotImplementedError):
-        TI.image_sample(sizes=((64, 64), (128, 128)), diffusion=tsd, verbose=False)
-    with pytest.raises(NotImplementedError):
-        TI.image_sample(sizes=((128, 128),), diffusion=tsd, verbose=False)  # larger than image_size: tiling
-    with pytest.raises(NotImplementedError):
-        TI.image_sample(init="perlin", sizes=((64, 64),), diffusion=tsd, verbose=False)
 
 
 def test_entry_points_need_a_card_unless_told_otherwise(monkeypatch):
@@ -392,7 +386,10 @@ def test_image_prompts_and_io(tmp_path):
     TIO.save_image(torch.from_numpy(arr * 2 - 1), str(tmp_path / "x.png"))
     loaded = ImagePrompt(path=str(tmp_path / "x.png"), size=(16, 24))
     assert np.abs(loaded.img - prompt.img).max() <= 2 / 255 + 1e-6
-    with pytest.raises(NotImplementedError):
-        ImagePrompt(img=arr, size=(32, 32))
+    from maua_tpu.prompt import ImagePrompt as JaxImagePrompt
+
+    resized = ImagePrompt(img=arr, size=(32, 40)).img
+    assert resized.shape == (1, 32, 40, 3)
+    assert np.abs(resized - np.asarray(JaxImagePrompt(img=arr, size=(32, 40)).img)).max() <= 1e-5
     with pytest.raises(NotImplementedError):
         ImagePrompt(url="https://x.org/a.png")
