@@ -10,8 +10,10 @@ Phases, each printed as one JSON line with its elapsed seconds:
    under maua_tpu_torch/csrc into maua_tpu_torch/_build, all at once.
 3. kernel: the modulated-conv epilogue kernel against its plain PyTorch
    version at every epilogue shape of a 1024^2 StyleGAN2 frame batch of
-   8, in each layer's dtype, plus its option cases at one shape; CUDA
-   event times beside the memory-bytes bound and the plain version.
+   8, in each layer's dtype, on the plain route and on the space-to-depth
+   route's cell grids (b512 as 256 channels at 256^2, b1024 as 128 at
+   512^2, 4 noise groups), plus its option cases at one shape; CUDA event
+   times beside the memory-bytes bound and the plain version.
 4. flrelu: the filtered-lrelu kernel against its plain PyTorch version
    at the 13 shapes of a 1024^2 StyleGAN3 frame batch, in bf16 at batch
    8 with the affines and the centre crops synthesis passes and in f32 at
@@ -20,13 +22,19 @@ Phases, each printed as one JSON line with its elapsed seconds:
 5. e2e: the audio-reactive video (ExampleSG2Patch, memmap renderer) of a
    3 s synthetic wav made from a seed, at 24 fps, through a random-init
    full-width StyleGAN2 (config-f, 1024^2, bf16 top resolutions), with
-   the epilogue's launch count reset just before and read just after.
+   the epilogue's launch count reset just before and read just after;
+   the facade renders b512 and b1024 on space-to-depth grids
+   (gan/fast_synthesis.py), whose launches are counted by cell shape.
+   Then the same clip to 1920 x 1080 (the output resize takes the plain
+   route): 17 launches a batch, none on cells, b512 and b1024 at their
+   plain shapes.
 6. sg3_e2e: the same wav through ExampleSG3Patch and a random-init
    full-width StyleGAN3 (config T, 1024^2, bf16 trunk), with the
    filtered-lrelu launch count reset just before and read just after.
 7. profile, sg3_profile: one render batch of each net under
    torch.profiler, device time by kernel and the device's idle share.
-8. reference, sg3_reference: one frame of each net in f32 with TF32 off,
+8. reference, sg3_reference: one frame of each net in f32 with TF32 off
+   (StyleGAN2 on the facade's s2d route and on the plain route),
    on the card with the kernels and on the CPU with the plain versions,
    PSNR (StyleGAN3 at 256^2, to bound the CPU's time).
 9. attn (after flrelu): the flash-attention kernel against its plain
@@ -94,6 +102,27 @@ Phases, each printed as one JSON line with its elapsed seconds:
    1024^2 -> nine 512^2 tiles in batches of 4, 4 and 1 from t 0.5 (20 LMS
    steps, SD 1.x f32, seed 0), with the attention kernel's launch count
    reset just before and read just after (507).
+27. umx (after super_video): the openunmix-style separator at the full
+   UMXConfig, random-init, over the 180 s song on the card (cold, warm),
+   the stems' sum against the mixture's bins, card vs CPU stems over 10 s
+   with TF32 off.
+28. noise_patch: the noise-parameterization example patch over the 3 s
+   wav at 1024^2, as e2e renders (its noise reaches the s2d tail).
+29. gan_generate: `python -m maua_tpu_torch gan generate` at 1024^2, eight
+   PNGs by random, polarity and jacnorm sampling, and two StyleGAN3 frames
+   resized to 1920 x 1080.
+30. fast (before profile): the s2d route at config-f 1024^2: plan seconds
+   (the facade's first s2d call), the epilogue launches of one batch on
+   each route, multiply-adds per frame beside the plain convs', one f32
+   frame s2d vs plain and card vs CPU (TF32 off), and the A/B that decides
+   the facade's route: s2d and plain batches of 8 in turns (P N N P ...),
+   fps and one profiled batch of each; then the same A/B for an f32
+   facade, at batch 1 and for a 512^2 net.
+31. sg3_resize (after sd_multires): the StyleGAN3 facade (config T, 1024^2)
+   rendering to 1920 x 1080; the resize card vs CPU; one f32 256^2 frame
+   resized to 480 x 270, card vs CPU.
+32. realtime: the realtime viewer's random walk through the StyleGAN2
+   facade into a callback, 48 frames, fps.
 Phases that upscale fail if an out-of-memory ladder took a rung past its
 first.
 
@@ -285,7 +314,24 @@ def epilogue_cases():
                                      ("clamp-none", BATCH, 1, False, None)]:
         cases.append((label, BATCH, 128, 256, 256, torch.bfloat16, nb, g, pre, clamp))
     cases.append(("f32-groups-4", BATCH, 512, 32, 32, torch.float32, BATCH, 4, True, 256.0))
+    # the s2d route's cell grids (gan/fast_synthesis.py): each narrow block as 4 co channels at res / 2, the
+    # noise in 4 phase groups (const noise shared; the noise patch gives b512.conv0 per-frame noise), conv1's
+    # input style applied after conv0
+    for res in s2d_blocks(cfg):
+        for conv in (0, 1):
+            cases.append((f"s2d-b{res}-conv{conv}", BATCH, 4 * cfg.channels(res), res // 2, res // 2,
+                          cfg.compute_dtype(res), 1, 4, conv == 0, 256.0))
+    cases.append(("s2d-b512-conv0-frame-noise", BATCH, 4 * cfg.channels(512), 256, 256, cfg.compute_dtype(512), BATCH,
+                  4, True, 256.0))
     return cfg, cases
+
+
+S2D_MIN_CHANNELS = 128  # the facade's build_fast_plan default: blocks narrower than this run on s2d grids
+
+
+def s2d_blocks(cfg):
+    """The blocks the StyleGAN2 facade runs on space-to-depth grids."""
+    return [res for res in cfg.block_resolutions if res != 4 and cfg.channels(res) < S2D_MIN_CHANNELS]
 
 
 def check_epilogue():
@@ -296,7 +342,9 @@ def check_epilogue():
     cfg, cases = epilogue_cases()
     num_conv = {res: cfg.block_num_conv(res) for res in cfg.block_resolutions}
     gen = torch.Generator(device="cuda").manual_seed(0)
+    s2d = s2d_blocks(cfg)
     rows, batch_ms, batch_plain_ms, batch_bound_ms = [], 0.0, 0.0, 0.0
+    s2d_ms, s2d_plain_ms, s2d_bound_ms = 0.0, 0.0, 0.0
     worst = 0.0
     for label, b, c, h, w, dtype, nb, g, pre, clamp in cases:
         def rnd(*shape):
@@ -327,16 +375,25 @@ def check_epilogue():
         rows.append({"case": label, "shape": [b, c, h, w], "dtype": str(dtype).split(".")[-1],
                      "noise": None if not nb else [nb, g], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bytes": nbytes})
+        # a frame batch on the plain route (b4..b1024) and on the s2d route (b4..b256, then the cell cases)
         if label.startswith("b") and label[1:].isdigit():
             reps = num_conv[int(label[1:])]
             batch_ms += reps * ms
             batch_plain_ms += reps * plain_ms
             batch_bound_ms += reps * bound_ms
+            if int(label[1:]) not in s2d:
+                s2d_ms, s2d_plain_ms, s2d_bound_ms = s2d_ms + reps * ms, s2d_plain_ms + reps * plain_ms, \
+                    s2d_bound_ms + reps * bound_ms
+        if label.startswith("s2d-") and not label.endswith("frame-noise"):
+            s2d_ms, s2d_plain_ms, s2d_bound_ms = s2d_ms + ms, s2d_plain_ms + plain_ms, s2d_bound_ms + bound_ms
     E.reset_launches()  # the comparison launches do not count
     for r in rows:
         print(json.dumps({"epilogue": r}), flush=True)
     return {"max_abs_err": worst, "frame_batch_ms": batch_ms, "frame_batch_plain_ms": batch_plain_ms,
-            "frame_batch_bound_ms": batch_bound_ms}
+            "frame_batch_bound_ms": batch_bound_ms, "s2d_frame_batch_ms": s2d_ms,
+            "s2d_frame_batch_plain_ms": s2d_plain_ms, "s2d_frame_batch_bound_ms": s2d_bound_ms,
+            "s2d_cells": {r["case"]: {k: r[k] for k in ("shape", "noise", "max_abs_err", "ms", "plain_ms", "bound_ms")}
+                          for r in rows if r["case"].startswith("s2d-")}}
 
 
 def flrelu_macs(b: int, c: int, h: int, w: int, up: int, crop=None) -> int:
@@ -693,11 +750,12 @@ def example_patch(repo: str, example: str) -> str:
 
 
 def render_video(wav: str, patch_file: str, kernel_module, per_batch: int, stylegan_kwargs: dict, counted=(),
-                 model_file=None):
+                 model_file=None, out_size=(1024, 1024)):
     """Render the patch over the wav on the card through the normal entry
-    point (from `model_file` when given); the kernel's launch count (and
-    those of the modules in `counted`) is reset just before and read just
-    after, and the kernel's must be `per_batch` times the render batches.
+    point (from `model_file` when given) at `out_size`; the kernel's launch
+    count (and those of the modules in `counted`) is reset just before and
+    read just after, and the kernel's must be `per_batch` times the render
+    batches.
     Returns (frames, stats)."""
     import numpy as np
     import torch
@@ -710,12 +768,13 @@ def render_video(wav: str, patch_file: str, kernel_module, per_batch: int, style
         module.reset_launches()
     video, _ = generate_audiovisual_from_patch(
         wav, model_file, patch_file, renderer="memmap", renderer_kwargs={"batch_size": BATCH}, fps=FPS,
-        out_size=(1024, 1024), device="cuda", stylegan_kwargs=stylegan_kwargs, stage_times=stages)
+        out_size=out_size, device="cuda", stylegan_kwargs=stylegan_kwargs, stage_times=stages)
     launches = kernel_module.launches
     other = {f"{m.__name__.rsplit('.', 1)[-1]}_launches": m.launches for m in counted}
     n_frames = round(SECONDS * FPS)
-    if video.shape != (n_frames, 1024, 1024, 3) or video.dtype != np.uint8:
-        raise AssertionError(f"frames {video.shape} {video.dtype}, want ({n_frames}, 1024, 1024, 3) uint8")
+    want = (n_frames, out_size[1], out_size[0], 3)
+    if video.shape != want or video.dtype != np.uint8:
+        raise AssertionError(f"frames {video.shape} {video.dtype}, want {want} uint8")
     if video.min() == video.max():
         raise AssertionError("the rendered frames are constant")
     if np.all(video[0] == video[-1]):
@@ -729,10 +788,72 @@ def render_video(wav: str, patch_file: str, kernel_module, per_batch: int, style
                    "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
 
 
-def run_e2e(wav: str, repo: str):
+@contextlib.contextmanager
+def epilogues_recorded(module):
+    """Within the block, every epilogue launch on the card that `module` makes
+    (gan/fast_synthesis.py: the s2d route's cells; gan/stylegan2.py: the
+    plain layers) appends its (C, H, W, noise groups, noise batch) to the
+    yielded list."""
+    wrapper, cases = module.modconv_epilogue, []
+
+    def recording(z, post, noise, bias, *args, **kwargs):
+        if z.is_cuda:
+            cases.append((*z.shape[1:], *(() if noise is None else (noise.shape[1], noise.shape[0]))))
+        return wrapper(z, post, noise, bias, *args, **kwargs)
+
+    module.modconv_epilogue = recording
+    try:
+        yield cases
+    finally:
+        module.modconv_epilogue = wrapper
+
+
+def render_s2d_video(wav: str, patch_file: str):
+    """render_video of a StyleGAN2 patch (seed-0 weights), the epilogue's
+    17 launches per batch, of which the s2d route's are counted by cell
+    shape: each render batch must launch 4 (b512 and b1024, two convs each)."""
+    from maua_tpu_torch.gan import fast_synthesis as FS
+    from maua_tpu_torch.gan.stylegan2 import SG2Config
     from maua_tpu_torch.kernels import epilogue as E
 
-    return render_video(wav, example_patch(repo, "stylegan2.py"), E, 17, {"seed": 0})[1]
+    with epilogues_recorded(FS) as cases:
+        _, stats = render_video(wav, patch_file, E, 17, {"seed": 0})
+    per_batch = 2 * len(s2d_blocks(SG2Config()))
+    if len(cases) != per_batch * stats["render_batches"]:
+        raise AssertionError(f"{len(cases)} s2d epilogue launches, want {per_batch} x {stats['render_batches']}: "
+                             f"the facade did not take the space-to-depth route")
+    return {**stats, "s2d_launches": len(cases), "s2d_cases": {str(c): cases.count(c) for c in sorted(set(cases))}}
+
+
+def plain_shape_counts(cases, cfg) -> dict:
+    """Launches of the s2d blocks' layers at their plain shapes, by block:
+    C channels at the block's resolution in rows (a stretched render widens
+    the columns)."""
+    return {f"b{res}": sum(c[:2] == (cfg.channels(res), res) for c in cases) for res in s2d_blocks(cfg)}
+
+
+def render_plain_video(wav: str, patch_file: str):
+    """render_video of a StyleGAN2 patch to 1920 x 1080: the output resize
+    keeps the facade on the plain route (stretched at layer 0: b512 at
+    512 x 1024, b1024 at 1024 x 2048), so each render batch launches the
+    epilogue 17 times, none of them on cells, twice at each plain shape of
+    b512 and b1024."""
+    from maua_tpu_torch.gan import fast_synthesis as FS
+    from maua_tpu_torch.gan import stylegan2 as S2
+    from maua_tpu_torch.kernels import epilogue as E
+
+    with epilogues_recorded(FS) as cells, epilogues_recorded(S2) as plain:
+        _, stats = render_video(wav, patch_file, E, 17, {"seed": 0}, out_size=(1920, 1080))
+    counts = plain_shape_counts(plain, S2.SG2Config())
+    if cells or any(n != 2 * stats["render_batches"] for n in counts.values()):
+        raise AssertionError(f"the 1920 x 1080 render launched {len(cells)} epilogues on cells and {counts} at "
+                             f"the plain b512 / b1024 shapes, want 0 and 2 x {stats['render_batches']} each")
+    return {**stats, "plain_shape_launches": counts}
+
+
+def run_e2e(wav: str, repo: str):
+    patch_file = example_patch(repo, "stylegan2.py")
+    return {**render_s2d_video(wav, patch_file), "plain_1920x1080": render_plain_video(wav, patch_file)}
 
 
 def run_sg3_e2e(wav: str, repo: str):
@@ -974,11 +1095,14 @@ def profile_batch(batch, marker: str):
 
 
 def card_vs_cpu():
+    """One f32 StyleGAN2 frame at 1024^2 with noise and motion, TF32 off, on
+    the card and on the CPU: through the facade (the s2d route) and through
+    `synthesize` (the plain route, which renders with an output resize)."""
     import numpy as np
     import torch
 
     from maua_tpu_torch.gan.stylegan2 import SG2Config
-    from maua_tpu_torch.gan.wrappers import StyleGAN2
+    from maua_tpu_torch.gan.wrappers import StyleGAN2, synthesize
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -990,20 +1114,26 @@ def card_vs_cpu():
     noise = torch.randn(1, 1, 64, 64, generator=gen)
     inputs = dict(translation=torch.tensor([[0.05, 0.0]]), zoom=torch.tensor([0.9]), rotation=torch.tensor([3.0]))
 
-    def frame(model):
+    def frame(model, route):
         dev = model.device
         ws = model.get_w_latents("7")
         kw = {k: v.to(dev) for k, v in inputs.items()}
         noises = model.make_noise_pyramid(noise.to(dev))
-        img = model.synthesizer(ws, noises=noises, **kw)
+        if route == "s2d":
+            img = model.synthesizer(ws, noises=noises, **kw)
+        else:
+            img = synthesize(model.params, ws, model.cfg, model.rcfg, noises=noises, **kw)
         return ((img + 1) * 127.5).clamp(0, 255).to(torch.uint8).cpu().numpy().astype(np.float64)
 
-    a, b = frame(card), frame(cpu)
-    mse = float(np.mean((a - b) ** 2))
-    psnr = 10 * math.log10(255.0**2 / max(mse, 1e-12))
-    if psnr < 40.0:
-        raise AssertionError(f"card vs CPU frame PSNR {psnr:.2f} dB < 40 dB")
-    return {"psnr_db": psnr, "max_abs_diff": float(np.abs(a - b).max())}
+    out = {}
+    for route in ("s2d", "plain"):
+        a, b = frame(card, route), frame(cpu, route)
+        mse = float(np.mean((a - b) ** 2))
+        out[route] = {"psnr_db": 10 * math.log10(255.0**2 / max(mse, 1e-12)),
+                      "max_abs_diff": float(np.abs(a - b).max())}
+        if out[route]["psnr_db"] < 40.0:
+            raise AssertionError(f"card vs CPU {route} frame PSNR {out[route]['psnr_db']:.2f} dB < 40 dB")
+    return {**out["s2d"], "plain": out["plain"]}
 
 
 def sg3_card_vs_cpu():
@@ -2267,6 +2397,377 @@ def run_writer(repo: str, tmp: str):
             "bytes": os.path.getsize(path), "stage_seconds": stages, "epilogue_launches": E.launches}
 
 
+S2D_AB_PAIRS = 6  # s2d / plain pairs of the fast phase's A/B, in the order P N N P P N ...
+S2D_AB_BATCHES = 5  # timed batches per turn, after two warm-ups; the median is the turn's time
+S2D_AB_OTHER_PAIRS = 5  # pairs of the fast phase's f32, batch-1 and 512^2 A/Bs
+
+
+@contextlib.contextmanager
+def tf32_off():
+    """f32 matmuls and cuDNN convolutions in full f32 within the block; the flags are restored after."""
+    import torch
+
+    flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+
+
+def psnr_db(a, b, peak: float) -> float:
+    import numpy as np
+
+    mse = float(np.mean((np.asarray(a, np.float64) - np.asarray(b, np.float64)) ** 2))
+    return 10 * math.log10(peak**2 / max(mse, 1e-20))
+
+
+def tail_macs(plan, cfg) -> dict:
+    """Multiply-adds per frame of the s2d blocks, from the plan's kernel shapes
+    (kh, kw, ci, co) over each block's (res / 2)^2 cells, beside the plain
+    route's convs of the same blocks (conv0 as the transposed conv at the
+    input grid, conv1 at res, torgb)."""
+    s2d, plain = {}, {}
+    for res, e in plan["blocks"].items():
+        cells = (res // 2) ** 2
+        s2d[f"b{res}"] = {k: cells * int(math.prod(e[k].shape)) for k in ("k0", "k1", "kt", "kimg") if k in e}
+        ci, co = cfg.channels(res // 2), cfg.channels(res)
+        plain[f"b{res}"] = {"conv0": cells * 9 * ci * co, "conv1": res * res * 9 * co * co,
+                            "torgb": res * res * co * cfg.img_channels}
+    total = {name: sum(sum(b.values()) for b in d.values()) for name, d in (("s2d", s2d), ("plain", plain))}
+    return {"s2d": s2d, "plain": plain, "s2d_total": total["s2d"], "plain_total": total["plain"],
+            "ratio": total["s2d"] / total["plain"]}
+
+
+def batch_median_ms(fn, n: int) -> float:
+    """The median wall ms of n synchronised calls of fn, after two warm-ups."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[n // 2]
+
+
+def quartiles(values):
+    import numpy as np
+
+    return [float(v) for v in np.percentile(values, [25, 50, 75])]
+
+
+def route_pair(model, batch: int, gen):
+    """The s2d and plain routes of the facade `model` as zero-argument calls
+    on one batch of `batch` frames with the noise pyramid and the motion a
+    render batch has."""
+    import torch
+
+    from maua_tpu_torch.gan.wrappers import synthesize
+
+    ws = model.get_w_latents(f"0-{batch}")
+    noises = model.make_noise_pyramid(torch.randn(batch, 1, 64, 64, generator=gen, device="cuda"))
+    motion = dict(translation=torch.full((batch, 2), 0.05, device="cuda"),
+                  zoom=torch.full((batch,), 0.9, device="cuda"), rotation=torch.full((batch,), 3.0, device="cuda"))
+    fast = model._get_fast()
+    return {"s2d": lambda: fast(ws, noise_mode="const", noises=noises, rcfg=model.rcfg, **motion),
+            "plain": lambda: synthesize(model.params, ws, model.cfg, model.rcfg, noises=noises, **motion)}
+
+
+def route_ab(routes, batch: int, pairs: int) -> dict:
+    """fps of the two routes in turns (P N N P P N ...), each turn the median
+    of S2D_AB_BATCHES batches; their quartiles, the ratio of the medians and
+    whether s2d's median lies below plain's by more than plain's quartile
+    spread."""
+    import torch
+
+    turns = []
+    with torch.no_grad():
+        for i in range(pairs):
+            turn = {}
+            for name in (("plain", "s2d") if i % 2 == 0 else ("s2d", "plain")):
+                turn[name] = batch / batch_median_ms(routes[name], S2D_AB_BATCHES) * 1e3
+            turns.append(turn)
+    q = {name: quartiles([t[name] for t in turns]) for name in routes}
+    return {"fps_pairs": turns, "fps_quartiles": q, "s2d_over_plain": q["s2d"][1] / q["plain"][1],
+            "s2d_loses_beyond_spread": q["s2d"][1] < q["plain"][1] - (q["plain"][2] - q["plain"][0])}
+
+
+def run_fast():
+    """The space-to-depth route of StyleGAN2 synthesis at config-f 1024^2
+    (seed-0 weights): plan seconds (the facade's first s2d call builds it),
+    the epilogue's launches in one batch on each route, multiply-adds, card
+    vs CPU and s2d vs plain for one f32 frame with TF32 off, and the A/B of
+    the two routes at batch 8 with bf16 top resolutions (noise pyramid and
+    motion as a render batch has them), in turns, with one profiled batch
+    of each; then the same A/B for an f32 facade (TF32 as torch sets it),
+    at batch 1, and for a 512^2 net (only b512 on cells)."""
+    import numpy as np
+    import torch
+
+    from maua_tpu_torch.gan import fast_synthesis as FS
+    from maua_tpu_torch.gan import stylegan2 as S2
+    from maua_tpu_torch.gan.stylegan2 import SG2Config
+    from maua_tpu_torch.gan.wrappers import StyleGAN2, synthesize
+    from maua_tpu_torch.kernels import epilogue as E
+    from maua_tpu_torch.utility import to_device
+
+    model = StyleGAN2(device="cuda", seed=0)
+    t0 = time.perf_counter()
+    fast = model._get_fast()  # probe and convert, as the first render does
+    torch.cuda.synchronize()
+    plan_seconds = time.perf_counter() - t0
+    if not fast or sorted(model._fast_plan["blocks"]) != s2d_blocks(model.cfg):
+        raise AssertionError(f"the facade's plan covers {sorted((model._fast_plan or {}).get('blocks', []))}, "
+                             f"want {s2d_blocks(model.cfg)}")
+    macs = tail_macs(model._fast_plan, model.cfg)
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    routes = route_pair(model, BATCH, gen)
+    launches = {}
+    with torch.no_grad():
+        bf16_psnr = psnr_db(routes["s2d"]().cpu().numpy(), routes["plain"]().cpu().numpy(), 2.0)
+        for name in routes:
+            with epilogues_recorded(FS) as cells, epilogues_recorded(S2) as plain:
+                E.reset_launches()
+                routes[name]()
+                torch.cuda.synchronize()
+                launches[name] = {"launches": E.launches, "on_cells": len(cells),
+                                  "plain_shapes": plain_shape_counts(plain, model.cfg)}
+    n_cells = 2 * len(s2d_blocks(model.cfg))
+    if launches["s2d"]["launches"] != 17 or launches["s2d"]["on_cells"] != n_cells or \
+            launches["plain"]["launches"] != 17 or launches["plain"]["on_cells"] != 0 or \
+            any(n != 2 for n in launches["plain"]["plain_shapes"].values()):
+        raise AssertionError(f"epilogue launches of one batch: {launches}, want 17 each, {n_cells} on cells on s2d, "
+                             f"none on cells and 2 at each plain b512 / b1024 shape on plain")
+    ab = route_ab(routes, BATCH, S2D_AB_PAIRS)
+
+    def to_uint8(img):
+        return ((img + 1.0) * 127.5).clamp(0, 255).to(torch.uint8).permute(0, 2, 3, 1).cpu()
+
+    breakdown = {name: profile_batch(lambda fn=fn: to_uint8(fn()), "epilogue") for name, fn in routes.items()}
+    del routes
+    torch.cuda.empty_cache()
+
+    # the same A/B where the bf16 batch-8 1024^2 turn does not speak for the route: an f32 facade (its cell
+    # convs carry 4x the multiply-adds in f32 / TF32), batch 1 (the realtime viewer's), a 512^2 net
+    others = {}
+    for label, kw, batch in (("f32_b8", dict(dtype="float32"), BATCH), ("bf16_b1", {}, 1),
+                             ("512_bf16_b8", dict(img_resolution=512), BATCH)):
+        other = StyleGAN2(cfg=SG2Config(**kw), device="cuda", seed=0)
+        others[label] = route_ab(route_pair(other, batch, gen), batch, S2D_AB_OTHER_PAIRS)
+        others[label]["s2d_blocks"] = sorted(other._fast_plan["blocks"])
+        del other
+        torch.cuda.empty_cache()
+
+    # one f32 frame: s2d on the card, the plain route on the card, s2d on the CPU
+    with tf32_off(), torch.no_grad():
+        cfg32 = SG2Config(dtype="float32")
+        card = StyleGAN2(cfg=cfg32, device="cuda", seed=0)
+        card._get_fast()
+        params_cpu = to_device(card.params, "cpu")
+        w1 = card.get_w_latents("7")
+        noise1 = card.make_noise_pyramid(torch.randn(1, 1, 64, 64, generator=gen, device="cuda"))
+        kw = dict(translation=torch.tensor([[0.05, 0.0]]), zoom=torch.tensor([0.9]), rotation=torch.tensor([3.0]))
+        on_card = {k: v.cuda() for k, v in kw.items()}
+        plan = card._fast_plan
+        a = FS.synthesis_fast(card.params, FS.device_plan(plan, cfg32, "cuda"), w1, cfg32, noise_mode="const",
+                              noises=noise1, **on_card)
+        b = synthesize(card.params, w1, cfg32, card.rcfg, noises=noise1, **on_card)
+        t0 = time.perf_counter()
+        c = FS.synthesis_fast(params_cpu, FS.device_plan(plan, cfg32, "cpu"), w1.cpu(), cfg32, noise_mode="const",
+                              noises={k: v.cpu() for k, v in noise1.items()}, **kw)
+        cpu_seconds = time.perf_counter() - t0
+    a, b, c = (x.cpu().numpy() for x in (a, b, c))
+    f32 = {"card_vs_cpu_psnr_db": psnr_db(a, c, 2.0), "s2d_vs_plain_psnr_db": psnr_db(a, b, 2.0),
+           "card_vs_cpu_max_abs": float(np.abs(a - c).max()), "s2d_vs_plain_max_abs": float(np.abs(a - b).max()),
+           "cpu_seconds": cpu_seconds}
+    if min(f32["card_vs_cpu_psnr_db"], f32["s2d_vs_plain_psnr_db"]) < 40.0:
+        raise AssertionError(f"s2d f32 frame: {f32}")
+    q = ab["fps_quartiles"]
+    return {"plan_seconds": plan_seconds, "epilogue_launches_per_batch": launches, "macs_per_frame": macs,
+            "bf16_s2d_vs_plain_psnr_db": bf16_psnr, **ab,
+            "faster_route": "s2d" if q["s2d"][1] >= q["plain"][1] else "plain",
+            "breakdown": breakdown, "other_ab": others, "f32_frame": f32}
+
+
+def run_gan_generate(tmp: str):
+    """`python -m maua_tpu_torch gan generate` (the command's main, in this
+    process) at 1024^2 from seed-0 weights: eight PNGs by each of random,
+    polarity and jacnorm sampling, and two StyleGAN3 frames resized to
+    1920 x 1080."""
+    import numpy as np
+    from PIL import Image
+
+    from maua_tpu_torch import __main__ as command
+    from maua_tpu_torch.kernels import epilogue as E
+    from maua_tpu_torch.kernels import filtered_lrelu as FL
+
+    out = {}
+    runs = [(s, ["--sampling", s, "--seeds", "0-8"], (1024, 1024), 8, E) for s in ("random", "polarity", "jacnorm")]
+    runs.append(("stylegan3", ["--architecture", "stylegan3", "--seeds", "0-2", "--out_size", "1920,1080"],
+                 (1920, 1080), 2, FL))
+    for name, args, size, n, kernel in runs:
+        out_dir = os.path.join(tmp, f"gan_{name}")
+        kernel.reset_launches()
+        t0 = time.perf_counter()
+        command.main(["gan", "generate", *args, "--out_dir", out_dir])
+        seconds = time.perf_counter() - t0
+        files = sorted(os.listdir(out_dir))
+        imgs = [np.asarray(Image.open(os.path.join(out_dir, f))) for f in files]
+        if len(files) != n or any(im.shape != (size[1], size[0], 3) or im.min() == im.max() for im in imgs):
+            raise AssertionError(f"gan generate {name}: {files}, {[im.shape for im in imgs]}")
+        distinct = len({im.tobytes() for im in imgs})
+        # polarity sampling may draw one probe latent many times (its weights are a softmax of log-volumes)
+        if distinct < (1 if name == "polarity" else n):
+            raise AssertionError(f"gan generate {name}: {distinct} distinct images of {n}")
+        out[name] = {"command_seconds": seconds, "pngs": len(files), "distinct": distinct, "size": list(size),
+                     "launches": kernel.launches}
+    return out
+
+
+UMX_TOL = 1e-3  # card vs CPU stems, peak ~0.9: cuDNN's LSTM and cuFFT against the CPU's, TF32 off
+UMX_REFERENCE_SECONDS = 10.0
+
+
+def run_umx(song: str):
+    """The openunmix-style separator at the full UMXConfig, random-init from
+    seed 0, over the 180 s song on the card (cold and warm seconds); the
+    stems' sum against the mixture's bins; card vs CPU stems over its first
+    10 s with TF32 off."""
+    import numpy as np
+    import torch
+
+    from maua_tpu_torch.audio import separate as U
+    from maua_tpu_torch.audio import spectral
+    from maua_tpu_torch.audio.io import load_audio
+
+    y, sr, _ = load_audio(song)
+    cfg = U.UMXConfig()
+    params = U.init_params(cfg, device="cuda")
+    yt = torch.from_numpy(y).cuda()
+    seconds = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stems = U.separate(yt, sr, params=params, cfg=cfg)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    total = torch.stack(stems).sum(0)
+    if any(s.shape != yt.shape or not bool(s.isfinite().all()) for s in stems):
+        raise AssertionError("umx stems: shape or finiteness")
+    # the EM masks sum to 1 on every bin that some network claims with a magnitude above the 1e-10 floor of
+    # their sum, and to 0 where all four relu masks are 0; the stems sum to the mixture's iSTFT through that
+    # mask sum, and to the mixture itself on the claimed bins
+    with torch.no_grad():
+        D = spectral.stft(yt, n_fft=cfg.n_fft, hop_length=cfg.hop_length)
+        mask_sum = U._separate_masks(params, D.abs().T, cfg).sum(0).T
+        kept = spectral.istft(D * mask_sum, n_fft=cfg.n_fft, hop_length=cfg.hop_length, length=yt.shape[0])
+    loud = D.abs() > 1e-3 * D.abs().max()
+    off = ((mask_sum[loud] - 1).abs().clamp_max((mask_sum[loud]).abs()))
+    sum_err = float((total - kept).abs().max())
+    if float(mask_sum.max()) > 1 + 1e-4 or float(mask_sum.min()) < 0 or float(off.max()) > 1e-4 or sum_err > 1e-4:
+        raise AssertionError(f"umx masks sum to [{float(mask_sum.min())}, {float(mask_sum.max())}], loud bins "
+                             f"{float(off.max())} from 0 or 1; stems sum {sum_err} from the masked mixture")
+    claimed = float((mask_sum[loud] > 0.5).float().mean())
+    mix_snr = 10 * math.log10(float(yt.square().sum()) / max(float((total - yt).square().sum()), 1e-20))
+
+    n = int(UMX_REFERENCE_SECONDS * sr)
+    with tf32_off():
+        card = [s.cpu().numpy() for s in U.separate(yt[:n], sr, params=params, cfg=cfg)]
+        t0 = time.perf_counter()
+        cpu = [s.numpy() for s in U.separate(torch.from_numpy(y[:n]), sr,
+                                              params={t: {k: v.cpu() for k, v in p.items()} for t, p in params.items()},
+                                              cfg=cfg)]
+        cpu_seconds = time.perf_counter() - t0
+    err = max(float(np.abs(a - b).max()) for a, b in zip(card, cpu))
+    if err > UMX_TOL:
+        raise AssertionError(f"umx card vs CPU stems differ by {err} > {UMX_TOL}")
+    return {"song_seconds": len(y) / sr, "seconds_cold": seconds[0], "seconds_warm": seconds[1],
+            "frames": int(D.shape[-1]), "stems_sum_vs_masked_mixture_max_abs": sum_err,
+            "loud_bins_unclaimed_share": 1 - claimed, "stems_sum_vs_mixture_snr_db": mix_snr,
+            "card_vs_cpu_max_abs": err, "cpu_seconds_10s": cpu_seconds}
+
+
+def run_sg3_resize():
+    """The StyleGAN3 facade (config T, 1024^2, bf16 trunk, seed 0) rendering 8
+    frames to 1920 x 1080; the resize of a native frame on the card against
+    the CPU; one f32 frame at 256^2 resized to 480 x 270, card vs CPU with
+    TF32 off."""
+    import numpy as np
+    import torch
+
+    from maua_tpu_torch.gan.stylegan3 import SG3Config, StyleGAN3
+    from maua_tpu_torch.kernels import filtered_lrelu as FL
+    from maua_tpu_torch.ops import warp as W
+
+    cfg = SG3Config(img_resolution=1024, dtype="bfloat16")
+    model = StyleGAN3(cfg=cfg, device="cuda", seed=0, output_size=(1920, 1080))
+    ws = model.mapper(model.get_z_latents(f"0-{BATCH}"))
+    list(model.render(ws, batch_size=BATCH))  # warm-up
+    FL.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frames = np.stack(list(model.render(ws, batch_size=BATCH)))
+    seconds = time.perf_counter() - t0
+    launches = FL.launches
+    if frames.shape != (BATCH, 1080, 1920, 3) or launches != cfg.num_layers - 1:
+        raise AssertionError(f"sg3_resize frames {frames.shape}, {launches} filtered-lrelu launches")
+    native = model.synthesizer(ws[:1])
+    resized_card = W.resize(native, (1080, 1920), "bilinear").cpu().numpy()
+    resize_err = float(np.abs(resized_card - W.resize(native.cpu(), (1080, 1920), "bilinear").numpy()).max())
+
+    with tf32_off():
+        cfg256 = SG3Config(img_resolution=256, dtype="float32")
+        card = StyleGAN3(cfg=cfg256, device="cuda", seed=0, output_size=(480, 270))
+        cpu = StyleGAN3(cfg=cfg256, params=card.params, device="cpu", output_size=(480, 270))
+        w1 = card.mapper(card.get_z_latents("7"))
+        a = np.stack(list(card.render(w1)))
+        b = np.stack(list(cpu.render(w1.cpu())))
+    frame_psnr = psnr_db(a, b, 255.0)
+    if a.shape != (1, 270, 480, 3) or frame_psnr < 40.0 or resize_err > 1e-4:
+        raise AssertionError(f"sg3_resize: {a.shape}, PSNR {frame_psnr:.2f} dB, resize err {resize_err}")
+    return {"frames": list(frames.shape), "render_seconds": seconds, "fps": BATCH / seconds, "launches": launches,
+            "resize_card_vs_cpu_max_abs": resize_err, "f32_256_to_480x270_psnr_db": frame_psnr}
+
+
+def run_noise_patch(wav: str, repo: str):
+    """The noise-parameterization example patch over the 3 s wav at 1024^2
+    (seed-0 weights) into the memmap renderer: its noise pyramid reaches
+    b512.conv0, inside the s2d tail, as per-frame cell noise."""
+    return render_s2d_video(wav, example_patch(repo, "noise_parameterization.py"))
+
+
+REALTIME_FRAMES = 48
+
+
+def run_realtime():
+    """The realtime viewer's random walk through the StyleGAN2 facade
+    (config-f 1024^2, bf16 top resolutions, seed 0) into a callback:
+    REALTIME_FRAMES frames and their rate (paced at 1000 fps, so the render
+    sets it)."""
+    import numpy as np
+    import torch
+
+    from maua_tpu_torch.audiovisual.realtime import run_realtime as viewer
+    from maua_tpu_torch.gan.wrappers import StyleGAN2
+
+    model = StyleGAN2(device="cuda", seed=0)
+    model.synthesizer(model.get_w_latents("0"))  # warm-up: builds the s2d plan
+    seen = []
+    t0 = time.perf_counter()
+    shown = viewer(model.synthesizer, model.num_ws, model.w_dim, frame_callback=seen.append,
+                   max_frames=REALTIME_FRAMES, target_fps=1000.0, gen=torch.Generator(device="cuda").manual_seed(0))
+    seconds = time.perf_counter() - t0
+    if shown != REALTIME_FRAMES or any(f.shape != (1024, 1024, 3) for f in seen) or np.array_equal(seen[0], seen[-1]):
+        raise AssertionError(f"realtime: {shown} frames shown")
+    return {"frames": shown, "walk_seconds": seconds, "fps": shown / seconds}
+
+
 def main() -> int:
     try:
         import torch
@@ -2291,8 +2792,9 @@ def main() -> int:
         phases = set(sys.argv[2].split(","))
     elif sys.argv[1:]:
         print("usage: chip_smoke.py [--phases kernel,flrelu,attn,mel,kconv,e2e,sg3_e2e,ar_e2e,ar_features,"
-              "ar_reference,gan_load,sd_load,writer,super_load,super_video,profile,sg3_profile,reference,"
-              "sg3_reference,sd_e2e,sd_steps,sd_profile,sd_reference,super,super_reference,sd_multires,delivery]",
+              "ar_reference,gan_load,sd_load,writer,super_load,super_video,umx,noise_patch,gan_generate,fast,"
+              "profile,sg3_profile,reference,sg3_reference,sd_e2e,sd_steps,sd_profile,sd_reference,super,"
+              "super_reference,sd_multires,sg3_resize,realtime,delivery]",
               file=sys.stderr)
         return 2
 
@@ -2327,15 +2829,17 @@ def main() -> int:
                          ("ar_e2e", lambda: run_ar_e2e(wav, tmp)), ("ar_features", lambda: run_ar_features(song)),
                          ("ar_reference", lambda: ar_card_vs_cpu(song)), ("gan_load", lambda: run_gan_load(wav, repo, tmp)),
                          ("sd_load", lambda: run_sd_load(tmp)), ("writer", lambda: run_writer(repo, tmp)),
-                         ("super_load", lambda: run_super_load(tmp)), ("super_video", lambda: run_super_video(tmp))):
+                         ("super_load", lambda: run_super_load(tmp)), ("super_video", lambda: run_super_video(tmp)),
+                         ("umx", lambda: run_umx(song)), ("noise_patch", lambda: run_noise_patch(wav, repo)),
+                         ("gan_generate", lambda: run_gan_generate(tmp))):
             if want(name):
                 results[name] = phase(name, fn)
                 torch.cuda.empty_cache()
-    for name, fn in (("profile", profile_render_batch), ("sg3_profile", profile_sg3_render_batch),
+    for name, fn in (("fast", run_fast), ("profile", profile_render_batch), ("sg3_profile", profile_sg3_render_batch),
                      ("reference", card_vs_cpu), ("sg3_reference", sg3_card_vs_cpu), ("sd_e2e", run_sd_e2e),
                      ("sd_steps", run_sd_steps), ("sd_profile", profile_sd_step), ("sd_reference", sd_card_vs_cpu),
                      ("super", run_super), ("super_reference", super_card_vs_cpu), ("sd_multires", run_sd_multires),
-                     ("delivery", run_delivery)):
+                     ("sg3_resize", run_sg3_resize), ("realtime", run_realtime), ("delivery", run_delivery)):
         if want(name):
             results[name] = phase(name, fn)
             torch.cuda.empty_cache()
@@ -2352,15 +2856,23 @@ def main() -> int:
         "source": "maua_tpu_torch/csrc/epilogue.cu",
         "replaces": "maua_tpu/kernels/epilogue.py:112",
         "launches": results["e2e"]["launches"],
+        "s2d_launches": results["e2e"]["s2d_launches"],
         "loaded_launches": results["gan_load"]["sg2_ada.pkl"]["launches"],
+        "noise_patch_launches": results["noise_patch"]["launches"],
         "max_abs_err": kernel["max_abs_err"],
-        "ms": kernel["frame_batch_ms"],
-        "plain_ms": kernel["frame_batch_plain_ms"],
-        "bound_ms": kernel["frame_batch_bound_ms"],
+        "ms": kernel["s2d_frame_batch_ms"],
+        "plain_ms": kernel["s2d_frame_batch_plain_ms"],
+        "bound_ms": kernel["s2d_frame_batch_bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
-        "scope": f"the 17 launches of one 1024^2 StyleGAN2 frame batch of {BATCH}; loaded_launches: the e2e clip "
-                 f"rendered from an ADA .pkl (gan_load)",
+        **{f"plain_route_{k}": kernel[f"frame_batch_{k}"] for k in ("ms", "plain_ms", "bound_ms")},
+        "plain_route_launches": results["e2e"]["plain_1920x1080"]["launches"],
+        "scope": f"the 17 launches of one 1024^2 StyleGAN2 frame batch of {BATCH} on the facade's route: b4..b256 "
+                 f"plain, b512 and b1024 on space-to-depth grids (4 launches a batch at 256 and 128 channels, 4 "
+                 f"noise groups; s2d_launches counts them in e2e); plain_route_*: the same batch with every block "
+                 f"plain; plain_route_launches: the e2e clip rendered to 1920 x 1080, which the output resize "
+                 f"keeps on the plain route; loaded_launches: the e2e clip rendered from an ADA .pkl (gan_load); "
+                 f"noise_patch_launches: the noise-parameterization clip",
     }, {
         "name": "filtered_lrelu",
         "route": "cuda",

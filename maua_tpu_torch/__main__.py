@@ -1,5 +1,5 @@
 """`python -m maua_tpu_torch <command> <subcommand> [options]`: audiovisual
-generate, diffusion image, super image, super video."""
+generate, diffusion image, gan generate, super image, super video."""
 
 import importlib
 import sys
@@ -7,6 +7,7 @@ import sys
 COMMANDS = {
     ("audiovisual", "generate"): "maua_tpu_torch.audiovisual.generate",
     ("diffusion", "image"): "maua_tpu_torch.diffusion.image",
+    ("gan", "generate"): "maua_tpu_torch.gan.cli",
     ("super", "image"): "maua_tpu_torch.super.image",
     ("super", "video"): "maua_tpu_torch.super.video",
 }

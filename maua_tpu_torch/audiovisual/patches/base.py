@@ -1,9 +1,9 @@
 """Patch base classes: user-written recipes that map audio onto a GAN's inputs.
 
-Port of `maua_tpu/audiovisual/patches/base.py` (MauaPatch,
-StyleGAN2Patch, StyleGAN3Patch, get_patch_from_file). A patch holds the
-audio as a tensor on its device and produces per-frame synthesizer
-inputs. `process_outputs(video)` gets each render batch as a (B, H, W, C)
+Port of `maua_tpu/audiovisual/patches/base.py` (MauaPatch with
+`force_output_size`, StyleGAN2Patch, StyleGAN3Patch, get_patch_from_file).
+A patch holds the audio as a tensor on its device and produces per-frame
+synthesizer inputs. `process_outputs(video)` gets each render batch as a (B, H, W, C)
 tensor in [-1, 1], the layout of maua_tpu.
 """
 
@@ -20,6 +20,7 @@ import torch
 from ...audio.io import load_audio
 from ...gan.stylegan3 import SG3Config, StyleGAN3
 from ...gan.wrappers import StyleGAN2
+from ...ops import warp as W
 from ...utility import resolve_device
 
 
@@ -34,6 +35,15 @@ class MauaPatch:
 
     def process_audio(self):
         pass
+
+    def force_output_size(self, video: torch.Tensor) -> torch.Tensor:
+        """Frames (T, H, W, C), floating point, resized to the synthesizer's
+        output size (W, H) as jax.image.resize's antialiased lanczos3 does."""
+        _, h, w, _ = video.shape
+        out_w, out_h = self.synthesizer_output_size
+        if (w, h) != (out_w, out_h):
+            video = W.resize(video.permute(0, 3, 1, 2), (out_h, out_w), "lanczos3").permute(0, 2, 3, 1)
+        return video
 
 
 class StyleGAN2Patch(MauaPatch):

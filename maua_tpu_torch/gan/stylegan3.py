@@ -28,6 +28,7 @@ import torch.nn.functional as F
 
 from ..kernels.filtered_lrelu import filtered_lrelu
 from ..oom import is_oom_error
+from ..ops import warp as W
 from ..utility import resolve_device, to_device
 from . import ops
 from .stylegan2 import _init_fc, _randn, fc_forward
@@ -261,12 +262,15 @@ class StyleGAN3:
     `cfg`; without one, `params` (the port's layout, see
     `maua_tpu_torch.bridge`) takes given parameters, and otherwise they are
     drawn from a torch.Generator seeded with `seed` on `device`. The
-    parameters live on `device`. Frames render at the config's native
-    resolution."""
+    parameters live on `device`. The net draws frames at its native
+    resolution; `render` resizes them to `output_size` (W, H) in pixels,
+    as jax.image.resize's antialiased "linear" does. `strategy` and
+    `layer` are the StyleGAN2 facade's arguments, accepted and unused (an
+    alias-free net has no layer to resize)."""
 
     def __init__(self, cfg: Optional[SG3Config] = None, params: Optional[Dict] = None,
                  model_file: Optional[str] = None, output_size=None, device=None, seed: int = 0,
-                 dtype: str = "float32"):
+                 dtype: str = "float32", strategy: str = "stretch", layer: int = 0):
         self.device = resolve_device(device)
         if model_file not in (None, "None"):
             from .load import load_network
@@ -283,9 +287,7 @@ class StyleGAN3:
         self.w_dim = self.cfg.w_dim
         self.z_dim = self.cfg.z_dim
         self.res = self.cfg.img_resolution
-        if output_size and tuple(output_size) != (self.res, self.res):
-            raise NotImplementedError("StyleGAN3 output resizing is not ported yet; "
-                                      f"frames render at {self.res}x{self.res}")
+        self.output_size = tuple(output_size) if output_size else None
 
     def get_z_latents(self, seeds) -> torch.Tensor:
         return torch.from_numpy(get_z_latents(seeds, self.z_dim)).to(self.device)
@@ -320,8 +322,9 @@ class StyleGAN3:
         """Yield uint8 frames, synthesized `batch_size` at a time: (H, W, C)
         with pix_fmt "rgb24", planar I420 (3H/2, W) with "yuv420p";
         per-frame translation and rotation drive the Fourier input
-        transform. `postprocess` gets each batch as (B, H, W, C), the layout
-        of maua_tpu. Frames are converted on the device and delivered by
+        transform. Each batch is resized to `output_size`, if one was given,
+        and `postprocess` gets it as (B, H, W, C), the layout of maua_tpu.
+        Frames are converted on the device and delivered by
         `ops.video.pipelined_frames`. The tail batch is padded with its last
         frame. A device out-of-memory error halves the batch and retries."""
         from ..ops.video import pipelined_frames
@@ -357,6 +360,9 @@ class StyleGAN3:
                     batch_size = max(batch_size // 2, 1)
                     print(f"device OOM during render; retrying with batch_size={batch_size}")
                     continue
+                if self.output_size and (imgs.shape[3], imgs.shape[2]) != self.output_size:
+                    w_out, h_out = self.output_size
+                    imgs = W.resize(imgs, (h_out, w_out), "bilinear")
                 imgs = imgs.permute(0, 2, 3, 1)  # NHWC, the layout a patch's process_outputs gets in maua_tpu
                 if postprocess is not None:
                     imgs = postprocess(imgs)

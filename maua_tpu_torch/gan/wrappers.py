@@ -2,8 +2,10 @@
 motion, noise pyramids, and the batched render loop.
 
 Port of `maua_tpu/gan/wrappers.py` (layer_names, RenderConfig,
-synthesize with maybe_motion, make_noise_pyramid, get_z_latents,
-StyleGAN2 with mapper / synthesizer / render). Noise maps and per-frame
+synthesize with its motion, make_noise_pyramid, get_z_latents,
+StyleGAN2 with mapper / synthesizer / render and the synthesizer's
+dispatch to the space-to-depth route of `fast_synthesis.py`,
+get_generator_class). Noise maps and per-frame
 inputs are NCHW here: a noise video is (T, 1, H, W).
 """
 
@@ -107,6 +109,22 @@ def _apply_strategy(x: torch.Tensor, target_hw: Tuple[int, int], strategy: str,
     return out
 
 
+def apply_motion(x: torch.Tensor, idx: int, rcfg: RenderConfig, translation=None, zoom=None,
+                 rotation=None) -> torch.Tensor:
+    """Translate, zoom and rotate the features x at per-conv layer `idx`
+    where it is the layer `rcfg` names for each (each in f32)."""
+    if translation is not None and idx == rcfg.translation_layer:
+        h, w = x.shape[2], x.shape[3]
+        t = torch.as_tensor(translation, dtype=torch.float32, device=x.device)
+        t = t * torch.tensor([w, h], dtype=torch.float32, device=x.device)
+        x = W.translate(x.float(), t).to(x.dtype)
+    if zoom is not None and idx == rcfg.zoom_layer:
+        x = W.zoom(x.float(), zoom, rcfg.zoom_center).to(x.dtype)
+    if rotation is not None and idx == rcfg.rotation_layer:
+        x = W.rotate(x.float(), rotation, rcfg.rotation_center).to(x.dtype)
+    return x
+
+
 def synthesize(
     params: Dict,
     ws: torch.Tensor,
@@ -133,16 +151,7 @@ def synthesize(
     refill = gen if rcfg.resize_noise else None
 
     def maybe_motion(x, idx):
-        if translation is not None and idx == rcfg.translation_layer:
-            h, w = x.shape[2], x.shape[3]
-            t = torch.as_tensor(translation, dtype=torch.float32, device=x.device)
-            t = t * torch.tensor([w, h], dtype=torch.float32, device=x.device)
-            x = W.translate(x.float(), t).to(x.dtype)
-        if zoom is not None and idx == rcfg.zoom_layer:
-            x = W.zoom(x.float(), zoom, rcfg.zoom_center).to(x.dtype)
-        if rotation is not None and idx == rcfg.rotation_layer:
-            x = W.rotate(x.float(), rotation, rcfg.rotation_center).to(x.dtype)
-        return x
+        return apply_motion(x, idx, rcfg, translation, zoom, rotation)
 
     def layer_noise(p, name, shape_hw):
         if noise_mode == "none":
@@ -275,6 +284,35 @@ class StyleGAN2:
         self.w_dim = self.cfg.w_dim
         self.num_ws = self.cfg.num_ws
         self.res = self.cfg.img_resolution
+        # the space-to-depth route (gan/fast_synthesis.py, exact) for the forward
+        # without an output resize; its plan is probed at the first such call
+        self._fast_plan = None
+        self._fast_synth = None
+        self._vanilla = self.rcfg.output_size in (None, (self.res, self.res))
+
+    def _get_fast(self):
+        """The s2d synthesis closure of this model, built at the first call,
+        or False where the net has resnet blocks (which the route lacks) or no
+        block is narrow enough for it."""
+        if self._fast_synth is None:
+            self._fast_synth = False
+            if self.cfg.architecture != "resnet":
+                from .fast_synthesis import make_fast_synthesis
+
+                fn, self._fast_plan = make_fast_synthesis(self.params, self.cfg)
+                if self._fast_plan["blocks"]:
+                    self._fast_synth = fn
+        return self._fast_synth
+
+    def _motion_fast_ok(self, translation, zoom, rotation) -> bool:
+        """Motion can take the s2d route when every active transform's layer
+        lies in the plain head, below the s2d tail (the default layer 7
+        does for 1024^2 nets)."""
+        from .fast_synthesis import motion_layer_bound
+
+        used = [layer for v, layer in ((translation, self.rcfg.translation_layer), (zoom, self.rcfg.zoom_layer),
+                                       (rotation, self.rcfg.rotation_layer)) if v is not None]
+        return not used or max(used) < motion_layer_bound(self._fast_plan, self.cfg)
 
     def get_z_latents(self, seeds) -> torch.Tensor:
         return torch.from_numpy(get_z_latents(seeds, self.z_dim)).to(self.device)
@@ -291,6 +329,15 @@ class StyleGAN2:
     @torch.no_grad()
     def synthesizer(self, latents, translation=None, zoom=None, rotation=None, noises=None,
                     noise_mode: str = "const", gen=None) -> torch.Tensor:
+        """Images (B, C, H, W) from w+ latents: through the s2d route when
+        the output is not resized, the noise is const (or given) and any
+        motion sits in the plain head, as maua_tpu dispatches; otherwise
+        through `synthesize`."""
+        if self._vanilla and noise_mode == "const":
+            fast = self._get_fast()
+            if fast and self._motion_fast_ok(translation, zoom, rotation):
+                return fast(torch.as_tensor(latents, device=self.device), noise_mode="const", noises=noises,
+                            gen=gen, translation=translation, zoom=zoom, rotation=rotation, rcfg=self.rcfg)
         return synthesize(self.params, latents, self.cfg, self.rcfg, translation=translation, zoom=zoom,
                           rotation=rotation, noises=noises, noise_mode=noise_mode, gen=gen)
 
@@ -355,3 +402,14 @@ class StyleGAN2:
                 lo = hi
 
         yield from pipelined_frames(batches(), pix_fmt)
+
+
+def get_generator_class(architecture: str):
+    """The facade class of a generator architecture name."""
+    if architecture in ("stylegan2", "stylegan"):
+        return StyleGAN2
+    if architecture == "stylegan3":
+        from .stylegan3 import StyleGAN3
+
+        return StyleGAN3
+    raise ValueError(f"unknown generator architecture {architecture}")

@@ -26,7 +26,11 @@ models, the lanczos resample and RIFE's midpoint run cuDNN / cuBLAS on the
 card and oneDNN / BLAS on the CPU, f32 with TF32 off: 1e-3 absolute on
 upscaled images in [0, 1] (up to 23 residual blocks of convolutions summed
 in other orders), 1e-5 for the resample (one weighted sum per axis) and
-1e-4 for the midpoint.
+1e-4 for the midpoint. The s2d synthesis route sums its cell convs in
+other orders on the two devices (cuDNN, oneDNN; TF32 off): 1e-4 absolute
+on images of magnitude ~1; the separator's LSTM and FFTs likewise, 1e-4
+on stems of peak ~0.8; the realtime walk's uint8 frames within one level
+of the CPU's on the same draws.
 """
 
 import pytest
@@ -57,6 +61,7 @@ def cuda_device():
     ((2, 128, 16, 16), (2, 8, 16, 16), True, 256.0),
     ((3, 5, 7, 9), (3, 1, 7, 9), False, 256.0),  # H*W not a multiple of 8: the scalar path
     ((2, 16, 8, 8), None, False, 256.0),
+    ((4, 128, 32, 32), (1, 4, 32, 32), True, 256.0),  # the s2d route's cells: 4 phase groups, shared noise
 ])
 def test_epilogue_kernel_matches_plain(cuda_device, dtype, shape, noise_shape, use_pre, clamp):
     gen = torch.Generator(device=cuda_device).manual_seed(0)
@@ -629,3 +634,58 @@ def test_resample_and_rife_midpoint_on_the_card_match_the_cpu(cuda_device, no_tf
     card = rife.midpoint(params, f0.to(cuda_device), f1.to(cuda_device))
     host = rife.midpoint(_to_cpu(params), f0, f1)
     assert float((card.cpu() - host).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_s2d_route_on_the_card_matches_the_cpu(cuda_device, no_tf32):
+    from maua_tpu_torch.gan import fast_synthesis as FS
+    from maua_tpu_torch.gan import stylegan2 as S2
+
+    cfg = S2.SG2Config(img_resolution=32, channel_base=1024, channel_max=64, z_dim=32, w_dim=32, mapping_layers=2)
+    params = S2.init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0))
+    plan = FS.build_fast_plan(params, cfg, min_channels=9999)
+    ws = torch.randn(2, cfg.num_ws, cfg.w_dim, generator=torch.Generator().manual_seed(1))
+    noises = {"b16.conv0": torch.randn(2, 16, 16, generator=torch.Generator().manual_seed(2))}
+    E.reset_launches()
+    card = FS.synthesis_fast(params, FS.device_plan(plan, cfg, cuda_device), ws.to(cuda_device), cfg,
+                             noise_mode="const", noises={k: v.to(cuda_device) for k, v in noises.items()})
+    assert E.launches == 1 + 2 * 3  # b4 plain, then b8..b32 on cells
+    host = FS.synthesis_fast(_to_cpu(params), FS.device_plan(plan, cfg, "cpu"), ws, cfg, noise_mode="const",
+                             noises=noises)
+    assert float((card.cpu() - host).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_separation_on_the_card_matches_the_cpu(cuda_device, no_tf32):
+    from maua_tpu_torch.audio import separate as U
+
+    cfg = U.UMXConfig(n_fft=512, hop_length=128, hidden=32, lstm_layers=2, max_bin=100, niter=2)
+    params = U.init_params(cfg, seed=3, device=cuda_device)
+    t = torch.arange(16000) / 16000
+    y = 0.5 * torch.sin(2 * torch.pi * 440 * t) + 0.3 * torch.sin(2 * torch.pi * 110 * t)
+    card = U.separate(y.to(cuda_device), 16000, params=params, cfg=cfg)
+    host = U.separate(y, 16000, params=_to_cpu(params), cfg=cfg)
+    for a, b in zip(card, host):
+        assert a.is_cuda and float((a.cpu() - b).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_realtime_walk_on_the_card_replays(cuda_device, no_tf32):
+    """The walk on the card against the walk on the CPU, on the same draws
+    (the CPU walk is held to maua_tpu's by tests/test_torch_av_extras.py)."""
+    from maua_tpu_torch.audiovisual.realtime import RealtimeModule
+    from maua_tpu_torch.gan import stylegan2 as S2
+
+    cfg = S2.SG2Config(img_resolution=32, channel_base=256, channel_max=32, z_dim=32, w_dim=32, mapping_layers=2)
+    params = S2.init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0))
+    frames = {}
+    for device, tree in ((cuda_device, params), (torch.device("cpu"), _to_cpu(params))):
+        gen = torch.Generator().manual_seed(5)
+
+        def draw(shape, gen=gen, device=device):
+            return torch.randn(shape, generator=gen).to(device)
+
+        module = RealtimeModule(lambda w, tree=tree: S2.synthesis(tree, w, cfg), cfg.num_ws, cfg.w_dim, draw=draw)
+        frames[device.type] = [module.frame() for _ in range(4)]
+    for card, host in zip(frames["cuda"], frames["cpu"]):
+        assert card.shape == (32, 32, 3) and abs(card.astype(int) - host).max() <= 1

@@ -457,8 +457,8 @@ def test_cli_parses_the_reference_flags(tmp_path, monkeypatch, capsys):
     assert calls["device"] == "cpu" and calls["out_size"] == (64, 32) and calls["fps"] == 12
     assert calls["written"].endswith("song_None_stretch_64x32.mp4")
     assert capsys.readouterr().out.strip() == calls["written"]
-    with pytest.raises(SystemExit):
-        main(["gan", "generate"])
+    with pytest.raises(SystemExit):  # a command the port does not have (gan generate is ported now)
+        main(["style", "transfer"])
 
 
 def test_generate_needs_a_card_unless_told_otherwise(monkeypatch):

@@ -209,8 +209,10 @@ def test_facade_raises_on_what_is_not_ported(net):
     _, tcfg, _, tparams, _, _ = net
     with pytest.raises(FileNotFoundError):  # checkpoints load now (tests/test_torch_load.py): a missing one raises
         T.StyleGAN3(model_file="net.pkl", device="cpu")
-    with pytest.raises(NotImplementedError, match="resizing"):
-        T.StyleGAN3(cfg=tcfg, params=tparams, output_size=(32, 32), device="cpu")
+    # output resizing is ported now (its parity test: tests/test_torch_av_extras.py): frames come at the size
+    model = T.StyleGAN3(cfg=tcfg, params=tparams, output_size=(32, 24), device="cpu")
+    ws = model.mapper(model.get_z_latents("0"))
+    assert [f.shape for f in model.render(ws)] == [(24, 32, 3)]
     T.StyleGAN3(cfg=tcfg, params=tparams, output_size=(64, 64), device="cpu")
 
 
