@@ -51,8 +51,8 @@ Phases, each printed as one JSON line with its elapsed seconds:
 12. sd_reference: the same random SD on the card and on the CPU, f32 with
    TF32 off, 256^2, 2 LMS steps and a decode, image PSNR.
 13. mel (after attn): the mel-spectrogram kernel against its plain version
-   at n_fft 2048, hop 512 with 128 mels and hop 1024 with 512 mels, on 3 s
-   and 180 s signals and a batch of 4; CUDA event times beside the bound,
+   at n_fft 2048, hop 512 with 128 mels and hop 1024 with 512 and 128 mels,
+   on 3 s and 180 s signals and a batch of 4; CUDA event times beside the bound,
    the plain version and torch.stft + the mel matmul (a yardstick only).
 14. kconv: the 3x3 conv kernel against its plain version at the last three
    3x3 layers of a 1024^2 StyleGAN3 and RRDB's growth convs at 512^2, bf16
@@ -123,6 +123,27 @@ Phases, each printed as one JSON line with its elapsed seconds:
    resized to 480 x 270, card vs CPU.
 32. realtime: the realtime viewer's random walk through the StyleGAN2
    facade into a callback, 48 frames, fps.
+33. ss_mir (after gan_generate): the self-supervised music information
+   (eight features at hop 1024, a Laplacian segmentation of each at k 2..16,
+   the tempo) over the 180 s song in a fresh process, cold and warm, with
+   the mel launches by MEL_SHAPES case (3 a call); then the song's first
+   20 s on the card and on the CPU, TF32 off: features, tempo, labels up
+   to relabelling, the eigen-gap at each k.
+34. ss_e2e: `selfsupervised.sample.generate` over the 3 s wav at config-f
+   1024^2 (seed-0 weights, bf16 top resolutions, batch 8, every layer's
+   noise from the patch): 153 epilogue launches, 36 on s2d cells; stage
+   seconds, the noise windows' and the synthesis' device ms a batch, fps,
+   peak memory, the patch's subpatches, 72 frames read back.
+35. ss_reference: one batch of a patch's latents and 17 noise windows on
+   the card and on the CPU from the same draws, f32 with TF32 off; one
+   256^2 frame with its patch's noise, PSNR.
+36. interactive: `generate_interactive` over an 8 s wav with a scripted
+   input and a manual layout whose last section is twice its patch, at
+   config-f 1024^2 to 512^2 (the plain route): 192 frames read back, 24
+   batches, 408 epilogue launches, none on cells.
+37. av_correlation: the video descriptors of the ss_e2e clip as read back
+   against the wav's audio features, every metric of the battery; its
+   first 12 frames on the card and on the CPU, metric by metric.
 Phases that upscale fail if an out-of-memory ladder took a rung past its
 first.
 
@@ -359,13 +380,9 @@ def check_epilogue():
         out = E.modconv_epilogue(*args)
         ref = E.modconv_epilogue_plain(*args)
         torch.cuda.synchronize()
-        # both sides compute in f32 and round once; bf16 storage allows one bf16 ulp
-        rtol = 2.0**-7 if dtype == torch.bfloat16 else 1e-5
-        diff = (out.float() - ref.float()).abs()
-        ok = bool((diff <= rtol * ref.float().abs() + 1e-6).all())
-        err = float(diff.max())
+        err = float((out.float() - ref.float()).abs().max())
         worst = max(worst, err)
-        if not ok:
+        if not epilogue_agrees(out, ref):
             raise AssertionError(f"epilogue {label} disagrees with its plain version: max abs err {err}")
         nbytes = 2 * z.numel() * z.element_size() + (noise.numel() * 4 if noise is not None else 0) \
             + 4 * (post.numel() + bias.numel() + (pre_next.numel() if pre else 0))
@@ -603,6 +620,8 @@ MEL_SHAPES = (  # (label, signal shape, hop, n_mels), n_fft 2048
     ("180s-h512-m128", (3969000,), 512, 128),  # a song
     ("180s-h1024-m512", (3969000,), 1024, 512),
     ("batch4-3s-h512-m128", (4, 66150), 512, 128),
+    ("3s-h1024-m128", (66150,), 1024, 128),  # the self-supervised MIR of the 3 s clip (onsets, mfcc, tempo)
+    ("180s-h1024-m128", (3969000,), 1024, 128),  # the same of a song (ss_mir)
 )
 
 
@@ -789,47 +808,109 @@ def render_video(wav: str, patch_file: str, kernel_module, per_batch: int, style
 
 
 @contextlib.contextmanager
-def epilogues_recorded(module):
-    """Within the block, every epilogue launch on the card that `module` makes
-    (gan/fast_synthesis.py: the s2d route's cells; gan/stylegan2.py: the
-    plain layers) appends its (C, H, W, noise groups, noise batch) to the
-    yielded list."""
-    wrapper, cases = module.modconv_epilogue, []
+def epilogue_cases_recorded():
+    """Within the block, counts every epilogue launch on the card that the
+    StyleGAN2 synthesis makes, by where it comes from ("cells":
+    gan/fast_synthesis.py's s2d cells; "plain": gan/stylegan2.py's layers)
+    and by case: (z's shape, its dtype, the noise's shape or None, whether
+    a next style scale is applied, alpha, gain, clamp)."""
+    import collections
+    import inspect
 
-    def recording(z, post, noise, bias, *args, **kwargs):
-        if z.is_cuda:
-            cases.append((*z.shape[1:], *(() if noise is None else (noise.shape[1], noise.shape[0]))))
-        return wrapper(z, post, noise, bias, *args, **kwargs)
+    from maua_tpu_torch.gan import fast_synthesis as FS
+    from maua_tpu_torch.gan import stylegan2 as S2
+    from maua_tpu_torch.kernels import epilogue as E
 
-    module.modconv_epilogue = recording
+    signature = inspect.signature(E.modconv_epilogue)
+    cases = {"cells": collections.Counter(), "plain": collections.Counter()}
+    wrappers = {(FS, "cells"): FS.modconv_epilogue, (S2, "plain"): S2.modconv_epilogue}
+
+    def recorder(wrapper, counted):
+        def recording(*args, **kwargs):
+            bound = signature.bind(*args, **kwargs)
+            bound.apply_defaults()
+            a = bound.arguments
+            if a["z"].is_cuda:
+                counted[(tuple(a["z"].shape), str(a["z"].dtype).removeprefix("torch."),
+                       None if a["noise"] is None else tuple(a["noise"].shape), a["pre_next"] is not None,
+                       a["alpha"], a["gain"], a["clamp"])] += 1
+            return wrapper(*args, **kwargs)
+        return recording
+
+    for (module, route), wrapper in wrappers.items():
+        module.modconv_epilogue = recorder(wrapper, cases[route])
     try:
         yield cases
     finally:
-        module.modconv_epilogue = wrapper
+        for (module, _), wrapper in wrappers.items():
+            module.modconv_epilogue = wrapper
+
+
+def epilogue_agrees(out, ref) -> bool:
+    """The epilogue kernel's bar against its plain version: both compute in
+    f32 and round once, so bf16 storage allows one bf16 ulp."""
+    import torch
+
+    rtol = 2.0**-7 if ref.dtype == torch.bfloat16 else 1e-5
+    return out.shape == ref.shape and out.dtype == ref.dtype and \
+        bool(((out.float() - ref.float()).abs() <= rtol * ref.float().abs() + 1e-6).all())
+
+
+def check_epilogue_cases(recorded, what: str):
+    """The epilogue kernel against its plain version at every case that
+    epilogue_cases_recorded counted (on either route), on random card tensors of that case's
+    shapes and options, with epilogue_agrees: (rows, largest error). The
+    comparison launches do not count."""
+    import torch
+
+    from maua_tpu_torch.kernels import epilogue as E
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    rows, worst = [], 0.0
+    cases = recorded["cells"] + recorded["plain"]
+    for (shape, dtype, noise_shape, pre, alpha, gain, clamp), n in sorted(cases.items(), key=lambda c: -c[1]):
+        b, c = shape[:2]
+        z = (rnd(*shape) * 4).to(getattr(torch, dtype))
+        args = (z, rnd(b, c).abs() + 0.1, None if noise_shape is None else rnd(*noise_shape), rnd(c) * 0.1, alpha,
+                gain, clamp, rnd(b, c).abs() + 0.5 if pre else None)
+        out, ref = E.modconv_epilogue(*args), E.modconv_epilogue_plain(*args)
+        err = float((out.float() - ref.float()).abs().max())
+        row = {"shape": list(shape), "dtype": dtype, "noise": noise_shape and list(noise_shape), "pre_next": pre,
+               "gain": gain, "clamp": clamp, "launches": n, "max_abs_err": err}
+        if not epilogue_agrees(out, ref):
+            raise AssertionError(f"{what}: the epilogue disagrees with its plain version at {row}")
+        rows.append(row)
+        worst = max(worst, err)
+    E.reset_launches()
+    return rows, worst
 
 
 def render_s2d_video(wav: str, patch_file: str):
     """render_video of a StyleGAN2 patch (seed-0 weights), the epilogue's
     17 launches per batch, of which the s2d route's are counted by cell
     shape: each render batch must launch 4 (b512 and b1024, two convs each)."""
-    from maua_tpu_torch.gan import fast_synthesis as FS
     from maua_tpu_torch.gan.stylegan2 import SG2Config
     from maua_tpu_torch.kernels import epilogue as E
 
-    with epilogues_recorded(FS) as cases:
+    with epilogue_cases_recorded() as cases:
         _, stats = render_video(wav, patch_file, E, 17, {"seed": 0})
-    per_batch = 2 * len(s2d_blocks(SG2Config()))
-    if len(cases) != per_batch * stats["render_batches"]:
-        raise AssertionError(f"{len(cases)} s2d epilogue launches, want {per_batch} x {stats['render_batches']}: "
+    cells, per_batch = cases["cells"], 2 * len(s2d_blocks(SG2Config()))
+    if cells.total() != per_batch * stats["render_batches"]:
+        raise AssertionError(f"{cells.total()} s2d epilogue launches, want {per_batch} x {stats['render_batches']}: "
                              f"the facade did not take the space-to-depth route")
-    return {**stats, "s2d_launches": len(cases), "s2d_cases": {str(c): cases.count(c) for c in sorted(set(cases))}}
+    return {**stats, "s2d_launches": cells.total(), "s2d_cases": {str(c[:4]): n for c, n in sorted(cells.items(), key=str)}}
 
 
-def plain_shape_counts(cases, cfg) -> dict:
+def plain_shape_counts(plain, cfg) -> dict:
     """Launches of the s2d blocks' layers at their plain shapes, by block:
     C channels at the block's resolution in rows (a stretched render widens
     the columns)."""
-    return {f"b{res}": sum(c[:2] == (cfg.channels(res), res) for c in cases) for res in s2d_blocks(cfg)}
+    return {f"b{res}": sum(n for c, n in plain.items() if c[0][1:3] == (cfg.channels(res), res))
+            for res in s2d_blocks(cfg)}
 
 
 def render_plain_video(wav: str, patch_file: str):
@@ -838,15 +919,14 @@ def render_plain_video(wav: str, patch_file: str):
     512 x 1024, b1024 at 1024 x 2048), so each render batch launches the
     epilogue 17 times, none of them on cells, twice at each plain shape of
     b512 and b1024."""
-    from maua_tpu_torch.gan import fast_synthesis as FS
-    from maua_tpu_torch.gan import stylegan2 as S2
+    from maua_tpu_torch.gan.stylegan2 import SG2Config
     from maua_tpu_torch.kernels import epilogue as E
 
-    with epilogues_recorded(FS) as cells, epilogues_recorded(S2) as plain:
+    with epilogue_cases_recorded() as cases:
         _, stats = render_video(wav, patch_file, E, 17, {"seed": 0}, out_size=(1920, 1080))
-    counts = plain_shape_counts(plain, S2.SG2Config())
-    if cells or any(n != 2 * stats["render_batches"] for n in counts.values()):
-        raise AssertionError(f"the 1920 x 1080 render launched {len(cells)} epilogues on cells and {counts} at "
+    counts = plain_shape_counts(cases["plain"], SG2Config())
+    if cases["cells"] or any(n != 2 * stats["render_batches"] for n in counts.values()):
+        raise AssertionError(f"the 1920 x 1080 render launched {cases['cells'].total()} epilogues on cells and {counts} at "
                              f"the plain b512 / b1024 shapes, want 0 and 2 x {stats['render_batches']} each")
     return {**stats, "plain_shape_launches": counts}
 
@@ -2510,7 +2590,6 @@ def run_fast():
     import torch
 
     from maua_tpu_torch.gan import fast_synthesis as FS
-    from maua_tpu_torch.gan import stylegan2 as S2
     from maua_tpu_torch.gan.stylegan2 import SG2Config
     from maua_tpu_torch.gan.wrappers import StyleGAN2, synthesize
     from maua_tpu_torch.kernels import epilogue as E
@@ -2532,12 +2611,12 @@ def run_fast():
     with torch.no_grad():
         bf16_psnr = psnr_db(routes["s2d"]().cpu().numpy(), routes["plain"]().cpu().numpy(), 2.0)
         for name in routes:
-            with epilogues_recorded(FS) as cells, epilogues_recorded(S2) as plain:
+            with epilogue_cases_recorded() as cases:
                 E.reset_launches()
                 routes[name]()
                 torch.cuda.synchronize()
-                launches[name] = {"launches": E.launches, "on_cells": len(cells),
-                                  "plain_shapes": plain_shape_counts(plain, model.cfg)}
+                launches[name] = {"launches": E.launches, "on_cells": cases["cells"].total(),
+                                  "plain_shapes": plain_shape_counts(cases["plain"], model.cfg)}
     n_cells = 2 * len(s2d_blocks(model.cfg))
     if launches["s2d"]["launches"] != 17 or launches["s2d"]["on_cells"] != n_cells or \
             launches["plain"]["launches"] != 17 or launches["plain"]["on_cells"] != 0 or \
@@ -2768,6 +2847,566 @@ def run_realtime():
     return {"frames": shown, "walk_seconds": seconds, "fps": shown / seconds}
 
 
+SS_KS = (2, 4, 6, 8, 12, 16)  # retrieve_music_information's default granularities
+SS_REFERENCE_SECONDS = 20.0
+# card vs CPU, f32 with TF32 off: MIR envelopes in [0, 1] as ar_reference's bar; a realization's latents and
+# noise windows (values ~1; a Loop's phase magnifies the two devices' cos roundings up to 50-fold)
+SS_TOL = 1e-4
+INTERACTIVE_SECONDS = 8.0
+INTERACTIVE_LAYOUT = {0.0: 0, 2.0: 1, 4.0: 0}  # the second 0 lasts 4 s, its patch (the first 0's) 2 s
+INTERACTIVE_SCRIPT = ("1,3,5,7", "next", "2,9", "next")
+AV_REFERENCE_FRAMES = 12  # frames of the ss_e2e clip whose features the CPU also computes (Farneback is ~0.4 s a pair)
+
+
+def ss_mir_child(song: str):
+    """Run in a fresh process: retrieve_music_information over the song on
+    the card twice (the first pass pays every first-use cost), the mel
+    launches of each by MEL_SHAPES case."""
+    import torch
+
+    from maua_tpu_torch.audio.io import load_audio
+    from maua_tpu_torch.audiovisual.selfsupervised.mir import beat_grid, retrieve_music_information
+    from maua_tpu_torch.kernels import spectrogram as M
+
+    audio, sr, duration = load_audio(song)
+    y = torch.from_numpy(audio).cuda()
+    passes = []
+    for _ in range(2):
+        M.reset_launches()
+        with mel_cases_recorded() as cases:
+            t0 = time.perf_counter()
+            feats, segs, tempo = retrieve_music_information(y, sr, ks=SS_KS)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        passes.append({"seconds": seconds, "mel_launches": M.launches,
+                       "mel_cases": case_counts(cases, M.launches, "ss_mir")})
+    t = int(next(iter(feats.values())).shape[0])
+    return {"audio_seconds": duration, "cold": passes[0], "warm": passes[1], "tempo": tempo, "frames": t,
+            "beats": len(beat_grid(t, tempo, sr)), "segmentations": len(segs),
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def same_labels(a, b) -> bool:
+    """Equal up to relabelling."""
+    a, b = list(a), list(b)
+    return len(set(zip(a, b))) == len(set(a)) == len(set(b))
+
+
+def kmeans_replay(X, k: int, n_iter: int = 50) -> dict:
+    """segment.kmeans of the card's rows X, replayed step by step on the card
+    and on the CPU from the same starting rows, the CPU taking the card's
+    assignment at each step: every point the two assign differently must
+    be a tie on the CPU's own distances, its two distances within
+    4 n eps(f32) (the CPU's centre is a mean of up to n unit rows, so it
+    may lie n eps from the card's, and a squared distance between unit rows
+    is at most 4). Returns the card's labels, the assignments that
+    differed, the widest such margin, and whether all were ties."""
+    import torch
+
+    from maua_tpu_torch.audio import segment as Sg
+
+    host = X.cpu()
+    bound = 4 * X.shape[0] * torch.finfo(torch.float32).eps
+    start = Sg.kmeans_init(X.shape[0], k)
+    card_c, host_c = X[start.to(X.device)], host[start]
+    flips, widest = 0, 0.0
+    for step in range(n_iter + 1):
+        card_a = Sg.kmeans_distances(X, card_c).argmin(dim=1)
+        d = Sg.kmeans_distances(host, host_c)
+        a, b = card_a.cpu(), d.argmin(dim=1)
+        rows = (a != b).nonzero()[:, 0]
+        if len(rows):
+            flips += len(rows)
+            widest = max(widest, float((d[rows, a[rows]] - d[rows, b[rows]]).abs().max()))
+        if step < n_iter:
+            card_c, host_c = Sg.kmeans_centers(X, card_a, k), Sg.kmeans_centers(host, a, k)
+    return {"labels": a.numpy(), "differing_assignments": flips, "widest_margin": widest, "tie_bound": bound,
+            "all_ties": widest <= bound}
+
+
+def card_labelling_witness(card_feature, cpu_feature, beats, k: int, card_labels) -> dict:
+    """Why a labelling at k differs between the card and the CPU, and a
+    witness that sides with the card: the card's stages, run again, give
+    its segmentation; its first k eigenpairs solve the CPU's own Laplacian
+    (residual max |L v - lambda v| <= SS_TOL), so they are an eigenbasis of
+    the CPU's matrix as valid as the one the CPU's eigh returned; and on
+    the card's embedding the CPU's k-means steps assign as the card's do but
+    at ties (kmeans_replay). Then the card's labelling is what the CPU's
+    code gives for that basis when its f32 ties break the card's way. Also
+    the eigen-gap at k and the closest pair of k-means' starting rows (two
+    rows that coincide are centres every point is equally near)."""
+    import numpy as np
+    import torch
+
+    from maua_tpu_torch.audio import segment as Sg
+    from maua_tpu_torch.audiovisual.selfsupervised import mir
+
+    grid, _, evals, evecs = mir.laplacian_eigen(card_feature, beats, SS_KS)
+    _, L_cpu, _, _ = mir.laplacian_eigen(cpu_feature, beats, SS_KS)
+    X = mir.embedding(evecs, k)
+    replay = kmeans_replay(X, k)
+    reproduced = bool(np.array_equal(mir.frame_labels(replay.pop("labels"), grid, card_feature.shape[0]),
+                                     card_labels))
+    V, lam = evecs[:, :k].cpu(), evals[:k].cpu()
+    residual = float((L_cpu @ V - V * lam[None]).abs().max())
+    start = X[Sg.kmeans_init(X.shape[0], k).to(X.device)]
+    closest = torch.cdist(start, start) + torch.eye(k, device=X.device) * 1e9
+    return {"eigen_gap": float(evals[k] - evals[k - 1]), "closest_start_rows": float(closest.min()),
+            "stages_reproduce_card_labels": reproduced, "residual_on_cpu_laplacian": residual, **replay,
+            "witness": reproduced and residual <= SS_TOL and replay["all_ties"]}
+
+
+def mir_card_vs_cpu(audio, sr: int) -> dict:
+    """retrieve_music_information of a signal on the card (TF32 off) and on
+    the CPU: per-feature max abs errors, tempos, the raw spectral contrast's
+    largest value in dB on each device, and each segmentation that does not
+    agree up to relabelling, with card_labelling_witness."""
+    import torch
+
+    from maua_tpu_torch.audiovisual.selfsupervised import mir
+    from maua_tpu_torch.audiovisual.selfsupervised.features import extract_features
+
+    with tf32_off():
+        card = mir.retrieve_music_information(torch.from_numpy(audio).cuda(), sr, ks=SS_KS)
+        card_raw = extract_features(torch.from_numpy(audio).cuda(), sr)
+    t0 = time.perf_counter()
+    host = mir.retrieve_music_information(torch.from_numpy(audio), sr, ks=SS_KS)
+    cpu_seconds = time.perf_counter() - t0
+    host_raw = extract_features(torch.from_numpy(audio), sr)
+    errs = {k: float((card[0][k].cpu() - host[0][k]).abs().max()) for k in host[0]}
+    differ = {}
+    with tf32_off():
+        for (name, k), labels in host[1].items():
+            if not same_labels(card[1][(name, k)], labels):
+                beats = mir.beat_grid(card_raw[name].shape[0], card[2], sr)
+                differ[f"{name}@{k}"] = card_labelling_witness(card_raw[name], host_raw[name], beats, k,
+                                                               card[1][(name, k)])
+    return {"max_abs_err": errs, "tempo": [card[2], host[2]], "segmentations": len(host[1]),
+            "segmentations_differ": differ,
+            "spectral_contrast_db_max": [float(card_raw["spectral_contrast"].max()),
+                                         float(host_raw["spectral_contrast"].max())],
+            "cpu_seconds": cpu_seconds}
+
+
+def run_ss_mir(song: str):
+    """retrieve_music_information over the 180 s song in a fresh process
+    (ss_mir_child: cold, warm, 3 mel launches a call); then card vs CPU
+    (mir_card_vs_cpu) over the song's first 20 s with a noise floor 30 dB
+    below its peak, made from seed 3: features within AR_REFERENCE_TOL, the
+    same tempo, and every segmentation equal up to relabelling or with a
+    witness that sides with the card (card_labelling_witness). The bare
+    song's first 20 s are compared and reported, not held: the synthetic
+    song is digitally silent between its partials, so spectral contrast's
+    valleys sit at the FFT's f32 roundoff (spectral_contrast_db_max), where
+    the two devices' FFTs differ by orders of magnitude; music has a noise
+    floor."""
+    import numpy as np
+
+    from maua_tpu_torch.audio.io import load_audio
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--ss-mir-child", song], capture_output=True,
+                          text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"the ss_mir process failed:\n{proc.stderr[-4000:]}")
+    song_out = json.loads(proc.stdout.strip().splitlines()[-1])
+    song_out["process_seconds"] = time.perf_counter() - t0
+    if song_out["cold"]["mel_launches"] != 3 or song_out["warm"]["mel_launches"] != 3:
+        raise AssertionError(f"ss_mir: {song_out['cold']['mel_launches']}, {song_out['warm']['mel_launches']} mel "
+                             f"launches a call, want 3 (onsets, mfcc, tempo; pulse is not among the features)")
+
+    audio, sr, _ = load_audio(song, duration=SS_REFERENCE_SECONDS)
+    bare = mir_card_vs_cpu(audio, sr)
+    floor = 10 ** (-30 / 20) * float(np.abs(audio).max())
+    floored = (audio + floor * np.random.RandomState(3).randn(len(audio))).astype(np.float32)
+    ref = mir_card_vs_cpu(floored, sr)
+    out = {"song": song_out, "reference_seconds": SS_REFERENCE_SECONDS, "bare": bare, "noise_floor": ref}
+    if max(ref["max_abs_err"].values()) > AR_REFERENCE_TOL or ref["tempo"][0] != ref["tempo"][1] or \
+            not all(v["witness"] for v in ref["segmentations_differ"].values()):
+        raise AssertionError(f"ss_mir card vs CPU with a noise floor: {json.dumps(ref)}")
+    return out
+
+
+def run_ss_e2e(wav: str, tmp: str):
+    """`selfsupervised.sample.generate` over the 3 s wav through the entry
+    point at full width (config-f 1024^2 from seed-0 weights, bf16 top
+    resolutions, batch 8, 24 fps, every one of the 17 layers' noise given),
+    twice (the first builds the facade's s2d plan; the second is reported,
+    the first's stages beside it): the facade's s2d route, so 153 epilogue
+    launches, 36 of them on cells, each case of them held against the plain
+    version (check_epilogue_cases); 3 mel launches (3s-h1024-m128); stage
+    seconds, fps, peak memory, the patch's subpatches, the 72 frames read
+    back. Then one batch's noise windows and its synthesis, each alone
+    under torch.profiler: their device ms (the render's stage clock reads
+    only host seconds and the intervals between CUDA events)."""
+    import numpy as np
+    import torch
+
+    from maua_tpu_torch.audiovisual.selfsupervised import patch as P
+    from maua_tpu_torch.audiovisual.selfsupervised import sample as S
+    from maua_tpu_torch.gan.wrappers import layer_names
+    from maua_tpu_torch.kernels import epilogue as E
+    from maua_tpu_torch.kernels import spectrogram as M
+    from maua_tpu_torch.ops.video import read_video
+
+    made, realized, gans = [], [], []
+    patch_class, gan_class = P.Patch, S.StyleGAN2
+
+    class Recorded(P.Patch):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
+
+        def __call__(self, *args, **kwargs):
+            realized.append(super().__call__(*args, **kwargs))
+            return realized[-1]
+
+    class RecordedGAN(S.StyleGAN2):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            gans.append(self)
+
+    out_file, runs = os.path.join(tmp, "ss.mp4"), []
+    torch.cuda.reset_peak_memory_stats()
+    P.Patch, S.StyleGAN2 = Recorded, RecordedGAN
+    try:
+        for _ in range(2):  # the first pays the facade's s2d plan and the first use of the features' shapes
+            stages = {}
+            E.reset_launches()
+            M.reset_launches()
+            with epilogue_cases_recorded() as cases, mel_cases_recorded() as mel_cases:
+                S.generate(wav, output_file=out_file, fps=FPS, seed=42, batch_size=BATCH, verbose=False,
+                           device="cuda", stylegan_kwargs={"seed": 0}, stage_times=stages)
+            runs.append(stages)
+    finally:
+        P.Patch, S.StyleGAN2 = patch_class, gan_class
+    launches, mel_launches, cells = E.launches, M.launches, cases["cells"].total()
+    n_frames = round(SECONDS * FPS)
+    batches = math.ceil(n_frames / BATCH)
+    video, _ = read_video(out_file)
+    if launches != 17 * batches or cells != 4 * batches:
+        raise AssertionError(f"ss_e2e: {launches} epilogue launches ({cells} on cells), want {17 * batches} "
+                             f"({4 * batches})")
+    if video.shape != (n_frames, 1024, 1024, 3) or video.min() == video.max() or np.all(video[0] == video[-1]):
+        raise AssertionError(f"ss_e2e: read back {video.shape}, or constant frames")
+
+    peak_mem_gib = torch.cuda.max_memory_allocated() / 2**30
+    gan, (latents, noise_modules) = gans[-1], realized[-1]
+    lat = latents[:BATCH] if latents.shape[1] == gan.num_ws else latents[:BATCH, :1].repeat(1, gan.num_ws, 1)
+    noises = {name: mod(0, BATCH)[:, None] for name, mod in zip(layer_names(gan.cfg)[1:], noise_modules)}
+    noise_profile = profile_batch(lambda: [mod(0, BATCH) for mod in noise_modules], "elementwise")
+    synthesis_profile = profile_batch(lambda: gan.synthesizer(lat, noises=noises), "epilogue")
+    noise_ms, synthesis_ms = noise_profile["device_ms"], synthesis_profile["device_ms"]
+    share = noise_ms / (noise_ms + synthesis_ms) if all(isinstance(v, float) for v in (noise_ms, synthesis_ms)) \
+        else "not measured"
+    case_rows, worst = check_epilogue_cases(cases, "ss_e2e")
+    patch = made[-1]
+    return {"frames_read_back": int(video.shape[0]), "render_batches": batches, "launches": launches,
+            "s2d_launches": cells, "epilogue_cases": case_rows, "epilogue_max_abs_err": worst,
+            "mel_launches": mel_launches, "mel_cases": case_counts(mel_cases, mel_launches, "ss_e2e"),
+            "stage_seconds_first": runs[0], "first_render_fps": n_frames / runs[0]["render"],
+            "stage_seconds": stages,
+            "noise_windows_host_ms_per_batch": 1e3 * stages["noise_windows"] / batches,
+            "synthesis_host_ms_per_batch": 1e3 * stages["synthesis"] / batches,
+            "noise_windows_interval_ms_per_batch": stages["noise_windows_interval_ms"] / batches,
+            "synthesis_interval_ms_per_batch": stages["synthesis_interval_ms"] / batches,
+            "noise_windows_profiled": noise_profile, "synthesis_profiled": synthesis_profile,
+            "noise_share_of_device_ms": share,
+            "render_fps": n_frames / stages["render"], "peak_mem_gib": peak_mem_gib,
+            "latent_subpatches": len(patch.latent_patches), "noise_subpatches": len(patch.noise_patches),
+            "output_file": out_file}
+
+
+def host_draws(P):
+    """A Draws whose tensors are drawn on the CPU and moved to the device, so a
+    realization on the card and one on the CPU get the same draws."""
+
+    class HostDraws(P.Draws):
+        def __init__(self, seed, device):
+            super().__init__(seed, "cpu")
+            self.target = device
+
+        def permutation(self, path, n):
+            return super().permutation(path, n).to(self.target)
+
+        def normal(self, path, shape):
+            return super().normal(path, shape).to(self.target)
+
+    return HostDraws
+
+
+def run_ss_reference(wav: str):
+    """One batch of a realization on the card and on the CPU, the draws made
+    on the CPU, f32 with TF32 off: the latents and every one of the 17
+    layers' noise windows of a config-f 1024^2 patch over the 3 s wav,
+    max abs error <= SS_TOL; then one frame of a 256^2 f32 net (a bounded
+    CPU time) with its patch's noise, PSNR >= 40 dB, and the epilogue held
+    against its plain version at each of that frame's cases on the card."""
+    import numpy as np
+    import torch
+
+    from maua_tpu_torch.audio.io import load_audio
+    from maua_tpu_torch.audiovisual.selfsupervised import patch as P
+    from maua_tpu_torch.audiovisual.selfsupervised.mir import retrieve_music_information
+    from maua_tpu_torch.gan.stylegan2 import SG2Config
+    from maua_tpu_torch.gan.wrappers import StyleGAN2, layer_names
+    from maua_tpu_torch.ops.signal import resample_1d
+
+    audio, sr, duration = load_audio(wav)
+    n_frames = round(duration * FPS)
+    feats, segs, tempo = retrieve_music_information(torch.from_numpy(audio).cuda(), sr)
+    feats = {k: resample_1d(v, n_frames) for k, v in feats.items()}
+    seg_t = next(iter(segs.values())).shape[0]
+    frame_idx = np.clip((np.arange(n_frames) * seg_t / n_frames).astype(int), 0, seg_t - 1)
+    segs = {k: np.asarray(v)[frame_idx] for k, v in segs.items()}
+    draws = P.Patch.draws
+    P.Patch.draws = lambda self, device: host_draws(P)(self.seed, device)
+
+    def realize(model, seed):
+        """The patch of `seed` over the wav, realized for `model`'s layers on
+        the card and on the CPU from one palette (the model's mapper on the card)."""
+        names = layer_names(model.cfg)[1:]
+        sizes = [int(n.split(".")[0][1:]) for n in names]
+        palette = model.mapper(P.seeded_normal(seed, (16, model.z_dim), "cpu").cuda())
+        out = {}
+        for device in ("cuda", "cpu"):
+            patch = P.Patch({k: v.to(device) for k, v in feats.items()}, segs, tempo, fps=FPS, seed=seed)
+            out[device] = patch(palette.to(device), noise_sizes=sizes)
+        return names, out
+
+    try:
+        with tf32_off():
+            card = StyleGAN2(device="cuda", seed=0, dtype="float32")
+            names, out = realize(card, 42)
+            (lat_c, noise_c), (lat_h, noise_h) = out["cuda"], out["cpu"]
+            errs = {"latents": float((lat_c[:BATCH].cpu() - lat_h[:BATCH]).abs().max())}
+            for name, mc, mh in zip(names, noise_c, noise_h):
+                errs[name] = float((mc(0, BATCH).cpu() - mh(0, BATCH)).abs().max())
+            del card, out, noise_c, noise_h
+            torch.cuda.empty_cache()
+
+            cfg = SG2Config(img_resolution=256, dtype="float32")
+            net = StyleGAN2(cfg=cfg, device="cuda", seed=0)
+            host = StyleGAN2(cfg=cfg, params=net.params, device="cpu")
+            names, out = realize(net, 7)
+            frames = []
+            with epilogue_cases_recorded() as cases:
+                for device, model in (("cuda", net), ("cpu", host)):
+                    lat, noise = out[device]
+                    img = model.synthesizer(lat[:1], noises={n: m(0, 1)[:, None] for n, m in zip(names, noise)})
+                    frames.append(((img.clamp(-1, 1) + 1) * 127.5).clamp(0, 255).to(torch.uint8).cpu().numpy())
+            case_rows, case_err = check_epilogue_cases(cases, "ss_reference")
+    finally:
+        P.Patch.draws = draws
+    frame_psnr = psnr_db(frames[0], frames[1], 255.0)
+    worst = max(errs.values())
+    if worst > SS_TOL or frame_psnr < 40.0:
+        raise AssertionError(f"ss_reference: max abs err {errs}, frame PSNR {frame_psnr:.2f} dB")
+    return {"max_abs_err": worst, "by_layer": errs, "frame_256_psnr_db": frame_psnr, "epilogue_cases": case_rows,
+            "epilogue_max_abs_err": case_err}
+
+
+def run_interactive(tmp: str):
+    """`generate_interactive` through the entry point over an 8 s wav with a
+    scripted input (INTERACTIVE_SCRIPT: one `next` for each of the two
+    unique sections) and the manual layout INTERACTIVE_LAYOUT, whose last
+    bound is twice its patch's length: config-f 1024^2 (seed 0, bf16 top
+    resolutions) to 512^2, batch 8. The output resize keeps the facade on
+    the plain route: 192 frames read back, 24 batches, 408 epilogue
+    launches, none on cells, each case of them held against the plain
+    version (check_epilogue_cases)."""
+    import numpy as np
+    import torch
+
+    from maua_tpu_torch.audiovisual import interactive as I
+    from maua_tpu_torch.kernels import epilogue as E
+    from maua_tpu_torch.ops.video import read_video
+
+    wav = os.path.join(tmp, "interactive.wav")
+    synth_wav(wav, seconds=INTERACTIVE_SECONDS, seed=2)
+    out_file, stages, printed, batches = os.path.join(tmp, "interactive.mp4"), {}, [], []
+    script = iter(INTERACTIVE_SCRIPT)
+    render_final = I.InteractiveSession.render_final
+
+    def counted(self, *args, **kwargs):
+        for batch in render_final(self, *args, **kwargs):
+            batches.append(batch.shape[0])
+            yield batch
+
+    torch.cuda.reset_peak_memory_stats()
+    E.reset_launches()
+    I.InteractiveSession.render_final = counted
+    try:
+        with epilogue_cases_recorded() as cases:
+            I.generate_interactive(wav, output_file=out_file, fps=FPS, seed=0, segmentation=INTERACTIVE_LAYOUT,
+                                   batch_size=BATCH, out_size=(512, 512), stylegan_kwargs={"seed": 0},
+                                   input_fn=lambda _: next(script), print_fn=printed.append, device="cuda",
+                                   stage_times=stages)
+    finally:
+        I.InteractiveSession.render_final = render_final
+    launches, cells = E.launches, cases["cells"].total()
+    video, _ = read_video(out_file)
+    n_frames = round(INTERACTIVE_SECONDS * FPS)
+    if video.shape != (n_frames, 512, 512, 3) or len(batches) != 24 or launches != 17 * 24 or cells:
+        raise AssertionError(f"interactive: read back {video.shape}, {len(batches)} batches, {launches} epilogue "
+                             f"launches, {cells} on cells; want {n_frames} frames, 24, 408, 0")
+    if video.min() == video.max() or np.all(video[0] == video[-1]):
+        raise AssertionError("interactive: constant frames")
+    case_rows, worst = check_epilogue_cases(cases, "interactive")
+    return {"frames_read_back": int(video.shape[0]), "render_batches": len(batches), "launches": launches,
+            "s2d_launches": cells, "epilogue_cases": case_rows, "epilogue_max_abs_err": worst,
+            "stage_seconds": stages, "render_fps": n_frames / stages["render"],
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "commands": [p for p in printed if p.startswith("section ")]}
+
+
+def video_audio_correlation(frames, audio_feats, device):
+    """The video descriptors of `frames` (T, H, W, 3) in [0, 1] on `device`,
+    resampled to the audio features' frames, and the whole metric battery:
+    (metrics, video feature matrix, seconds)."""
+    import torch
+
+    from maua_tpu_torch.audiovisual.selfsupervised.correlation import audio_video_correlation
+    from maua_tpu_torch.audiovisual.selfsupervised.video_features import video_feature_matrix
+
+    t0 = time.perf_counter()
+    video = video_feature_matrix(torch.from_numpy(frames).to(device), n_frames_out=audio_feats.shape[0])
+    metrics = audio_video_correlation(audio_feats.to(device), video)
+    return metrics, video, time.perf_counter() - t0
+
+
+def moves_at_roundoff(name: str, X, Y, value: float, trials: int = 3) -> bool:
+    """Whether a metric of the CPU's (X, Y) moves by more than 1e-3 when both
+    move by 1e-6 of their peaks (seeded normal noise, a few draws): a value
+    f32 roundoff decides, as the subspaces and covariance inverses of
+    rank-deficient features are."""
+    import torch
+
+    from maua_tpu_torch.audiovisual.selfsupervised.correlation import METRICS
+
+    gen = torch.Generator().manual_seed(0)
+
+    def nudge(Z):
+        return Z + 1e-6 * float(Z.abs().max()) * torch.randn(Z.shape, generator=gen)
+
+    return any(abs(float(METRICS[name](nudge(X), nudge(Y))) - value) > 1e-3 for _ in range(trials))
+
+
+def correlation_pairs():
+    """The metric battery's well-conditioned pairs (as the CPU tests make
+    them): a correlated pair of unequal widths, an independent one, and
+    matched widths (X against X without one principal component, and
+    against noise)."""
+    import numpy as np
+
+    rs = np.random.RandomState(0)
+    X = rs.randn(64, 5).astype(np.float32)
+    Y = X @ rs.randn(5, 3).astype(np.float32) + 0.1 * rs.randn(64, 3).astype(np.float32)
+    Z = rs.randn(64, 3).astype(np.float32)
+    rs = np.random.RandomState(1)
+    A = rs.randn(120, 16).astype(np.float32)
+    A -= A.mean()
+    U, s, V = np.linalg.svd(A, full_matrices=False)
+    A1 = (np.delete(U, 2, 1) @ np.diag(np.delete(s, 2)) @ np.delete(V, 2, 0)).astype(np.float32)
+    A2 = rs.randn(120, 16).astype(np.float32)
+    return {"dependent": (X, Y), "independent": (X, Z), "minus_one_pc": (A, A1), "noise": (A, A2)}
+
+
+def signed_like_card(name: str, X, Y):
+    """r2 or r4 of the CPU's (X, Y) with each of the CPU's left singular
+    vectors given the sign of the card's: maua_tpu's r2 and r4 read the
+    SVD's column signs, which LAPACK and cuSOLVER choose apart (ROADMAP.md
+    C8), so the card's value is held against this one."""
+    import torch
+
+    from maua_tpu_torch.audiovisual.selfsupervised import correlation as C
+
+    def factors(M):
+        Uc = C._svd(C._center(M.cuda()))[0].cpu()
+        U, s, _ = C._svd(C._center(M))
+        sign = torch.where((Uc * U).sum(dim=0) < 0, -1.0, 1.0)
+        return U * sign, s
+
+    (UX, sX), (UY, sY) = factors(X), factors(Y)
+    return C.r1(UX * sX[None], UY * sY[None]) if name == "r2" else C.r1(UX, UY)
+
+
+def metrics_card_vs_cpu() -> dict:
+    """Every metric of the battery on each of correlation_pairs, on the card
+    (TF32 off) against the CPU: held within 1e-3 (the CPU tests' bar) on
+    the three pairs of full rank; reported on minus_one_pc, which is rank
+    deficient by construction, so that the metrics built on a subspace
+    (r3's polar factor, CCA's directions in the null space) are not unique
+    there. r2 and r4 are held against the CPU's value with the card's
+    singular vector signs (signed_like_card). The largest difference by
+    metric on each."""
+    import torch
+
+    from maua_tpu_torch.audiovisual.selfsupervised import correlation as C
+
+    diffs, failed = {"full_rank": {}, "minus_one_pc": {}}, []
+    with tf32_off():
+        for label, (X, Y) in correlation_pairs().items():
+            held = label != "minus_one_pc"
+            for name, fn in C.METRICS.items():
+                if X.shape[1] != Y.shape[1] and name in C._MATCHED_DIMS_ONLY:
+                    continue
+                card = float(fn(torch.from_numpy(X).cuda(), torch.from_numpy(Y).cuda()))
+                host = float(signed_like_card(name, torch.from_numpy(X), torch.from_numpy(Y)) if name in ("r2", "r4")
+                             else fn(torch.from_numpy(X), torch.from_numpy(Y)))
+                by_metric = diffs["full_rank" if held else label]
+                by_metric[name] = max(by_metric.get(name, 0.0), abs(card - host))
+                if held and not (math.isfinite(card) and abs(card - host) <= 1e-3):
+                    failed.append(f"{name} on the {label} pair: card {card}, CPU {host}")
+    if failed:
+        raise AssertionError(f"av_correlation card vs CPU: {failed}")
+    return diffs
+
+
+def run_av_correlation(wav: str, tmp: str):
+    """The video descriptors of the ss_e2e clip as read back (72 frames at
+    1024^2) on the card, against the wav's self-supervised audio features
+    (hop 1024), and every metric of the battery: seconds, every metric
+    finite. Then the clip's first AV_REFERENCE_FRAMES frames on the card and
+    on the CPU, f32 with TF32 off, metric by metric within 1e-3 (the CPU
+    tests' bar) but where the CPU's own value moves by more than that at
+    f32 roundoff (moves_at_roundoff; reported): 12 frames resampled to 64
+    rows against a few hundred columns leave the metrics that whiten or
+    invert a covariance ill-posed. Every metric is then held card against
+    CPU on the CPU tests' pairs of full rank (metrics_card_vs_cpu)."""
+    import numpy as np
+    import torch
+
+    from maua_tpu_torch.audio.io import load_audio
+    from maua_tpu_torch.audiovisual.selfsupervised.mir import retrieve_music_information
+    from maua_tpu_torch.ops.video import read_video
+
+    clip = os.path.join(tmp, "ss.mp4")
+    if not os.path.exists(clip):
+        run_ss_e2e(wav, tmp)
+    frames, _ = read_video(clip)
+    audio, sr, _ = load_audio(wav)
+    feats, _, _ = retrieve_music_information(torch.from_numpy(audio).cuda(), sr)
+    X = torch.cat(list(feats.values()), dim=1)
+    metrics, video, seconds = video_audio_correlation(frames, X, "cuda")
+    if not all(np.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"av_correlation: non-finite metrics {metrics}")
+    with tf32_off():
+        card, _, card_seconds = video_audio_correlation(frames[:AV_REFERENCE_FRAMES], X, "cuda")
+    host, host_video, cpu_seconds = video_audio_correlation(frames[:AV_REFERENCE_FRAMES], X.cpu(), "cpu")
+    diffs = {k: abs(card[k] - host[k]) for k in host}
+    over = {k: d for k, d in diffs.items() if d > 1e-3}
+    at_roundoff = {k: moves_at_roundoff(k, X.cpu(), host_video, host[k]) for k in over}
+    if set(card) != set(host) or not all(at_roundoff.values()):
+        raise AssertionError(f"av_correlation card vs CPU: {diffs}, moving at f32 roundoff: {at_roundoff}")
+    pairs = metrics_card_vs_cpu()
+    return {"frames": list(frames.shape), "audio_features": list(X.shape), "video_features": int(video.shape[1]),
+            "seconds": seconds, "metrics": metrics, "pairs_card_vs_cpu_by_metric": pairs,
+            "card_vs_cpu_by_metric": diffs,
+            "card_vs_cpu_max_abs_of_the_rest": max(d for k, d in diffs.items() if k not in over),
+            "over_1e-3_and_moving_at_roundoff": sorted(over), "reference_frames": AV_REFERENCE_FRAMES,
+            "reference_card_seconds": card_seconds, "reference_cpu_seconds": cpu_seconds}
+
 def main() -> int:
     try:
         import torch
@@ -2788,13 +3427,17 @@ def main() -> int:
     if sys.argv[1:2] == ["--ar-features-child"] and len(sys.argv) == 3:
         print(json.dumps(ar_features_child(sys.argv[2])))
         return 0
+    if sys.argv[1:2] == ["--ss-mir-child"] and len(sys.argv) == 3:
+        print(json.dumps(ss_mir_child(sys.argv[2])))
+        return 0
     if sys.argv[1:2] == ["--phases"] and len(sys.argv) == 3:
         phases = set(sys.argv[2].split(","))
     elif sys.argv[1:]:
         print("usage: chip_smoke.py [--phases kernel,flrelu,attn,mel,kconv,e2e,sg3_e2e,ar_e2e,ar_features,"
               "ar_reference,gan_load,sd_load,writer,super_load,super_video,umx,noise_patch,gan_generate,fast,"
               "profile,sg3_profile,reference,sg3_reference,sd_e2e,sd_steps,sd_profile,sd_reference,super,"
-              "super_reference,sd_multires,sg3_resize,realtime,delivery]",
+              "super_reference,sd_multires,sg3_resize,realtime,ss_mir,ss_e2e,ss_reference,interactive,"
+              "av_correlation,delivery]",
               file=sys.stderr)
         return 2
 
@@ -2831,7 +3474,10 @@ def main() -> int:
                          ("sd_load", lambda: run_sd_load(tmp)), ("writer", lambda: run_writer(repo, tmp)),
                          ("super_load", lambda: run_super_load(tmp)), ("super_video", lambda: run_super_video(tmp)),
                          ("umx", lambda: run_umx(song)), ("noise_patch", lambda: run_noise_patch(wav, repo)),
-                         ("gan_generate", lambda: run_gan_generate(tmp))):
+                         ("gan_generate", lambda: run_gan_generate(tmp)), ("ss_mir", lambda: run_ss_mir(song)),
+                         ("ss_e2e", lambda: run_ss_e2e(wav, tmp)), ("ss_reference", lambda: run_ss_reference(wav)),
+                         ("interactive", lambda: run_interactive(tmp)),
+                         ("av_correlation", lambda: run_av_correlation(wav, tmp))):
             if want(name):
                 results[name] = phase(name, fn)
                 torch.cuda.empty_cache()
@@ -2850,6 +3496,7 @@ def main() -> int:
     mel_launches, mel_cases = results["ar_e2e"]["spectrogram_launches"], results["ar_e2e"]["mel_cases"]
     mel_main = mel["cases"][max(mel_cases, key=lambda c: mel_cases[c] * mel["cases"][c]["bound_ms"])]
     song_cases = results["ar_features"]["warm"]["mel_cases"]
+    ss_cases = results["ss_mir"]["song"]["warm"]["mel_cases"]
     record = {"kernels": [{
         "name": "modconv_epilogue",
         "route": "cuda",
@@ -2859,6 +3506,11 @@ def main() -> int:
         "s2d_launches": results["e2e"]["s2d_launches"],
         "loaded_launches": results["gan_load"]["sg2_ada.pkl"]["launches"],
         "noise_patch_launches": results["noise_patch"]["launches"],
+        "selfsupervised_launches": results["ss_e2e"]["launches"],
+        "selfsupervised_s2d_launches": results["ss_e2e"]["s2d_launches"],
+        "interactive_launches": results["interactive"]["launches"],
+        **{f"{k}_max_abs_err": results[p]["epilogue_max_abs_err"]
+           for k, p in (("selfsupervised", "ss_e2e"), ("interactive", "interactive"))},
         "max_abs_err": kernel["max_abs_err"],
         "ms": kernel["s2d_frame_batch_ms"],
         "plain_ms": kernel["s2d_frame_batch_plain_ms"],
@@ -2872,7 +3524,11 @@ def main() -> int:
                  f"noise groups; s2d_launches counts them in e2e); plain_route_*: the same batch with every block "
                  f"plain; plain_route_launches: the e2e clip rendered to 1920 x 1080, which the output resize "
                  f"keeps on the plain route; loaded_launches: the e2e clip rendered from an ADA .pkl (gan_load); "
-                 f"noise_patch_launches: the noise-parameterization clip",
+                 f"noise_patch_launches: the noise-parameterization clip; selfsupervised_launches: the "
+                 f"self-supervised clip (ss_e2e, s2d route; selfsupervised_s2d_launches on cells); "
+                 f"interactive_launches: the interactive 8 s render to 512^2 (plain route); "
+                 f"selfsupervised_max_abs_err, interactive_max_abs_err: the kernel against its plain version at "
+                 f"every case those two renders launched",
     }, {
         "name": "filtered_lrelu",
         "route": "cuda",
@@ -2923,10 +3579,16 @@ def main() -> int:
         "song_launches": results["ar_features"]["warm"]["mel_launches"],
         **{f"song_{k}": sum(n * mel["cases"][c][k] for c, n in song_cases.items())
            for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        "ss_mir_launches": results["ss_mir"]["song"]["warm"]["mel_launches"],
+        **{f"ss_mir_{k}": sum(n * mel["cases"][c][k] for c, n in ss_cases.items())
+           for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        "ss_e2e_launches": results["ss_e2e"]["mel_launches"],
         "scope": f"the {mel_launches} launches of one {SECONDS:g} s mel-patch video, each priced at its mel case "
                  f"({', '.join(f'{n} x {c}' for c, n in mel_cases.items())}); song_*: the launches of the feature "
                  f"stage over a {SONG_SECONDS:g} s song (ar_features), priced alike "
-                 f"({', '.join(f'{n} x {c}' for c, n in song_cases.items())}); library: torch.stft and the mel matmul",
+                 f"({', '.join(f'{n} x {c}' for c, n in song_cases.items())}); ss_mir_*: the launches of one "
+                 f"self-supervised MIR call over the song ({', '.join(f'{n} x {c}' for c, n in ss_cases.items())}); "
+                 f"ss_e2e_launches: those of the self-supervised clip's MIR; library: torch.stft and the mel matmul",
     }, {
         "name": "kconv3x3",
         "route": "cuda",

@@ -1,11 +1,14 @@
 """`python -m maua_tpu_torch <command> <subcommand> [options]`: audiovisual
-generate, diffusion image, gan generate, super image, super video."""
+generate, audiovisual interactive, audiovisual selfsupervised, diffusion
+image, gan generate, super image, super video."""
 
 import importlib
 import sys
 
 COMMANDS = {
     ("audiovisual", "generate"): "maua_tpu_torch.audiovisual.generate",
+    ("audiovisual", "interactive"): "maua_tpu_torch.audiovisual.interactive",
+    ("audiovisual", "selfsupervised"): "maua_tpu_torch.audiovisual.selfsupervised.sample",
     ("diffusion", "image"): "maua_tpu_torch.diffusion.image",
     ("gan", "generate"): "maua_tpu_torch.gan.cli",
     ("super", "image"): "maua_tpu_torch.super.image",

@@ -57,23 +57,33 @@ def timelag_median_filter(R: torch.Tensor, size: int = 7) -> torch.Tensor:
     return median_filter_axis(L, size, dim=0)[rows, (cols - rows) % t]
 
 
+def kmeans_init(n: int, k: int) -> torch.Tensor:
+    """The k rows of n that kmeans starts from by default: drawn by a CPU
+    generator seeded with 0."""
+    return torch.randperm(n, generator=torch.Generator().manual_seed(0))[:k]
+
+
+def kmeans_distances(X: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
+    """Squared distances (n, k) of the rows of X to the centres."""
+    return (X[:, None, :] - centers[None]).square().sum(dim=-1)
+
+
+def kmeans_centers(X: torch.Tensor, labels: torch.Tensor, k: int) -> torch.Tensor:
+    """Lloyd's update: the mean of each label's rows (an empty label's centre is 0)."""
+    onehot = F.one_hot(labels, k).to(X.dtype)
+    return (onehot.t() @ X) / onehot.sum(dim=0).clamp_min(1.0)[:, None]
+
+
 def kmeans(X: torch.Tensor, k: int, n_iter: int = 50,
            init_idx: Optional[Sequence[int]] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Lloyd's k-means, hard assignment: (n, d) -> (labels (n,), centres (k, d)).
-    The first centres are the rows `init_idx`, or k distinct rows drawn by a
-    CPU generator seeded with 0."""
-    n = X.shape[0]
+    The first centres are the rows `init_idx`, or those of `kmeans_init`."""
     if init_idx is None:
-        init_idx = torch.randperm(n, generator=torch.Generator().manual_seed(0))[:k]
+        init_idx = kmeans_init(X.shape[0], k)
     centers = X[torch.tensor(np.asarray(init_idx), dtype=torch.long, device=X.device)]
-
-    def assign(c):
-        return (X[:, None, :] - c[None]).square().sum(dim=-1).argmin(dim=1)
-
     for _ in range(n_iter):
-        onehot = F.one_hot(assign(centers), k).to(X.dtype)
-        centers = (onehot.t() @ X) / onehot.sum(dim=0).clamp_min(1.0)[:, None]
-    return assign(centers), centers
+        centers = kmeans_centers(X, kmeans_distances(X, centers).argmin(dim=1), k)
+    return kmeans_distances(X, centers).argmin(dim=1), centers
 
 
 def sync_median(X: torch.Tensor, boundaries: np.ndarray, n_out: int) -> torch.Tensor:

@@ -1,14 +1,16 @@
 """Time-axis signal ops for audio-reactive envelopes (time is axis 0).
 
 Port of `maua_tpu/ops/signal.py`: linear resampling, min-max
-normalization, peak-percentile clipping, compression and causal or
-circular gaussian smoothing, on tensors of any device.
+normalization, peak-percentile clipping, compression, causal or
+circular gaussian smoothing and peak emphasis, on tensors of any device.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from .warp import _reflect_index
 
 
 def resample_1d(x: torch.Tensor, size: int) -> torch.Tensor:
@@ -58,8 +60,12 @@ def compress(signal: torch.Tensor, threshold: float, ratio: float, invert: bool 
 
 
 def _pad_time(x: torch.Tensor, radius: int, mode: str) -> torch.Tensor:
-    """Pad the last axis of (1, C, T)."""
-    if mode not in ("circular", "replicate", "reflect"):
+    """Pad the last axis of (1, C, T). "reflect" follows numpy's rule, which
+    holds for a pad of any size (F.pad's needs radius < T)."""
+    if mode == "reflect":
+        t = x.shape[-1]
+        return x[..., _reflect_index(torch.arange(-radius, t + radius, device=x.device), t)]
+    if mode not in ("circular", "replicate"):
         raise ValueError(f"unknown pad mode {mode}")
     return F.pad(x, (radius, radius), mode=mode)
 
@@ -91,3 +97,11 @@ def gaussian_filter(x: torch.Tensor, sigma: float, causal=None, mode: str = "cir
     c = flat.shape[1]
     out = F.conv1d(padded, kernel.view(1, 1, -1).repeat(c, 1, 1), groups=c)
     return out[0].t().reshape(shape)
+
+
+def emphasize(x: torch.Tensor, strength: float, percentile_p: float = 75.0) -> torch.Tensor:
+    """Accentuate peaks: x + strength * (x - baseline) above the
+    `percentile_p` percentile of all of x (linear interpolation, as
+    jnp.percentile), then normalize."""
+    base = torch.quantile(x.float().flatten(), percentile_p / 100.0)
+    return normalize(x + strength * (x - base).clamp_min(0.0))

@@ -1,9 +1,11 @@
-"""Device selection, prompt parsing and the model directory shared by the
-port's entry points."""
+"""Device selection, stage timing, prompt parsing and the model directory
+shared by the port's entry points."""
 
 from __future__ import annotations
 
 import os
+import time
+from typing import Dict, Optional
 
 import torch
 
@@ -19,6 +21,55 @@ def resolve_device(device=None) -> torch.device:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass device='cpu' to run on the CPU")
     return device
+
+
+class StageClock:
+    """Seconds of named stages, each ended by a device synchronization, and
+    the per-batch parts of a render: host seconds of each part and, on a
+    card, `{part}_interval_ms`, the ms between the CUDA event recorded
+    where the part ends and the one before it (read at the end, so the
+    batches are not synchronized). An interval is the device's progress
+    between two host marks, not the part's device time: where the host
+    is the slower side, it follows the host's pace."""
+
+    def __init__(self, device: torch.device, times: Optional[Dict[str, float]]):
+        self.device, self.times = device, times
+        self.events = []
+
+    def sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def stage(self, name: str, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        self.sync()
+        if self.times is not None:
+            self.times[name] = time.perf_counter() - t0
+        return out
+
+    def mark(self, part: Optional[str] = None, since: Optional[float] = None) -> float:
+        """Record an event and, with `part`, add the host seconds since
+        `since` to it; returns the host clock."""
+        now = time.perf_counter()
+        if self.times is not None:
+            if part is not None:
+                self.times[part] = self.times.get(part, 0.0) + now - since
+            if self.device.type == "cuda":
+                event = torch.cuda.Event(enable_timing=True)
+                event.record()
+                self.events.append((part, event))
+        return now
+
+    def finish(self):
+        """Add each part's interval ms (between an event and the one before it)."""
+        if self.times is None or not self.events:
+            return
+        self.sync()
+        for (_, start), (part, end) in zip(self.events, self.events[1:]):
+            if part is not None:
+                key = f"{part}_interval_ms"
+                self.times[key] = self.times.get(key, 0.0) + start.elapsed_time(end)
 
 
 def to_device(tree, device):

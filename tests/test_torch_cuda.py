@@ -30,7 +30,10 @@ in other orders), 1e-5 for the resample (one weighted sum per axis) and
 other orders on the two devices (cuDNN, oneDNN; TF32 off): 1e-4 absolute
 on images of magnitude ~1; the separator's LSTM and FFTs likewise, 1e-4
 on stems of peak ~0.8; the realtime walk's uint8 frames within one level
-of the CPU's on the same draws.
+of the CPU's on the same draws. A self-supervised patch's latents and
+noise windows on the card against the CPU on the same draws: 1e-4
+absolute (a Loop window's phase magnifies the card's and the CPU's
+cos roundings up to 50-fold).
 """
 
 import pytest
@@ -293,6 +296,8 @@ def _signal(shape, gen, device):
 @pytest.mark.parametrize("shape,n_fft,hop,n_mels,power", [
     ((66150,), 2048, 512, 128, 2.0),  # 3 s at the onset-strength / mfcc shape
     ((66150,), 2048, 1024, 512, 2.0),  # 3 s at the spectral_max shape
+    ((66150,), 2048, 1024, 128, 2.0),  # 3 s at the self-supervised MIR's shape (onsets, mfcc, tempo)
+    ((3969000,), 2048, 1024, 128, 2.0),  # 180 s at that shape
     ((4, 22050), 2048, 512, 128, 1.0),  # a batch of 4, power 1
     ((2, 3, 5000), 1024, 256, 64, 2.0),  # two leading axes, another FFT size
     ((1025,), 2048, 512, 128, 2.0),  # shorter than n_fft: reflected more than once
@@ -689,3 +694,40 @@ def test_realtime_walk_on_the_card_replays(cuda_device, no_tf32):
         frames[device.type] = [module.frame() for _ in range(4)]
     for card, host in zip(frames["cuda"], frames["cpu"]):
         assert card.shape == (32, 32, 3) and abs(card.astype(int) - host).max() <= 1
+
+
+@pytest.mark.cuda
+def test_selfsupervised_patch_on_the_card_matches_the_cpu(cuda_device, no_tf32, monkeypatch):
+    """One Patch realization (latents, every window of a 1024^2 net's 17
+    noise layers) on the card and on the CPU, the draws made on the CPU."""
+    import numpy as np
+
+    from maua_tpu_torch.audiovisual.selfsupervised import features as F
+    from maua_tpu_torch.audiovisual.selfsupervised import patch as P
+
+    class HostDraws(P.Draws):
+        def __init__(self, seed, device):
+            super().__init__(seed, "cpu")
+            self.target = device
+
+        def permutation(self, path, n):
+            return super().permutation(path, n).to(self.target)
+
+        def normal(self, path, shape):
+            return super().normal(path, shape).to(self.target)
+
+    monkeypatch.setattr(P.Patch, "draws", lambda self, device: HostDraws(self.seed, device))
+    gen = torch.Generator().manual_seed(0)
+    t = 24
+    dims = {"chromagram": 12, "tonnetz": 6, "mfcc": 20, "spectral_contrast": 7}
+    feats = {k: torch.rand(t, dims.get(k, 1), generator=gen) for k in F.ALLFEATS}
+    segs = {(k, n): np.arange(t) * n // t for k in F.ALLFEATS for n in (2, 4)}
+    palette = torch.randn(16, 18, 64, generator=gen)
+    out = {}
+    for device in (cuda_device, torch.device("cpu")):
+        patch = P.Patch({k: v.to(device) for k, v in feats.items()}, segs, 128.0, seed=11)
+        lat, noise = patch(palette.to(device), noise_sizes=P.NOISE_SIZES[:13])  # up to 256^2
+        out[device.type] = [lat] + [m(i, 8) for m in noise for i in (0, 16)]
+    assert out["cuda"][0].is_cuda and len(out["cuda"]) == 1 + 2 * 13
+    for card, host in zip(out["cuda"], out["cpu"]):
+        assert float((card.cpu() - host).abs().max()) <= 1e-4
