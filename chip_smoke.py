@@ -144,6 +144,20 @@ Phases, each printed as one JSON line with its elapsed seconds:
 37. av_correlation: the video descriptors of the ss_e2e clip as read back
    against the wav's audio features, every metric of the battery; its
    first 12 frames on the card and on the CPU, metric by metric.
+38. sd_guided (after av_correlation): image_sample at 512^2 with CLIP (16
+   cutouts, ViT-B/32 from seed 0) and colour-match guidance, cfg 5, 10 LMS
+   steps (cut from 50), f32: stage seconds, seconds per guided step, peak
+   memory, 111 attention launches (10 UNet + 1 guidance decode a step, the
+   final decode), 110 of them under autograd, each such case's dq, dk, dv
+   against the plain version's; one guided evaluation at 256^2 card vs CPU
+   (output and gradient PSNR).
+39. sd_paths: the image-conditioned SD at 512^2 (5 steps), GuidedDiffusion
+   at 256^2 with CLIP guidance on the "fast" route (5 DDIM steps, 3 PLMS
+   steps), LatentDiffusion PLMS at 512^2 (4 steps) with CLIP guidance
+   through the decoder: seconds and attention launches of each (5 under
+   autograd, the latent path's guidance decodes); every case the kernel
+   met there held against the plain version, forward and (under
+   autograd) dq, dk, dv.
 Phases that upscale fail if an out-of-memory ladder took a rung past its
 first.
 
@@ -2440,6 +2454,324 @@ def run_sd_multires():
             "attention_max_abs_err": max(r["max_abs_err"] for r in attention_cases), **tf32}
 
 
+SD_GUIDED_STEPS = 10  # LMS steps of the sd_guided image (cut from the entry point's 50)
+SD_GUIDED_CUTOUTS = 16
+GRAD_BAR = 1e-4  # dq, dk, dv through the Function against autograd of the plain version: of their largest magnitude
+
+
+def write_style_image(path: str, size: int = 512, seed: int = 3) -> None:
+    """A colourful style image (two gradients and noise, from a seed) as a PNG."""
+    import numpy as np
+    from PIL import Image
+
+    rs = np.random.RandomState(seed)
+    y, x = np.mgrid[0:size, 0:size] / size
+    img = np.stack([x, y, 1 - x * y], -1) * 0.8 + rs.rand(size, size, 3) * 0.2
+    Image.fromarray((img * 255).astype(np.uint8)).save(path)
+
+
+@contextlib.contextmanager
+def autograd_attention_cases():
+    """Counts the kernel route's calls whose output autograd will differentiate through `FlashAttention`
+    (its grad_fn is FlashAttention's backward), by case: the dtype, the scale, and the size, strides and
+    storage offset of q, k and v (the module's `flash_attention`, which the dispatcher calls)."""
+    import collections
+
+    from maua_tpu_torch.kernels import attention as A
+
+    cases = collections.Counter()
+    real = A.flash_attention
+
+    def recording(q, k, v, scale=None):
+        out = real(q, k, v, scale)
+        if type(out.grad_fn).__name__ == "FlashAttentionBackward":
+            cases[(str(q.dtype).removeprefix("torch."), scale,
+                   *((tuple(t.shape), t.stride(), t.storage_offset()) for t in (q, k, v)))] += 1
+        return out
+
+    A.flash_attention = recording
+    try:
+        yield cases
+    finally:
+        A.flash_attention = real
+
+
+def check_attention_gradients(cases, what: str):
+    """At every case the kernel route met under autograd: random card tensors laid out as that case's q, k
+    and v and a random output gradient; dq, dk, dv through `FlashAttention` (the kernel forward, the
+    recomputed backward) against autograd of the plain version on the card, f32 with TF32 off, each within
+    GRAD_BAR of its largest magnitude; the output against the plain version with `attention_tolerance`.
+    Then the backward's time (`bwd_ms`: the recompute of P and four matmuls, cuda_time_ms), its bound
+    (the larger of 7 B H N D f32 words over 3.35 TB/s and 10 B H Nq Nk D f32 operations over 67 TFLOP/s)
+    and the backward of scaled_dot_product_attention on the same tensors (`sdpa_bwd_ms`). The comparison
+    launches do not count."""
+    import torch
+    import torch.nn.functional as F
+
+    from maua_tpu_torch.kernels import attention as A
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    rows = []
+    with tf32_off():
+        for (dtype, scale, *layouts), n in sorted(cases.items(), key=lambda c: -c[1]):
+            dt = getattr(torch, dtype)
+            q, k, v = (torch.randn(off + sum((m - 1) * st for m, st in zip(size, stride)) + 1, generator=gen,
+                                   device="cuda").to(dt).as_strided(size, stride, off).requires_grad_(True)
+                       for size, stride, off in layouts)
+            out = A.FlashAttention.apply(q, k, v, scale)
+            do = torch.randn(out.shape, generator=gen, device="cuda").to(dt)
+            got = torch.autograd.grad(out, (q, k, v), do, retain_graph=True)
+            ref = A.flash_attention_plain(q, k, v, scale)
+            want = torch.autograd.grad(ref, (q, k, v), do)
+            errs = [float((g.float() - w.float()).abs().max() / w.float().abs().max()) for g, w in zip(got, want)]
+            row = {"q": list(q.shape), "kv": list(k.shape), "strides": [list(t.stride()) for t in (q, k, v)],
+                   "dtype": dtype, "launches_under_autograd": n,
+                   "max_abs_err": float((out.detach().float() - ref.detach().float()).abs().max()),
+                   "grad_rel_err": dict(zip(("dq", "dk", "dv"), errs))}
+            if (out.grad_fn is None or not bool(((out - ref).detach().abs() <= attention_tolerance(ref.detach(), dt)).all())
+                    or max(errs) > GRAD_BAR):
+                raise AssertionError(f"{what}: the kernel route's output or gradient disagrees at {row}")
+            b, h, nq, d = q.shape
+            nk = k.shape[2]
+            sdpa = F.scaled_dot_product_attention(q, k, v, scale=scale)
+            row.update(
+                bwd_ms=cuda_time_ms(lambda: torch.autograd.grad(out, (q, k, v), do, retain_graph=True), iters=5),
+                sdpa_bwd_ms=cuda_time_ms(lambda: torch.autograd.grad(sdpa, (q, k, v), do, retain_graph=True),
+                                         iters=5),
+                bwd_bound_ms=max(7 * b * h * nq * d * 4 / HBM_BYTES_PER_S, 10 * b * h * nq * nk * d / F32_FLOPS) * 1e3)
+            rows.append(row)
+            del q, k, v, out, do, got, ref, want, sdpa
+            torch.cuda.empty_cache()
+    A.reset_launches()
+    return rows
+
+
+def guided_card_vs_cpu(style: str):
+    """One guided denoiser evaluation (the CFG UNet, the decode, CLIP and colour guidance, the pull-back
+    through decoder and UNet) at 256^2 on the card and on the CPU, f32 with TF32 off: the same random
+    full-width SD 1.x and CLIP (seed 0, copied), x, sigma, text, style and cutout draws. PSNR of the
+    guided output (peak: its range on the CPU) and of the gradient (peak: the CPU gradient's range)."""
+    import numpy as np
+    import torch
+
+    from maua_tpu_torch.diffusion.processors.stable import StableDiffusion
+    from maua_tpu_torch.diffusion.wrappers import cfg_denoiser, guided_denoiser
+    from maua_tpu_torch.grad import CLIPGrads, ColorMatchGrads
+    from maua_tpu_torch.kernels import attention as A
+    from maua_tpu_torch.ops.cutouts import cutout_draws
+    from maua_tpu_torch.perceptors.clip import CLIPPerceptor
+    from maua_tpu_torch.prompt import StylePrompt, TextPrompt
+    from maua_tpu_torch.utility import to_device
+
+    kw = dict(sampler="lms", timesteps=SD_GUIDED_STEPS, cfg_scale=5.0, image_size=256)
+    card = StableDiffusion(grad_modules=[CLIPGrads(scale=2000.0, n_cutouts=SD_GUIDED_CUTOUTS, device="cuda"),
+                                         ColorMatchGrads(scale=500.0, device="cuda")], device="cuda", seed=0, **kw)
+    clip_card = card.grad_modules[0].perceptor
+    clip_host = CLIPPerceptor(vision_params=to_device(clip_card.vision_params, "cpu"),
+                              text_params=to_device(clip_card.text_params, "cpu"), text_proj=clip_card.text_proj.cpu(),
+                              device="cpu")
+    host_grads = [CLIPGrads(perceptor=clip_host, scale=2000.0, n_cutouts=SD_GUIDED_CUTOUTS), ColorMatchGrads(scale=500.0)]
+    host = StableDiffusion(grad_modules=host_grads, unet_params=to_device(card.unet_params, "cpu"),
+                           vae_params=to_device(card.vae_params, "cpu"), text_params=to_device(card.text_params, "cpu"),
+                           device="cpu", **kw)
+    prompts = [TextPrompt(SD_PROMPT), StylePrompt(path=style, size=(256, 256))]
+    draws = [tuple(d.cpu().numpy() for d in cutout_draws(torch.Generator().manual_seed(5), 256, 256, 224,
+                                                          SD_GUIDED_CUTOUTS))]
+    x = np.random.RandomState(1).randn(1, 4, 32, 32).astype(np.float32) * 8.0
+    results = {}
+    with tf32_off():
+        for name, proc in (("card", card), ("cpu", host)):
+            grads = []
+
+            def cond_fn(*a, _proc=proc):
+                g = _proc.cond_fn(*a)
+                grads.append(g)
+                return g
+
+            for gm in proc.grad_modules:
+                gm.set_targets(prompts)
+            proc.grad_modules[0].draws = list(draws)
+            cond, uncond = proc.conditioning(prompts)
+            model = guided_denoiser(cfg_denoiser(proc.denoiser, cond, uncond, proc.cfg_scale), cond_fn)
+            A.reset_launches()
+            t0 = time.perf_counter()
+            out = model(torch.from_numpy(x).to(proc.device), torch.full((1,), 8.0, device=proc.device))
+            if proc.device.type == "cuda":
+                torch.cuda.synchronize()
+            results[name] = {"out": out.cpu().numpy(), "grad": grads[0].cpu().numpy(), "seconds":
+                             time.perf_counter() - t0, "launches": A.launches}
+    a, b = results["card"], results["cpu"]
+    psnr_out = psnr_db(a["out"], b["out"], float(b["out"].max() - b["out"].min()))
+    psnr_grad = psnr_db(a["grad"], b["grad"], float(b["grad"].max() - b["grad"].min()))
+    if a["launches"] != 5 + 1 or b["launches"] != 0:  # at 32^2 latents only the UNet's level 1 takes the kernel
+        raise AssertionError(f"guided evaluation: {a['launches']} card and {b['launches']} cpu launches, want 6, 0")
+    if not (psnr_out >= 40.0 and psnr_grad >= 40.0):
+        raise AssertionError(f"guided evaluation card vs CPU: output {psnr_out:.2f} dB, gradient {psnr_grad:.2f} dB")
+    return {"resolution": 256, "psnr_db": psnr_out, "grad_psnr_db": psnr_grad,
+            "max_abs_diff": float(np.abs(a["out"] - b["out"]).max()),
+            "grad_max_abs_diff": float(np.abs(a["grad"] - b["grad"]).max()),
+            "grad_abs_max": float(np.abs(b["grad"]).max()), "card_seconds": a["seconds"], "cpu_seconds": b["seconds"],
+            "launches": a["launches"]}
+
+
+def profile_guided_step(model, style: str):
+    """One guided evaluation of sd_guided's model at 512^2 (x drawn from seed 2, sigma 8) under
+    torch.profiler (profile_batch): device time by kernel, the attention kernel's share, idle share."""
+    import torch
+
+    from maua_tpu_torch.diffusion.wrappers import cfg_denoiser, guided_denoiser
+    from maua_tpu_torch.prompt import StylePrompt, TextPrompt
+
+    prompts = [TextPrompt(SD_PROMPT), StylePrompt(path=style, size=(512, 512))]
+    for gm in model.grad_modules:
+        gm.set_targets(prompts)
+    cond, uncond = model.conditioning(prompts)
+    fn = guided_denoiser(cfg_denoiser(model.denoiser, cond, uncond, model.cfg_scale), model.cond_fn)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn(1, 4, 64, 64, generator=gen, device="cuda") * 8.0
+    sigma = torch.full((1,), 8.0, device="cuda")
+    return profile_batch(lambda: fn(x, sigma), "flash_attention")
+
+
+def run_sd_guided(tmp: str):
+    """Guided text to image through the entry point: image_sample at 512^2 with CLIP (16 cutouts) and colour
+    match guidance towards a style image, cfg 5, LMS, SD_GUIDED_STEPS steps (cut from 50), a random-init
+    full-width SD 1.x (seed 0), f32, twice: the first image warm-up (cold_seconds), the second measured. The
+    attention kernel's launches are reset just before the second and read just after: per guided step the CFG UNet's 10 and the guidance decode's 1, and the final decode's 1. Every
+    case the kernel route met under autograd is held (dq, dk, dv) against the plain version; then one
+    guided evaluation at 256^2, card vs CPU."""
+    import torch
+
+    from maua_tpu_torch.diffusion.image import get_diffusion_model, image_sample
+    from maua_tpu_torch.kernels import attention as A
+
+    tf32 = _default_tf32()
+    style = os.path.join(tmp, "style.png")
+    write_style_image(style)
+    model = get_diffusion_model("stable", timesteps=SD_GUIDED_STEPS, sampler="lms", cfg_scale=5.0,
+                                clip_scale=2000.0, color_match_scale=500.0, device="cuda", seed=0)
+    # a first image, not counted: its first guided evaluation loads the backward's kernels (cold_seconds)
+    t0 = time.perf_counter()
+    image_sample(text=SD_PROMPT, style=style, sizes=((512, 512),), diffusion=model, seed=0, verbose=False)
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    stages = {}
+    torch.cuda.reset_peak_memory_stats()
+    with autograd_attention_cases() as grad_cases, attention_cases_recorded() as cases:
+        A.reset_launches()
+        t0 = time.perf_counter()
+        img = image_sample(text=SD_PROMPT, style=style, sizes=((512, 512),), diffusion=model, seed=0,
+                           stage_times=stages, verbose=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = A.launches
+    if tuple(img.shape) != (1, 512, 512, 3) or not bool(torch.isfinite(img).all()) or float(img.std()) < 1e-3:
+        raise AssertionError(f"sd_guided: image {tuple(img.shape)}, want finite, non-constant (1, 512, 512, 3)")
+    want = 11 * SD_GUIDED_STEPS + 1
+    if launches != want or sum(cases.values()) != launches or sum(grad_cases.values()) != launches - 1:
+        raise AssertionError(f"sd_guided: flash attention launched {launches} times ({sum(grad_cases.values())} "
+                             f"under autograd), want {want} ({want - 1})")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del img
+    torch.cuda.empty_cache()
+    profile = profile_guided_step(model, style)
+    del model
+    torch.cuda.empty_cache()
+    gradient_cases = check_attention_gradients(grad_cases, "sd_guided")
+    forward_cases = check_attention_cases(cases, "sd_guided")
+    return {"image": [1, 512, 512, 3], "steps": SD_GUIDED_STEPS, "reduced": "50 -> 10 LMS steps",
+            "launches": launches, "launches_per_step": (launches - 1) / SD_GUIDED_STEPS,
+            "launches_under_autograd": sum(grad_cases.values()), "stage_seconds": stages, "wall_seconds": wall,
+            "cold_seconds": cold,
+            "seconds_per_guided_step": stages["sampling"] / SD_GUIDED_STEPS, "peak_mem_gib": peak,
+            "gradient_cases": gradient_cases,
+            "grad_max_rel_err": max(max(r["grad_rel_err"].values()) for r in gradient_cases),
+            "attention_bwd_ms_per_step": sum(r["launches_under_autograd"] * r["bwd_ms"] for r in gradient_cases)
+            / SD_GUIDED_STEPS,
+            "sdpa_bwd_ms_per_step": sum(r["launches_under_autograd"] * r["sdpa_bwd_ms"] for r in gradient_cases)
+            / SD_GUIDED_STEPS, "profile": profile,
+            "attention_max_abs_err": max(r["max_abs_err"] for r in forward_cases),
+            "reference": guided_card_vs_cpu(style), **tf32}
+
+
+def timed_path(fn):
+    """fn() with the attention kernel's launches reset before and read after: (result, seconds, launches)."""
+    import torch
+
+    from maua_tpu_torch.kernels import attention as A
+
+    A.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, A.launches
+
+
+def check_image(img, shape, what: str):
+    import torch
+
+    if tuple(img.shape) != shape or not bool(torch.isfinite(img).all()) or float(img.std()) < 1e-3:
+        raise AssertionError(f"{what}: image {tuple(img.shape)}, want finite, non-constant {shape}")
+
+
+def run_sd_paths(tmp: str):
+    """The other diffusion paths at full width, random weights from seed 0, f32, a few steps each:
+    the image-conditioned SD 1.x at 512^2 (5 LMS steps; ViT-B/32 embeds the image prompt), GuidedDiffusion
+    at 256^2 (OpenAI's unconditional UNet, CLIP guidance through the secondary model, "fast") with 5 DDIM
+    steps and with 3 PLMS steps (4 model calls), and LatentDiffusion at 512^2 (4 PLMS steps, 5 model
+    calls) with CLIP guidance through the VAE decoder. Seconds and attention launches of each; the
+    latent path's 5 guidance decodes are the launches under autograd. Then every case the kernel met in
+    these runs is held against its plain version (forward), and each case under autograd (dq, dk, dv)."""
+    import torch
+
+    from maua_tpu_torch.diffusion.image import get_diffusion_model, image_sample
+    from maua_tpu_torch.diffusion.processors.latent import LatentDiffusion
+    from maua_tpu_torch.grad import CLIPGrads
+
+    tf32 = _default_tf32()
+    prompt = os.path.join(tmp, "prompt.png")
+    write_style_image(prompt, 224, seed=4)
+    out = {}
+    with autograd_attention_cases() as grad_cases, attention_cases_recorded() as cases:
+        model = get_diffusion_model("stable", timesteps=5, sampler="lms", image=prompt, device="cuda", seed=0)
+        img, s, n = timed_path(lambda: image_sample(image=prompt, sizes=((512, 512),), diffusion=model, seed=0,
+                                                    verbose=False))
+        check_image(img, (1, 512, 512, 3), "image-conditioned SD")
+        out["image_cond_512"] = {"steps": 5, "seconds": s, "launches": n, "want": 51}
+        del model
+        for sampler, steps, calls in (("ddim", 5, 5), ("plms", 3, 4)):
+            model = get_diffusion_model("guided", timesteps=steps, sampler=sampler, clip_scale=1000.0,
+                                        guidance_speed="fast", device="cuda", seed=0)
+            img, s, n = timed_path(lambda: image_sample(text=SD_PROMPT, sizes=((256, 256),), diffusion=model,
+                                                        seed=0, verbose=False))
+            check_image(img, (1, 256, 256, 3), f"guided diffusion {sampler}")
+            out[f"guided_256_{sampler}"] = {"steps": steps, "model_calls": calls, "seconds": s, "launches": n,
+                                            "want": 10 * calls}
+            del model
+            torch.cuda.empty_cache()
+        ld = LatentDiffusion(grad_modules=[CLIPGrads(scale=1000.0, n_cutouts=SD_GUIDED_CUTOUTS, device="cuda")],
+                             sampler="plms", timesteps=4, image_size=512, device="cuda", seed=0)
+        img, s, n = timed_path(lambda: image_sample(text=SD_PROMPT, sizes=((512, 512),), diffusion=ld, seed=0,
+                                                    verbose=False))
+        check_image(img, (1, 512, 512, 3), "latent diffusion")
+        out["latent_512_plms_clip"] = {"steps": 4, "model_calls": 5, "seconds": s, "launches": n, "want": 11 * 5 + 1}
+        del ld, img
+    torch.cuda.empty_cache()
+    for name, r in out.items():
+        if r["launches"] != r.pop("want"):
+            raise AssertionError(f"sd_paths {name}: flash attention launched {r['launches']} times")
+    launches = sum(r["launches"] for r in out.values())
+    if sum(cases.values()) != launches or sum(grad_cases.values()) != 5:
+        raise AssertionError(f"sd_paths: {sum(cases.values())} kernel calls recorded for {launches} launches, "
+                             f"{sum(grad_cases.values())} under autograd, want 5 (the latent path's guidance decodes)")
+    gradient_cases = check_attention_gradients(grad_cases, "sd_paths")
+    forward_cases = check_attention_cases(cases, "sd_paths")
+    return {**out, "launches_under_autograd": sum(grad_cases.values()), "gradient_cases": gradient_cases,
+            "grad_max_rel_err": max(max(r["grad_rel_err"].values()) for r in gradient_cases),
+            "attention_cases": forward_cases,
+            "attention_max_abs_err": max(r["max_abs_err"] for r in forward_cases), **tf32}
+
+
 def run_writer(repo: str, tmp: str):
     """The FFMPEG renderer end to end through the normal entry point: 24
     frames (1 s of the synthetic mix at 24 fps) of the example patch at
@@ -3437,7 +3769,7 @@ def main() -> int:
               "ar_reference,gan_load,sd_load,writer,super_load,super_video,umx,noise_patch,gan_generate,fast,"
               "profile,sg3_profile,reference,sg3_reference,sd_e2e,sd_steps,sd_profile,sd_reference,super,"
               "super_reference,sd_multires,sg3_resize,realtime,ss_mir,ss_e2e,ss_reference,interactive,"
-              "av_correlation,delivery]",
+              "av_correlation,sd_guided,sd_paths,delivery]",
               file=sys.stderr)
         return 2
 
@@ -3477,7 +3809,8 @@ def main() -> int:
                          ("gan_generate", lambda: run_gan_generate(tmp)), ("ss_mir", lambda: run_ss_mir(song)),
                          ("ss_e2e", lambda: run_ss_e2e(wav, tmp)), ("ss_reference", lambda: run_ss_reference(wav)),
                          ("interactive", lambda: run_interactive(tmp)),
-                         ("av_correlation", lambda: run_av_correlation(wav, tmp))):
+                         ("av_correlation", lambda: run_av_correlation(wav, tmp)),
+                         ("sd_guided", lambda: run_sd_guided(tmp)), ("sd_paths", lambda: run_sd_paths(tmp))):
             if want(name):
                 results[name] = phase(name, fn)
                 torch.cuda.empty_cache()
@@ -3561,11 +3894,28 @@ def main() -> int:
         "library_ms": attn["image_f32"]["library_ms"],
         "bf16_max_abs_err": attn["max_abs_err_bf16"],
         **{f"bf16_{k}": attn["image_bf16"][k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        "guided_launches": results["sd_guided"]["launches"],
+        "guided_launches_per_step": results["sd_guided"]["launches_per_step"],
+        "guided_launches_under_autograd": results["sd_guided"]["launches_under_autograd"],
+        "autograd_cases": len(results["sd_guided"]["gradient_cases"]) + len(results["sd_paths"]["gradient_cases"]),
+        "autograd_grad_max_rel_err": max(r["grad_rel_err"][g] for p in ("sd_guided", "sd_paths")
+                                         for r in results[p]["gradient_cases"] for g in ("dq", "dk", "dv")),
+        "guided_max_abs_err": results["sd_guided"]["attention_max_abs_err"],
+        "paths_launches": {k: v["launches"] for k, v in results["sd_paths"].items()
+                           if isinstance(v, dict) and "launches" in v},
+        "paths_max_abs_err": results["sd_paths"]["attention_max_abs_err"],
         "scope": f"the {10 * SD_STEPS + 1} launches of one 512^2 {SD_STEPS}-step SD 1.x image in f32 (sd_e2e's "
                  f"path, CUDA cores); bf16_*: the same launches in bf16 (the sd_steps path, tensor cores); "
                  f"loaded_launches: one {SD_LOAD_STEPS}-step image from a CompVis checkpoint (sd_load); "
                  f"multires_launches: one 512^2 -> 1024^2 image in nine tiles, {MULTIRES_STEPS} LMS steps "
-                 f"(sd_multires), whose every case the kernel matches with multires_max_abs_err",
+                 f"(sd_multires), whose every case the kernel matches with multires_max_abs_err; guided_*: one "
+                 f"512^2 CLIP- and colour-guided image of {SD_GUIDED_STEPS} LMS steps (sd_guided), where the kernel "
+                 f"is also reached under autograd (the route's FlashAttention Function: the kernel forward, a "
+                 f"recomputed backward); autograd_cases: the cases met under autograd there and in sd_paths, each "
+                 f"held (dq, dk, dv) against autograd of the plain version within {GRAD_BAR:g} of their largest "
+                 f"magnitude (autograd_grad_max_rel_err); paths_launches: sd_paths' image-conditioned, guided-"
+                 f"diffusion and latent-diffusion runs, whose every case the kernel matches with "
+                 f"paths_max_abs_err (guided_max_abs_err: the same for sd_guided)",
     }, {
         "name": "melspectrogram",
         "route": "cuda",

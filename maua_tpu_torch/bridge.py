@@ -11,7 +11,8 @@ and StyleGAN3's `freqs` (C, 2), `phases`, `transform` (3, 3) and
 `magnitude_ema` (). StyleGAN3's `layers` is a list of layer dicts and
 stays a list. The diffusion trees convert by rank (see
 `diffusion_params_to_torch`), and so do the super-resolution and RIFE
-trees (see `super_params_to_torch`). Neither direction imports JAX.
+trees (see `super_params_to_torch`) and the guidance networks' (see
+`guidance_params_to_torch`). Neither direction imports JAX.
 """
 
 from __future__ import annotations
@@ -87,6 +88,24 @@ def diffusion_params_to_jax(torch_params: Dict) -> Dict:
         return np.array(a, order="C")
 
     return _walk(torch_params, conv)
+
+
+def guidance_params_to_torch(jax_params, device: Optional[torch.device | str] = None):
+    """A JAX guidance tree -> the port's: the CLIP image tower (`patch_embed`
+    HWIO -> OIHW, linear weights (in, out) -> (out, in); `proj`, the
+    embeddings and the norms unchanged), the VGG list and the LPIPS tree
+    (conv weights HWIO -> OIHW; the lin weights unchanged) and the secondary
+    model (conv weights HWIO -> OIHW; `timestep_embed` unchanged)."""
+
+    def conv(name, v):
+        a = np.asarray(v, dtype=np.float32)
+        if name == "w":
+            a = a.transpose(_DIFFUSION_TO_TORCH[a.ndim])
+        elif name == "patch_embed":
+            a = a.transpose(3, 2, 0, 1)
+        return torch.from_numpy(np.array(a, order="C")).to(device)
+
+    return _walk(jax_params, conv)
 
 
 def super_params_to_torch(jax_params: Dict, device: Optional[torch.device | str] = None) -> Dict:

@@ -9,12 +9,21 @@ lanczos-resampled to the next size; a size larger than the tile is split
 into overlapping tiles, denoised in batches of `max_batch` (halved if the
 card runs out of memory) and blended back. Random, perlin and file inits;
 histogram matching to the style image before and sharpening after each
-size. Images are NHWC in [-1, 1]. Not ported yet, and raising: the guided
-/ latent / GLIDE processors and gradient guidance.
+size. Gradient guidance by CLIP (the text), LPIPS (the init or --content
+image), VGG style and colour histograms (the --style image) through the
+processor's decoder and model. The processors: Stable Diffusion (text, or
+with --image its image-conditioned variant), guided diffusion (OpenAI's
+256^2 UNet with the secondary model) and latent diffusion. Images are
+NHWC in [-1, 1]. Not ported yet, and raising: the GLIDE and GLID3XL
+processors.
 
     python -m maua_tpu_torch diffusion image --text "a lighthouse" --sizes 512,512 --timesteps 50 --sampler lms
     python -m maua_tpu_torch diffusion image --text "a lighthouse" --sizes "512,512;1024,1024" --skips 0,0.5 \
         --super_res RealESRGAN-x4plus
+    python -m maua_tpu_torch diffusion image --text "a lighthouse" --style s.png --clip_scale 2000 \
+        --color_match_scale 500 --timesteps 10
+    python -m maua_tpu_torch diffusion image --text "a lighthouse" --diffusion guided --sampler ddim --sizes 256,256 \
+        --timesteps 25 --clip_scale 1000 --guidance_speed fast
 """
 
 from __future__ import annotations
@@ -28,12 +37,14 @@ from uuid import uuid4
 
 import torch
 
+from ..grad import CLIPGrads, ColorMatchGrads, LPIPSGrads, VGGGrads
 from ..oom import is_oom_error
 from ..ops.image import destitch, match_histogram, resample, restitch, sharpen
 from ..ops.io import load_image, save_image
 from ..ops.noise import create_perlin_noise
 from ..ops.warp import resize
 from ..prompt import ContentPrompt, ImagePrompt, StylePrompt, TextPrompt
+from ..utility import resolve_device
 from .processors.base import BaseDiffusionProcessor
 from .processors.stable import StableDiffusion
 
@@ -75,17 +86,48 @@ def get_diffusion_model(
     **model_kwargs,
 ) -> BaseDiffusionProcessor:
     """The processor for `diffusion`: an instance passes through; "stable"
-    builds Stable Diffusion (plms / ddim / p become lms, as in the reference)."""
+    builds Stable Diffusion (plms / ddim / p become lms, as in the reference;
+    with `image`, the image-conditioned variant), "guided" guided diffusion
+    (`guidance_speed` "fast" or "hyper"), "latent" latent diffusion (plms or
+    ddim). For "guided" and "stable", a scale above 0 adds its grad module,
+    with random perceptor weights on the processor's device. "latent" takes
+    no grad modules from the scales, as in the reference, so it refuses a
+    scale above 0 (pass `grad_modules` to LatentDiffusion instead)."""
     if isinstance(diffusion, BaseDiffusionProcessor):
         return diffusion
-    if max(clip_scale, lpips_scale, style_scale, color_match_scale) > 0:
-        raise NotImplementedError("gradient guidance (clip / lpips / style / color-match scales) is not ported yet")
-    if diffusion in ("guided", "latent", "glide", "glid3xl"):
-        raise NotImplementedError(f"the {diffusion!r} diffusion processor is not ported yet")
+    if diffusion in ("glide", "glid3xl"):
+        raise NotImplementedError(f"the {diffusion!r} processor is not ported yet (maua_tpu's "
+                                  f"diffusion/processors/glide.py, with text/bert.py)")
+    scales = dict(clip_scale=clip_scale, lpips_scale=lpips_scale, style_scale=style_scale,
+                  color_match_scale=color_match_scale)
+
+    def grad_modules():
+        if not any(s > 0 for s in scales.values()):
+            return []
+        device = resolve_device(model_kwargs.get("device"))
+        return (([CLIPGrads(scale=clip_scale, device=device)] if clip_scale > 0 else [])
+                + ([LPIPSGrads(scale=lpips_scale, device=device)] if lpips_scale > 0 else [])
+                + ([VGGGrads(scale=style_scale, device=device)] if style_scale > 0 else [])
+                + ([ColorMatchGrads(scale=color_match_scale, device=device)] if color_match_scale > 0 else []))
+
+    if diffusion == "guided":
+        from .processors.guided import GuidedDiffusion
+
+        return GuidedDiffusion(grad_modules=grad_modules(), sampler=sampler, timesteps=timesteps,
+                               speed=guidance_speed, **model_kwargs)
+    if diffusion == "latent":
+        from .processors.latent import LatentDiffusion
+
+        if any(s > 0 for s in scales.values()):
+            raise ValueError(f"latent diffusion takes no guidance scales, got "
+                             f"{[k for k, v in scales.items() if v > 0]}; pass grad_modules to LatentDiffusion")
+        smplr = sampler if sampler in ("plms", "ddim") else "plms"
+        return LatentDiffusion(cfg_scale=cfg_scale, sampler=smplr, timesteps=timesteps, **model_kwargs)
     if diffusion == "stable":
         smplr = sampler if sampler not in ("plms", "ddim", "p") else "lms"
         model_kwargs.setdefault("image_cond", image is not None)
-        return StableDiffusion(cfg_scale=cfg_scale, sampler=smplr, timesteps=timesteps, **model_kwargs)
+        return StableDiffusion(grad_modules=grad_modules(), cfg_scale=cfg_scale, sampler=smplr, timesteps=timesteps,
+                               **model_kwargs)
     raise Exception(f"Diffusion model not recognized: {diffusion}")
 
 
@@ -282,7 +324,7 @@ def image_sample(
 
 def main(args=None):
     # fmt: off
-    parser = argparse.ArgumentParser(description="diffusion image synthesis (Stable Diffusion, text to image)")
+    parser = argparse.ArgumentParser(description="diffusion image synthesis (stable, guided and latent diffusion)")
     parser.add_argument("--init", default="random", type=str)
     parser.add_argument("--text", default=None, type=str)
     parser.add_argument("--image", default=None, type=str)
@@ -293,6 +335,11 @@ def main(args=None):
     parser.add_argument("--diffusion", default="stable", type=str)
     parser.add_argument("--timesteps", default=50, type=int)
     parser.add_argument("--sampler", default="lms", type=str)
+    parser.add_argument("--guidance_speed", default="fast", type=str)
+    parser.add_argument("--clip_scale", default=0.0, type=float)
+    parser.add_argument("--lpips_scale", default=0.0, type=float)
+    parser.add_argument("--style_scale", default=0.0, type=float)
+    parser.add_argument("--color_match_scale", default=0.0, type=float)
     parser.add_argument("--cfg_scale", default=5.0, type=float)
     parser.add_argument("--super_res", default=None, type=str, help="a super registry model to upscale between sizes")
     parser.add_argument("--tile_size", default=None, type=int)
@@ -313,7 +360,10 @@ def main(args=None):
     sizes = [tuple(int(v) for v in s.split(",")) for s in args.sizes.split(";")]
     skips = [float(s) for s in args.skips.split(",")]
     model = get_diffusion_model(args.diffusion, timesteps=args.timesteps, sampler=args.sampler,
-                                cfg_scale=args.cfg_scale, image=args.image, device=args.device, seed=args.seed)
+                                guidance_speed=args.guidance_speed, clip_scale=args.clip_scale,
+                                lpips_scale=args.lpips_scale, style_scale=args.style_scale,
+                                color_match_scale=args.color_match_scale, cfg_scale=args.cfg_scale,
+                                image=args.image, device=args.device, seed=args.seed)
     Path(args.out_dir).mkdir(parents=True, exist_ok=True)
     for n in range(args.number):
         img = image_sample(init=args.init, text=args.text, image=args.image, content=args.content, style=args.style,

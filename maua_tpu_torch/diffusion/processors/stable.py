@@ -1,4 +1,4 @@
-"""Stable Diffusion: the latent diffusion processor, unguided.
+"""Stable Diffusion: the latent diffusion processor.
 
 Port of `maua_tpu/diffusion/processors/stable.py` (StableDiffusion):
 CLIP text conditioning, classifier-free guidance as one 2x-batched UNet
@@ -6,11 +6,16 @@ evaluation per step, the k-diffusion samplers, partial sigma ranges, and
 the VAE around the latent loop. Images are NHWC in [-1, 1] at this
 processor's interface, as in the reference; the networks run NCHW.
 
+With `grad_modules` (`maua_tpu_torch.grad`) sampling is guided: at each
+model call the CFG denoiser's output is decoded, the modules' image
+gradient is pulled back through the decoder and the UNet by autograd
+(`guided_denoiser`), and the denoised latent moves by it times sigma^2.
+With `image_cond` an ImagePrompt conditions through the CLIP image tower
+instead of the text (one context token of its embedding).
+
 `cfg_scale` and the sampler are read at each call. (The reference bakes
 both into its jitted unguided program at the first call, while its
 guided path reads them live; the port reads them live everywhere.)
-Guided sampling (`grad_modules`) and the image-conditioned variant are
-not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -21,14 +26,14 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from ...prompt import TextPrompt
+from ...prompt import ImagePrompt, TextPrompt
 from ...text.clip_text import CLIPTextConfig, encode_text, tokenize
 from ...text.clip_text import init_params as init_text_params
 from ...utility import resolve_device, to_device
 from ..models import unet as unet_mod
 from ..models import vae as vae_mod
 from ..samplers import ANCESTRAL, get_sampler, make_ddpm_schedule
-from ..wrappers import EpsDenoiser, cfg_denoiser
+from ..wrappers import EpsDenoiser, cfg_denoiser, guided_denoiser
 from .base import BaseDiffusionProcessor
 
 
@@ -40,11 +45,14 @@ def _to_nchw(img, device) -> torch.Tensor:
 class StableDiffusion(BaseDiffusionProcessor):
     """forward(img, prompts, t_start, t_end) partial-denoise processor.
 
-    Without given parameters the UNet, VAE and text encoder are drawn at
-    random, in that order, from one torch.Generator seeded with `seed` on
-    `device`. Given parameters are in the port's layout (see
-    `maua_tpu_torch.bridge.diffusion_params_to_torch` and
-    `maua_tpu_torch.diffusion.load`) and move to `device`."""
+    Without given parameters the UNet, VAE, text encoder and (with
+    `image_cond`) CLIP image tower are drawn at random, in that order, from
+    one torch.Generator seeded with `seed` on `device`. Given parameters are
+    in the port's layout (see `maua_tpu_torch.bridge` and
+    `maua_tpu_torch.diffusion.load`) and move to `device`. The image-
+    conditioned variant's unconditional branch embeds uniform noise in
+    [-1, 1] at the tower's size: `uncond_image` (NHWC) when set, else a
+    draw from a generator seeded with 0, the same at every call."""
 
     def __init__(
         self,
@@ -60,13 +68,11 @@ class StableDiffusion(BaseDiffusionProcessor):
         text_params=None,
         text_cfg: CLIPTextConfig = CLIPTextConfig(),
         image_cond: bool = False,
+        vision_params=None,
+        vision_cfg=None,
         device=None,
         seed: int = 0,
     ):
-        if [gm for gm in grad_modules if getattr(gm, "scale", 1) != 0]:
-            raise NotImplementedError("guided Stable Diffusion (grad_modules, guided_denoiser) is not ported yet")
-        if image_cond:
-            raise NotImplementedError("the image-conditioned Stable Diffusion variant is not ported yet")
         self.device = resolve_device(device)
         gen = torch.Generator(device=self.device).manual_seed(seed)
         self.unet_cfg, self.vae_cfg, self.text_cfg = unet_cfg, vae_cfg, text_cfg
@@ -76,6 +82,15 @@ class StableDiffusion(BaseDiffusionProcessor):
             else vae_mod.init_params(vae_cfg, gen)
         self.text_params = to_device(text_params, self.device) if text_params is not None \
             else init_text_params(text_cfg, gen)
+        self.image_cond = image_cond
+        self.uncond_image = None
+        if image_cond:
+            from ...perceptors import clip as clip_vision
+
+            self.vision_cfg = vision_cfg or clip_vision.CLIPVisionConfig(embed_dim=unet_cfg.context_dim)
+            self.vision_params = to_device(vision_params, self.device) if vision_params is not None \
+                else clip_vision.init_vision_params(self.vision_cfg, gen)
+        self.grad_modules = [gm for gm in grad_modules if getattr(gm, "scale", 1) != 0]
         self.alphas_cumprod = make_ddpm_schedule(1000, schedule="scaled_linear")
         self.denoiser = EpsDenoiser(
             lambda x, t, context=None: unet_mod.forward(self.unet_params, x, t, self.unet_cfg, context),
@@ -89,7 +104,22 @@ class StableDiffusion(BaseDiffusionProcessor):
 
     @torch.no_grad()
     def conditioning(self, prompts):
-        """Prompts -> (cond, uncond) text embeddings, each (1, L, width)."""
+        """Prompts -> (cond, uncond) embeddings: the text's, each (1, L, width);
+        with image_cond and an ImagePrompt, the last image's CLIP embedding and
+        the noise image's, each (1, 1, embed_dim)."""
+        imgs = [p for p in prompts if isinstance(p, ImagePrompt)] if self.image_cond else []
+        if imgs:
+            from ...perceptors.clip import encode_image, resize_to
+
+            s = self.vision_cfg.image_size
+            img = resize_to(torch.as_tensor(np.asarray(imgs[-1].img, np.float32), device=self.device), s)
+            cond = encode_image(self.vision_params, img, self.vision_cfg)[:, None, :]
+            if self.uncond_image is not None:
+                noise = torch.tensor(np.asarray(self.uncond_image), dtype=torch.float32, device=self.device)
+            else:
+                gen = torch.Generator(device=self.device).manual_seed(0)
+                noise = torch.rand(img.shape, generator=gen, device=self.device) * 2.0 - 1.0
+            return cond, encode_image(self.vision_params, noise, self.vision_cfg)[:, None, :]
         texts = [p.text for p in prompts if isinstance(p, TextPrompt)]
         cl = self.text_cfg.context_length
         cond = encode_text(self.text_params, tokenize(" ".join(texts) if texts else "", cl), self.text_cfg)
@@ -105,6 +135,20 @@ class StableDiffusion(BaseDiffusionProcessor):
     def decode(self, x: torch.Tensor) -> torch.Tensor:
         """Scaled NCHW latent -> NCHW image."""
         return vae_mod.decode(self.vae_params, x, self.vae_cfg)
+
+    def cond_fn(self, x, sigma, denoised, vjp):
+        """The guidance gradient at x: the grad modules' gradient at the decoded
+        image, pulled back through the decoder and then through the model (vjp)."""
+        with torch.enable_grad():
+            z = denoised.detach().requires_grad_(True)
+            imgd = vae_mod.decode(self.vae_params, z, self.vae_cfg)
+            img = imgd.detach().permute(0, 2, 3, 1)
+            img_grad = torch.zeros_like(img)
+            for gm in self.grad_modules:
+                img_grad = img_grad + gm(img, sigma)
+            (z_grad,) = torch.autograd.grad(imgd, z, img_grad.permute(0, 3, 1, 2))
+        (x_grad,) = vjp(z_grad)
+        return -x_grad
 
     def get_sigmas(self, t_s: float, t_e: Optional[float] = None):
         """The partial sigma range: t indexes the descending schedule (t = 0 is full noise)."""
@@ -131,8 +175,8 @@ class StableDiffusion(BaseDiffusionProcessor):
         """img (B, H, W, 3) in [-1, 1] (a latent (B, h, w, z) with `latent`) ->
         the same layout, f32, on this processor's device. `noise` is an
         optional standard-normal latent (B, h, w, z) in place of a draw
-        from `gen`; `stage_times` collects seconds of text, encode,
-        sampling and decode."""
+        from `gen`; `stage_times` collects seconds of text (with the
+        grad modules' targets), encode, sampling and decode."""
         x_in = _to_nchw(img, self.device)
         sigmas = np.asarray(self.get_sigmas(t_start, t_end))
         if reverse:
@@ -144,8 +188,12 @@ class StableDiffusion(BaseDiffusionProcessor):
 
         t0 = self._mark(stage_times)
         cond, uncond = self.conditioning(prompts)
+        for gm in self.grad_modules:
+            gm.set_targets(prompts)
         t0 = self._mark(stage_times, "text", t0)
         model_fn = cfg_denoiser(self.denoiser, cond, uncond, self.cfg_scale)
+        if self.grad_modules:
+            model_fn = guided_denoiser(model_fn, self.cond_fn)
 
         ds = self.vae_cfg.downscale
         b, _, h, w = x_in.shape

@@ -1,8 +1,9 @@
 """Diffusion samplers in sigma space (the k-diffusion family), as Python loops.
 
 Port of `maua_tpu/diffusion/samplers.py` (euler, euler_ancestral, heun,
-dpm_2, dpm_2_ancestral, lms, dpmpp_2m, dpm_fast, dpm_adaptive, and the
-DDPM schedule). Each `lax.scan` of the reference is a loop over the
+dpm_2, dpm_2_ancestral, lms, dpmpp_2m, dpm_fast, dpm_adaptive, the DDPM
+schedule, and the alpha-space ddim_sample_loop, plms_sample_loop and
+q_sample). Each `lax.scan` of the reference is a loop over the
 steps here. `sigmas` is a host numpy array; per-step constants (the LMS
 quadrature coefficients, ancestral step sizes) are computed on the host
 in f64 and applied as f32, as in the reference, so the loop launches
@@ -325,3 +326,85 @@ def make_ddpm_schedule(n_timesteps: int = 1000, beta_start: float = 0.00085 ** 0
     else:
         raise ValueError(schedule)
     return np.cumprod(1.0 - betas)
+
+
+# ---------------------------------------------------- alpha-space samplers
+# DDIM and PLMS step over discrete timesteps of an eps-prediction model,
+# eps_model(x, t) with t a (B,) int64 tensor of original timesteps. The
+# schedule's scalars are computed on the host in f32, as the reference's
+# device arrays hold them.
+
+def _alphas(alphas_cumprod: np.ndarray, timesteps: np.ndarray):
+    ac = np.asarray(alphas_cumprod, np.float32)
+    ts = np.asarray(timesteps, np.int64)
+    return ac[ts], np.append(ac[ts[1:]], np.float32(1.0)).astype(np.float32)
+
+
+def _pred_x0(x, eps, a_t, clip_denoised: bool):
+    one = np.float32(1.0)
+    pred_x0 = (x - float(np.sqrt(one - a_t)) * eps) / float(np.sqrt(a_t))
+    if clip_denoised:
+        pred_x0 = pred_x0.clamp(-1.0, 1.0)
+        eps = (x - float(np.sqrt(a_t)) * pred_x0) / float(np.sqrt(one - a_t))
+    return pred_x0, eps
+
+
+def _timestep(x: torch.Tensor, t) -> torch.Tensor:
+    return torch.full((x.shape[0],), int(t), dtype=torch.int64, device=x.device)
+
+
+def ddim_sample_loop(eps_model: Callable, x: torch.Tensor, timesteps: np.ndarray, alphas_cumprod: np.ndarray,
+                     eta: float = 0.0, gen: Optional[torch.Generator] = None, clip_denoised: bool = False,
+                     noises: Optional[Sequence] = None):
+    """DDIM (Song et al. 2020) over descending `timesteps`: returns (x, the last step's pred_x0).
+    clip_denoised clamps pred_x0 to [-1, 1] at each step and derives eps anew from it. With eta > 0
+    each step adds noise from `gen` or `noises` (one standard normal tensor per step)."""
+    a_ts, a_nexts = _alphas(alphas_cumprod, timesteps)
+    one, eta32 = np.float32(1.0), np.float32(eta)
+    pred_x0 = torch.zeros_like(x)
+    for i, t in enumerate(np.asarray(timesteps)):
+        a_t, a_next = a_ts[i], a_nexts[i]
+        pred_x0, eps = _pred_x0(x, eps_model(x, _timestep(x, t)), a_t, clip_denoised)
+        sigma = eta32 * np.sqrt((one - a_next) / (one - a_t)) * np.sqrt(one - a_t / max(a_next, np.float32(1e-10)))
+        x = float(np.sqrt(a_next)) * pred_x0 + float(np.sqrt(max(one - a_next - sigma**2, np.float32(0)))) * eps
+        if sigma != 0:
+            x = x + float(sigma) * _noise(x, i, gen, noises)
+    return x, pred_x0
+
+
+def plms_sample_loop(eps_model: Callable, x: torch.Tensor, timesteps: np.ndarray, alphas_cumprod: np.ndarray,
+                     clip_denoised: bool = False):
+    """PLMS / PNDM (Liu et al. 2022): a 4th-order linear multistep on eps, warmed up by a pseudo improved
+    Euler step (one extra model call at the next timestep) and orders 2 and 3. Returns (x, the last
+    step's pred_x0)."""
+    a_ts, a_nexts = _alphas(alphas_cumprod, timesteps)
+    ts = np.asarray(timesteps)
+    one = np.float32(1.0)
+
+    def transfer(x, eps, a_t, a_next):
+        pred_x0, eps = _pred_x0(x, eps, a_t, clip_denoised)
+        return float(np.sqrt(a_next)) * pred_x0 + float(np.sqrt(one - a_next)) * eps, pred_x0
+
+    hist = []  # the latest eps first
+    pred_x0 = torch.zeros_like(x)
+    for i, t in enumerate(ts):
+        a_t, a_next = a_ts[i], a_nexts[i]
+        eps = eps_model(x, _timestep(x, t))
+        if not hist:
+            x_mid, _ = transfer(x, eps, a_t, a_next)
+            eps_prime = (eps + eps_model(x_mid, _timestep(x, ts[min(i + 1, len(ts) - 1)]))) / 2
+        elif len(hist) == 1:
+            eps_prime = (3 * eps - hist[0]) / 2
+        elif len(hist) == 2:
+            eps_prime = (23 * eps - 16 * hist[0] + 5 * hist[1]) / 12
+        else:
+            eps_prime = (55 * eps - 59 * hist[0] + 37 * hist[1] - 9 * hist[2]) / 24
+        x, pred_x0 = transfer(x, eps_prime, a_t, a_next)
+        hist = [eps] + hist[:2]
+    return x, pred_x0
+
+
+def q_sample(x0: torch.Tensor, alphas_cumprod_t: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """Forward diffusion q(x_t | x_0) = sqrt(a) x0 + sqrt(1 - a) noise, a per batch element."""
+    a = torch.as_tensor(alphas_cumprod_t, dtype=torch.float32, device=x0.device)
+    return append_dims(torch.sqrt(a), x0.dim()) * x0 + append_dims(torch.sqrt(1 - a), x0.dim()) * noise

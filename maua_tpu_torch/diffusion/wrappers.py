@@ -1,7 +1,7 @@
 """Denoiser wrappers: discrete eps- and v-models exposed in Karras sigma space.
 
 Port of `maua_tpu/diffusion/wrappers.py` (DiscreteSchedule, EpsDenoiser,
-VDenoiser, cfg_denoiser). The sigma table and the schedule are numpy on
+VDenoiser, cfg_denoiser, guided_denoiser). The sigma table and the schedule are numpy on
 the host; `sigma_to_t` interpolates in log sigma in f32 on the device.
 """
 
@@ -89,3 +89,24 @@ def cfg_denoiser(denoiser: Callable, cond: torch.Tensor, uncond: torch.Tensor, c
         return un + (co - un) * cond_scale
 
     return model_fn
+
+
+def guided_denoiser(model_fn: Callable, cond_fn: Callable) -> Callable:
+    """Score guidance: denoised + grad * sigma^2, with grad = cond_fn(x, sigma,
+    denoised, vjp), where vjp(ct) = (ct^T d(denoised)/dx,) pulls a cotangent back
+    through model_fn by `torch.autograd.grad` (the reference's `jax.vjp`). The
+    model runs under `torch.enable_grad()` whatever the caller's mode; the
+    result carries no graph."""
+
+    def guided(x, sigma):
+        with torch.enable_grad():
+            xx = x.detach().requires_grad_(True)
+            denoised = model_fn(xx, sigma)
+
+            def vjp(ct):
+                return torch.autograd.grad(denoised, xx, ct)
+
+            grad = cond_fn(xx, sigma, denoised, vjp)
+        return denoised.detach() + grad.detach() * append_dims(sigma**2, x.dim())
+
+    return guided

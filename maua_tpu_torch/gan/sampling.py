@@ -4,10 +4,9 @@ Jacobian-norm rejection.
 Port of `maua_tpu/gan/sampling.py`. A torch.Generator takes the place of
 the JAX key; each function also takes its random draws as arguments (z,
 the uniform draws of a choice, a tangent, the Langevin noise) so that
-both packages can be fed the same numbers. Langevin sampling with an
-energy function runs here; the energies maua_tpu builds for it, from a
-checkpoint's discriminator or from CLIP, wait for `gan/discriminator.py`
-and `perceptors/clip.py`.
+both packages can be fed the same numbers. Langevin sampling runs with
+an energy function or with CLIP's (`clip_energy`); the energy from a
+checkpoint's discriminator waits for `gan/discriminator.py`.
 """
 
 from __future__ import annotations
@@ -93,13 +92,29 @@ def discriminator_energy(generator, d_params, d_cfg) -> Callable:
 
 
 def clip_energy(generator, text: str, perceptor=None) -> Callable:
-    """E(z) = -sim(CLIP(G(z)), CLIP(text)): not ported."""
-    raise NotImplementedError("CLIP-guided Langevin sampling waits for perceptors/clip.py (the CLIP perceptor)")
+    """E(z) = -10 sim(CLIP(G(z)), CLIP(text)) for a generator with `params` and
+    `cfg`; the CLIP perceptor is drawn from seed 0 on the generator's device
+    unless given. As in maua_tpu, the image is mapped to [0, 1] before the
+    image tower, which maps its input from [-1, 1] once more."""
+    if perceptor is None:
+        from ..perceptors.clip import CLIPPerceptor
+
+        perceptor = CLIPPerceptor(device=generator.params["mapping"]["w_avg"].device)
+    with torch.no_grad():
+        temb = perceptor.encode_text([text])
+    g_params, g_cfg = generator.params, generator.cfg
+
+    def energy(z):
+        img = sg2.synthesis(g_params, sg2.mapping(g_params, z, g_cfg), g_cfg)
+        emb = perceptor.encode_image((img.float().permute(0, 2, 3, 1) + 1.0) / 2.0)
+        return -10.0 * (emb * temb).sum(-1)
+
+    return energy
 
 
 def make_langevin_energy(generator, critic: str = "discriminator") -> Callable:
-    """maua_tpu's `--langevin_critic`: "discriminator" for the checkpoint's D,
-    any other string a CLIP text prompt. Neither energy is ported yet."""
+    """maua_tpu's `--langevin_critic`: "discriminator" for the checkpoint's D
+    (not ported yet), any other string a CLIP text prompt."""
     if critic == "discriminator":
         return discriminator_energy(generator, None, None)
     return clip_energy(generator, critic)

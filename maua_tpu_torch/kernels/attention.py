@@ -9,11 +9,13 @@ exactly:
   the same, so here it is plain per-head attention with the reference's
   bf16 rounding of the scores);
 - kernel: Nq and Nk multiples of 256 and D a multiple of 8 ->
-  `flash_attention_fused` (the CUDA kernel takes D up to 512 and raises
-  beyond; no caller of the port goes past 512). The kernel reads strided
-  views such as the UNet's (B, N, H, D) linears in place; inputs without
-  a unit stride along D, such as the VAE's channel-first maps, are made
-  contiguous first;
+  `flash_attention`, which launches `flash_attention_fused` (the CUDA
+  kernel takes D up to 512 and raises beyond; no caller of the port goes
+  past 512), through the autograd Function `FlashAttention` where autograd
+  records (guided sampling differentiates the UNet and the VAE decoder).
+  The kernel reads strided views such as the UNet's (B, N, H, D) linears
+  in place; inputs without a unit stride along D, such as the VAE's
+  channel-first maps, are made contiguous first;
 - everything else -> `attention_xla`.
 
 `flash_attention_fused` launches the hand-written CUDA kernels
@@ -23,6 +25,13 @@ tensors take its plain PyTorch version,
 `flash_attention_plain`, which computes what the TPU kernel's bodies
 compute: f32 scores and row sums, p = exp(s - max) rounded to the input
 dtype before the p.v product, the output in q's dtype.
+
+The kernel computes the forward only. `FlashAttention`'s backward
+recomputes P = softmax(q k^T s) in f32 and returns the gradients of the
+plain formulation, `attention_xla`'s, with `torch.matmul`. (maua_tpu's
+Pallas kernel has no backward at all, so on a TPU its guided sampling
+cannot differentiate through it; JAX off the TPU differentiates
+`attention_xla`, which these gradients equal.)
 """
 
 from __future__ import annotations
@@ -173,11 +182,45 @@ def _kernel_layout(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+class FlashAttention(torch.autograd.Function):
+    """`flash_attention_fused` forward (the kernel on the card, its plain
+    version on the CPU); backward from q, k and v saved in the forward: P
+    recomputed in f32, then dv = P^T do, dS = P * (do v^T - rowsum(P * do v^T)),
+    dq = dS k s and dk = dS^T q s, each in its input's dtype."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = _scale(q, scale)
+        return flash_attention_fused(q, k, v, scale)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+        p = torch.softmax(torch.matmul(qf, kf.transpose(-1, -2)) * ctx.scale, dim=-1)
+        dv = torch.matmul(p.transpose(-1, -2), dof)
+        dp = torch.matmul(dof, vf.transpose(-1, -2))
+        ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True)) * ctx.scale
+        dq = torch.matmul(ds, kf)
+        dk = torch.matmul(ds.transpose(-1, -2), qf)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None
+
+
+def flash_attention(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
+    """The kernel route: `flash_attention_fused`, through `FlashAttention` where
+    autograd records (grad enabled and an input that requires grad); otherwise
+    the wrapper alone, which saves nothing."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v, scale)
+    return flash_attention_fused(q, k, v, scale)
+
+
 def attention(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
     """Dispatcher used by the UNet's and the VAE's attention layers."""
     r = route(q.shape, k.shape)
     if r == "packed":
         return attention_packed(q, k, v, scale)
     if r == "kernel":
-        return flash_attention_fused(_kernel_layout(q), _kernel_layout(k), _kernel_layout(v), scale)
+        return flash_attention(_kernel_layout(q), _kernel_layout(k), _kernel_layout(v), scale)
     return attention_xla(q, k, v, scale)

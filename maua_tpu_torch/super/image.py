@@ -8,9 +8,10 @@ its published file name in `MODELZOO` (`MAUA_MODELZOO`): basicsr /
 realesrgan `.pth` (a `params_ema` or `params` container or a bare state
 dict), the official SwinIR `.pth`, waifu2x `.json`. As in the reference,
 a checkpoint that fails to load prints a warning and the model runs
-random weights (drawn from `seed`). Not ported yet, and raising: the
-`latent-diffusion` entry (it waits for `diffusion/processors/latent.py`)
-and `upscale_bulk_sharded` (it waits for `parallel/*`).
+random weights (drawn from `seed`). The `latent-diffusion` entry upscales
+by lanczos x4 and a partial denoise through the LatentDiffusion processor.
+Not ported yet, and raising: `upscale_bulk_sharded` (it waits for
+`parallel/*`).
 
     python -m maua_tpu_torch super image in.png --model_name RealESRGAN-x4plus --out_dir output/
 """
@@ -95,12 +96,12 @@ class Upscaler:
         if model_name not in MODEL_REGISTRY:
             raise ValueError(f"unknown model {model_name}; options: {MODEL_NAMES}")
         self.kind, self.cfg = MODEL_REGISTRY[model_name]
-        if self.kind == "ldm":
-            raise NotImplementedError("the latent-diffusion upscaler needs maua_tpu's diffusion/processors/latent.py, "
-                                      "which is not ported yet")
         self.tile = tile
         self.tile_overlap = tile_overlap
         self.device = resolve_device(device)
+        if self.kind == "ldm":
+            self._ldm = _LDMUpscale(device=self.device, seed=seed)
+            return
         if params is None:
             ckpt = os.path.join(utility.MODELZOO, _CHECKPOINT_FILES.get(model_name, ""))
             if os.path.exists(ckpt):
@@ -132,6 +133,8 @@ class Upscaler:
 
     @property
     def scale(self) -> int:
+        if self.kind == "ldm":
+            return 4
         if self.kind in ("srvgg", "swinir"):
             return self.cfg.upscale
         return self.cfg.scale  # rrdb / upconv7 / carn
@@ -162,11 +165,13 @@ class Upscaler:
         else:
             img = torch.as_tensor(np.asarray(img, np.float32), device=self.device)
         h, w = img.shape[1], img.shape[2]
+        # the latent-diffusion tiles are img2img inputs too, so they share the tiled branch
+        run = self._ldm if self.kind == "ldm" else self._run
 
         def tiled(tile):
             def thunk():
                 tiles = destitch(img, tile_size=tile, overtile=self.tile_overlap)
-                up = restitch(self._run(tiles), h * self.scale, w * self.scale, overtile=self.tile_overlap,
+                up = restitch(run(tiles), h * self.scale, w * self.scale, overtile=self.tile_overlap,
                               scale=self.scale)
                 return torch.clamp(up, 0, 1)
 
@@ -176,7 +181,7 @@ class Upscaler:
             attempts = [(f"tile {self.tile}", tiled(self.tile))]
             t = self.tile // 2
         else:
-            attempts = [("full image", lambda: torch.clamp(self._run(img), 0, 1))]
+            attempts = [("full image", lambda: torch.clamp(run(img), 0, 1))]
             t = min(h, w) // 2
         while t >= 64:
             attempts.append((f"tile {t}", tiled(t)))
@@ -184,6 +189,24 @@ class Upscaler:
         attempts.append(("lanczos-only fallback",
                          lambda: torch.clamp(resample(img, (h * self.scale, w * self.scale)), 0, 1)))
         return run_with_oom_fallback(attempts)
+
+
+class _LDMUpscale:
+    """Diffusion x4 upscaling (the `latent-diffusion` entry): lanczos x4, then a
+    partial denoise from t_start through LatentDiffusion (DDIM, cfg 1, no
+    prompt). `noise` (an NHWC latent) replaces the processor's draw."""
+
+    def __init__(self, t_start: float = 0.65, timesteps: int = 25, device=None, seed: int = 0):
+        from ..diffusion.processors.latent import LatentDiffusion
+
+        self.t_start = t_start
+        self.proc = LatentDiffusion(sampler="ddim", timesteps=timesteps, cfg_scale=1.0, device=device, seed=seed)
+
+    def __call__(self, img: torch.Tensor, noise=None) -> torch.Tensor:
+        b, h, w, c = img.shape
+        up = resample(img.float(), (h * 4, w * 4))
+        out = self.proc(up * 2 - 1, [], t_start=self.t_start, noise=noise)
+        return torch.clamp((out + 1) / 2, 0, 1)
 
 
 def load_model(model_name: str = "RealESRGAN-x4plus", **kw) -> Upscaler:

@@ -17,8 +17,14 @@ ulp apart (measured 2^-10 against both Pallas bodies).
 The routing table holds the port's `route` against where maua_tpu's
 dispatcher sends each shape of an SD 1.x image at 512^2 and 256^2 and of
 its VAE (found by spying on the JAX functions, as if on a TPU).
+
+The kernel route's gradient (`FlashAttention`) against `jax.grad` of
+maua_tpu's `attention_xla`, which is what JAX differentiates off the TPU
+(its Pallas kernel has no reverse-mode rule): f32, 1e-5 absolute on
+gradients of magnitude ~1 (the same products summed in another order).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -178,3 +184,40 @@ def test_kernel_layout_check_counts_bytes(dtype, row_stride, takes):
         laid = T._kernel_layout(t)
         assert torch.equal(laid, t) and T._layout(laid) is not None
         assert (laid.data_ptr() == t.data_ptr()) is takes
+
+
+GRAD_SHAPES = [((1, 2, 256, 64), (1, 2, 256, 64)), ((2, 1, 256, 80), (2, 1, 512, 80))]
+
+
+@pytest.mark.parametrize("shape_q,shape_kv", GRAD_SHAPES)
+def test_kernel_route_gradient_matches_jax_grad_of_attention_xla(shape_q, shape_kv):
+    arrays = _qkv(shape_q, shape_kv, 4)
+    do = np.random.RandomState(5).randn(*shape_q).astype(np.float32)
+    want = jax.grad(lambda q, k, v: jnp.sum(J.attention_xla(q, k, v) * do), argnums=(0, 1, 2))(
+        *(jnp.asarray(a) for a in arrays))
+    q, k, v = (torch.from_numpy(a).requires_grad_(True) for a in arrays)
+    assert T.route(q.shape, k.shape) == "kernel"
+    T.reset_launches()
+    out = T.attention(q, k, v)
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+    out.backward(torch.from_numpy(do))
+    assert T.launches == 0  # the CPU forward is the plain version
+    for got, ref in zip((q.grad, k.grad, v.grad), want):
+        _close(got, ref, "f32")
+
+
+def test_kernel_route_without_autograd_saves_nothing():
+    q, k, v = (torch.from_numpy(a) for a in _qkv((1, 2, 256, 64), (1, 2, 256, 64), 6))
+    with torch.no_grad():
+        out = T.attention(q.requires_grad_(True), k, v)
+    assert out.grad_fn is None
+    assert T.attention(q.detach(), k, v).grad_fn is None
+    torch.testing.assert_close(out, T.flash_attention_plain(q.detach(), k, v), rtol=0, atol=0)
+
+
+def test_maua_tpu_flash_kernel_has_no_reverse_mode_gradient():
+    """The reference's fault this route works around (ROADMAP C8): its Pallas kernel cannot be
+    differentiated, so guided sampling on a TPU fails at the first kernel-routed attention."""
+    q = jnp.asarray(_qkv((1, 1, 256, 64), (1, 1, 256, 64), 7)[0])
+    with pytest.raises(Exception, match="reverse-mode"):
+        jax.grad(lambda q: jnp.sum(J.flash_attention(q, q, q, interpret=True)))(q)

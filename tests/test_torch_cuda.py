@@ -286,6 +286,47 @@ def test_flash_attention_kernel_rejects_what_it_does_not_take(cuda_device):
         A.flash_attention_fused(q, q.cpu(), q)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape_q,layout", [
+    ((2, 8, 1024, 80), "bnhd"),  # SD 1.x 512^2, UNet level 1 (CFG batch 2), as the UNet hands it over
+    ((2, 8, 256, 160), "bnhd"),  # level 2
+    ((1, 1, 4096, 512), "bhnd"),  # the VAE decoder's mid attention at 64^2 latents
+    ((1, 8, 1024, 64), "bhnd"),  # guided diffusion's 256^2 UNet at 32^2
+    ((1, 16, 256, 64), "bhnd"),  # and at 16^2
+])
+def test_kernel_route_carries_a_gradient(cuda_device, shape_q, layout):
+    """The kernel route under autograd: its output has a grad_fn, the forward launches the kernel once,
+    and dq, dk, dv match autograd of the plain version on the card (f32, TF32 off) within 1e-4 of
+    their largest magnitude (sums over up to 4096 keys in other orders)."""
+    b, h, n, d = shape_q
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+
+    def inputs():
+        if layout == "bnhd":
+            return [torch.randn(b, n, h * d, generator=gen, device=cuda_device).view(b, n, h, d).transpose(1, 2)
+                    for _ in range(3)]
+        return [torch.randn(b, h, n, d, generator=gen, device=cuda_device) for _ in range(3)]
+
+    q, k, v = (t.requires_grad_(True) for t in inputs())
+    do = torch.randn(b, h, n, d, generator=gen, device=cuda_device)
+    matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        A.reset_launches()
+        out = A.attention(q, k, v)
+        assert A.launches == 1 and type(out.grad_fn).__name__ == "FlashAttentionBackward"
+        got = torch.autograd.grad(out, (q, k, v), do)
+        ref_out = A.flash_attention_plain(q, k, v)
+        want = torch.autograd.grad(ref_out, (q, k, v), do)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+    assert (out - ref_out).abs().max() <= 1e-4 * ref_out.abs().max()
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
+    with torch.no_grad():
+        assert A.attention(q, k, v).grad_fn is None
+
+
 def _signal(shape, gen, device):
     """Noise plus a 440 Hz tone at 22050 Hz, so every band has energy."""
     t = torch.arange(shape[-1], device=device) / 22050.0

@@ -324,17 +324,20 @@ def test_img2img_and_latent_paths(pair):
 
 
 def test_not_ported_paths_raise(pair):
+    """GLIDE and GLID3XL still raise; guidance and the guided / latent processors now build
+    (tests/test_torch_guided_diffusion.py holds them against maua_tpu)."""
     _, tsd = pair
 
     class Grad:
         scale = 1.0
 
-    with pytest.raises(NotImplementedError):
-        StableDiffusion(grad_modules=[Grad()], device="cpu")
-    with pytest.raises(NotImplementedError):
-        TI.get_diffusion_model("guided")
-    with pytest.raises(NotImplementedError):
-        TI.get_diffusion_model("stable", clip_scale=1.0)
+    tiny = dict(unet_cfg=tsd.unet_cfg, vae_cfg=tsd.vae_cfg, text_cfg=tsd.text_cfg, device="cpu")
+    assert StableDiffusion(grad_modules=[Grad()], **tiny).grad_modules[0].scale == 1.0
+    for name in ("glide", "glid3xl"):
+        with pytest.raises(NotImplementedError, match="processors/glide.py"):
+            TI.get_diffusion_model(name)
+    model = TI.get_diffusion_model("stable", color_match_scale=1.0, **tiny)
+    assert [type(g).__name__ for g in model.grad_modules] == ["ColorMatchGrads"]
 
 
 def test_entry_points_need_a_card_unless_told_otherwise(monkeypatch):

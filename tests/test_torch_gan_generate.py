@@ -80,12 +80,35 @@ def test_langevin_sample_with_an_energy_and_the_draws_handed_in():
 
 
 def test_langevin_energies_wait_for_the_discriminator_and_clip(net):
-    _, tcfg, _, tparams = net
+    """The discriminator's energy still waits for gan/discriminator.py; CLIP's now runs: energy
+    and its gradient against maua_tpu's on the same tiny CLIP (tests/test_torch_guidance.py's),
+    1e-4 of their largest magnitude."""
+    from types import SimpleNamespace
+
+    from test_torch_diffusion import TINY_TEXT, random_params
+    from test_torch_guidance import TINY_VISION
+    from test_torch_guided_diffusion import clip_perceptors
+    from maua_tpu.perceptors import clip as JCLIP
+    from maua_tpu.text import clip_text as JT
+
+    cfg, tcfg, params, tparams = net
     gen = torch.Generator().manual_seed(0)
     with pytest.raises(NotImplementedError, match="gan/discriminator.py"):
         TS.sample_latents("langevin", gen, 2, tparams, tcfg)
-    with pytest.raises(NotImplementedError, match="perceptors/clip.py"):
-        TS.sample_latents("langevin", gen, 2, tparams, tcfg, critic="a red fox")
+    clip = (random_params(lambda k: JCLIP.init_vision_params(k, TINY_VISION), 20),
+            random_params(lambda k: JT.init_params(k, TINY_TEXT), 21),
+            np.random.RandomState(22).randn(TINY_TEXT.width, TINY_VISION.embed_dim).astype(np.float32) / 8)
+    jclip, tclip = clip_perceptors(clip)
+    jenergy = JS.clip_energy(SimpleNamespace(params=params, cfg=cfg), "a red fox", perceptor=jclip)
+    tenergy = TS.clip_energy(SimpleNamespace(params=tparams, cfg=tcfg), "a red fox", perceptor=tclip)
+    z = np.random.RandomState(9).randn(3, cfg.z_dim).astype(np.float32)
+    want, want_grad = (np.asarray(a) for a in jax.value_and_grad(lambda zz: jnp.sum(jenergy(zz)))(jnp.asarray(z)))
+    tz = torch.from_numpy(z).requires_grad_(True)
+    got = tenergy(tz)
+    got.sum().backward()
+    assert got.shape == (3,)
+    np.testing.assert_allclose(got.sum().item(), want, rtol=1e-4)
+    assert np.abs(tz.grad.numpy() - want_grad).max() <= 1e-4 * np.abs(want_grad).max()
     assert TS.sample_latents("random", gen, 4, tparams, tcfg).shape == (4, 32)
     with pytest.raises(ValueError, match="unknown"):
         TS.sample_latents("ddls", gen, 2, tparams, tcfg)

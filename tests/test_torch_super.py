@@ -338,9 +338,13 @@ def test_upscaler_oom_ladder(tiny_registry, rrdb, monkeypatch, capsys):
         tup(img)
 
 
-def test_not_ported_entries_raise():
-    with pytest.raises(NotImplementedError, match="diffusion/processors/latent.py"):
-        TI.Upscaler("latent-diffusion", device="cpu")
+def test_not_ported_entries_raise(monkeypatch):
+    """upscale_bulk_sharded still raises; the latent-diffusion entry now builds its processor
+    (tests/test_torch_guided_diffusion.py holds it against maua_tpu at a tiny size)."""
+    built = {}
+    monkeypatch.setattr(TI, "_LDMUpscale", lambda **kw: built.update(kw) or (lambda img: img))
+    up = TI.Upscaler("latent-diffusion", device="cpu", seed=3)
+    assert up.scale == 4 and built == {"device": torch.device("cpu"), "seed": 3}
     with pytest.raises(NotImplementedError, match="parallel"):
         TI.upscale_bulk_sharded([np.zeros((1, 8, 8, 3), np.float32)])
     with pytest.raises(ValueError):
