@@ -158,6 +158,22 @@ Phases, each printed as one JSON line with its elapsed seconds:
    autograd, the latent path's guidance decodes); every case the kernel
    met there held against the plain version, forward and (under
    autograd) dq, dk, dv.
+40. sd_glide (after sd_paths): GLIDE at its published sizes (64^2 base with
+   cfg 3, 256^2 upsampler, 10 DDIM steps a stage) and GLID3XL (SD 1.x UNet
+   and VAE with a 768-wide BERT, 256^2, 10 PLMS steps) through
+   image_sample: stage seconds, 240 and 56 attention launches; each GLIDE
+   UNet once card vs CPU (PSNR); BERTEmbedder at 1280 x 32 layers over 77
+   tokens, seconds and card vs CPU.
+41. sd_animation: interpolate_latents (8 frames, renoised), klmc2_animation
+   (8 frames, forward-mode Hessian-vector products through the kernel
+   route), outpaint (512^2 onto 640^2) and loop_video (8 frames) through SD
+   1.x at 512^2, 10 timesteps: seconds and launches of each; every case
+   held against the plain version, forward-mode tangents included.
+42. sd_video: video_sample on Farneback flow over a synthetic 8-frame 512^2
+   clip (20 LMS timesteps, skip 0.7, first_skip 0.4) and loop_direct_sample
+   over it (blend_every 0.1: 6 passes): flow seconds, seconds per frame,
+   frames read back, launches; Horn-Schunck flow and a warp-and-blend card
+   vs CPU.
 Phases that upscale fail if an out-of-memory ladder took a rung past its
 first.
 
@@ -2772,6 +2788,417 @@ def run_sd_paths(tmp: str):
             "attention_max_abs_err": max(r["max_abs_err"] for r in forward_cases), **tf32}
 
 
+SLICE_STEPS = 10  # steps of every sd_glide and sd_animation run (cut from the processors' 50)
+VIDEO_STEPS = 20  # LMS timesteps of the sd_video runs (cut from the loop CLI's 100; the video CLI's 25)
+VIDEO_FRAMES = 8
+TANGENT_BAR = 1e-4  # the forward-mode tangent against torch.func.jvp of the plain version: of its largest magnitude
+BERT_TOL = 1e-4  # BERT card vs CPU, of the output's largest magnitude
+# Horn-Schunck card vs CPU, in pixels: 160 clipped fixed-point iterations over 4 levels, each a 3x3 smoothing,
+# two Sobel filters and a bilinear warp in f32 (TF32 off); the two devices' convolutions sum in other orders
+# and their roundoff, ~1e-7 of a pixel an iteration, carries through the iterations that do not clip
+HS_TOL = 1e-2
+# the warp-and-blend of one frame card vs CPU, absolute on [-1, 1] images: the bilinear weights come from
+# f32 coordinates that fused multiply-adds may round apart by ~1e-7 pixel, times the image's slope
+WARP_TOL = 1e-4
+
+
+@contextlib.contextmanager
+def forward_mode_attention_cases():
+    """Counts the kernel route's calls under a forward-mode transform (FlashAttention's jvp rule), by
+    case: the dtype, the scale, and the size, strides and storage offset of q, k and v as the rule
+    gets them."""
+    import collections
+
+    from maua_tpu_torch.kernels import attention as A
+
+    cases = collections.Counter()
+    real = A.FlashAttention.jvp
+
+    def recording(ctx, *tangents):
+        q, k, v = ctx.saved_tensors
+        cases[(str(q.dtype).removeprefix("torch."), ctx.scale,
+               *((tuple(t.shape), t.stride(), t.storage_offset()) for t in (q, k, v)))] += 1
+        return real(ctx, *tangents)
+
+    A.FlashAttention.jvp = staticmethod(recording)
+    try:
+        yield cases
+    finally:
+        A.FlashAttention.jvp = real
+
+
+def check_forward_mode_cases(cases, what: str):
+    """At every case the kernel route met under a forward-mode transform: random card tensors laid out
+    as that case's q, k and v, and random tangents alike; torch.func.jvp through `FlashAttention` (the
+    kernel forward, the recomputed f32 tangent) against torch.func.jvp of the plain version, TF32 off:
+    the output with `attention_tolerance`, the tangent within TANGENT_BAR of its largest magnitude. The
+    comparison launches do not count."""
+    import torch
+
+    from maua_tpu_torch.kernels import attention as A
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    rows = []
+    with tf32_off():
+        for (dtype, scale, *layouts), n in sorted(cases.items(), key=lambda c: -c[1]):
+            dt = getattr(torch, dtype)
+
+            def laid_out():
+                return tuple(torch.randn(off + sum((m - 1) * st for m, st in zip(size, stride)) + 1, generator=gen,
+                                         device="cuda").to(dt).as_strided(size, stride, off)
+                             for size, stride, off in layouts)
+
+            primals, tangents = laid_out(), laid_out()
+            out, tangent = torch.func.jvp(lambda q, k, v: A.FlashAttention.apply(q, k, v, scale), primals, tangents)
+            ref, ref_tangent = torch.func.jvp(lambda q, k, v: A.flash_attention_plain(q, k, v, scale), primals,
+                                              tangents)
+            err = float((out.float() - ref.float()).abs().max())
+            rel = float((tangent.float() - ref_tangent.float()).abs().max() / ref_tangent.float().abs().max())
+            row = {"q": list(primals[0].shape), "kv": list(primals[1].shape),
+                   "strides": [list(t.stride()) for t in primals], "dtype": dtype, "launches": n,
+                   "max_abs_err": err, "tangent_rel_err": rel}
+            if not bool(((out.float() - ref.float()).abs() <= attention_tolerance(ref, dt)).all()) or \
+                    not rel <= TANGENT_BAR:
+                raise AssertionError(f"{what}: the forward-mode route disagrees with the plain version at {row}")
+            rows.append(row)
+    A.reset_launches()
+    return rows
+
+
+@contextlib.contextmanager
+def counted_calls(obj, *names):
+    """Counts calls of obj's methods or callable attributes `names` within the block."""
+    import collections
+
+    counts, saved = collections.Counter(), {}
+    for name in names:
+        saved[name] = obj.__dict__.get(name)
+        real = getattr(obj, name)
+
+        def counting(*a, _real=real, _name=name, **kw):
+            counts[_name] += 1
+            return _real(*a, **kw)
+
+        setattr(obj, name, counting)
+    try:
+        yield counts
+    finally:
+        for name, own in saved.items():
+            if own is None:
+                delattr(obj, name)
+            else:
+                setattr(obj, name, own)
+
+
+def unet_card_vs_cpu(params, cfg, x, t, ctx):
+    """One UNet evaluation on the card and on the CPU (the same parameters, copied), f32 with TF32 off:
+    PSNR (peak: the CPU output's range), the largest difference, seconds of each and the card's attention
+    launches."""
+    import torch
+
+    from maua_tpu_torch.diffusion.models import unet as U
+    from maua_tpu_torch.kernels import attention as A
+    from maua_tpu_torch.utility import to_device
+
+    with tf32_off(), torch.no_grad():
+        A.reset_launches()
+        t0 = time.perf_counter()
+        card = U.forward(params, x.cuda(), t.cuda(), cfg, ctx.cuda()).cpu().numpy()
+        card_s, launches = time.perf_counter() - t0, A.launches
+        host_params = to_device(params, "cpu")
+        t0 = time.perf_counter()
+        host = U.forward(host_params, x.cpu(), t.cpu(), cfg, ctx.cpu()).numpy()
+        host_s = time.perf_counter() - t0
+    return {"psnr_db": psnr_db(card, host, float(host.max() - host.min())),
+            "max_abs_diff": float(abs(card - host).max()), "card_seconds": card_s, "cpu_seconds": host_s,
+            "launches": launches}
+
+
+def run_sd_glide(tmp: str):
+    """GLIDE at its published sizes (GLIDE_BASE at 64^2 with cfg 3, bicubic to 256^2, GLIDE_UPSAMPLE; DDIM
+    cut from 50 to SLICE_STEPS steps a stage) and GLID3XL as get_diffusion_model builds it (SD 1.x UNet and
+    VAE, a 768-wide 2-layer BERT, 256^2, PLMS SLICE_STEPS steps), each through image_sample from seed-0
+    weights in f32: stage seconds and the attention launches of each, reset before and read after (GLIDE:
+    14 a base evaluation, 10 an upsampler one; GLID3XL: 5 a UNet evaluation and the decode), every case
+    held against the plain version. BERTEmbedder(BERTConfig()) alone (1280 wide, 32 layers, 77 tokens):
+    seconds, and card vs CPU within BERT_TOL of its largest output. One evaluation of each GLIDE UNet card
+    vs CPU, f32 with TF32 off: PSNR >= 40 dB."""
+    import numpy as np
+    import torch
+
+    from maua_tpu_torch.diffusion.image import get_diffusion_model, image_sample
+    from maua_tpu_torch.diffusion.processors.glide import GLIDE_BASE, GLIDE_UPSAMPLE
+    from maua_tpu_torch.prompt import TextPrompt
+    from maua_tpu_torch.text.bert import BERTConfig, BERTEmbedder
+    from maua_tpu_torch.utility import to_device
+
+    tf32 = _default_tf32()
+    out = {}
+    with attention_cases_recorded() as cases:
+        t0 = time.perf_counter()
+        glide = get_diffusion_model("glide", timesteps=SLICE_STEPS, cfg_scale=3.0, device="cuda", seed=0)
+        torch.cuda.synchronize()
+        init_s, stages = time.perf_counter() - t0, {}
+        img, s, n = timed_path(lambda: image_sample(text=SD_PROMPT, sizes=((256, 256),), diffusion=glide, seed=0,
+                                                    verbose=False, stage_times=stages))
+        check_image(img, (1, 256, 256, 3), "GLIDE")
+        out["glide"] = {"steps": SLICE_STEPS, "seconds": s, "init_seconds": init_s, "stage_seconds": stages,
+                        "launches": n, "want": (14 + 10) * SLICE_STEPS}
+        t0 = time.perf_counter()
+        g3 = get_diffusion_model("glid3xl", timesteps=SLICE_STEPS, device="cuda", seed=0)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        img, s, n = timed_path(lambda: image_sample(text=SD_PROMPT, sizes=((256, 256),), diffusion=g3, seed=0,
+                                                    verbose=False))
+        check_image(img, (1, 256, 256, 3), "GLID3XL")
+        _, bert_s, _ = timed_path(lambda: g3.bert([SD_PROMPT]))
+        out["glid3xl"] = {"steps": SLICE_STEPS, "model_calls": SLICE_STEPS + 1, "seconds": s, "init_seconds": init_s,
+                          "bert_seconds": bert_s, "launches": n, "want": 5 * (SLICE_STEPS + 1) + 1}
+        del g3, img
+    torch.cuda.empty_cache()
+    cond, uncond = glide.conditioning([TextPrompt(SD_PROMPT)])
+    gen = torch.Generator().manual_seed(8)
+    out["glide_unets_card_vs_cpu"] = {
+        "base": unet_card_vs_cpu(glide.base_params, GLIDE_BASE, torch.randn(2, 3, 64, 64, generator=gen),
+                                 torch.full((2,), 500.0), torch.cat([uncond, cond])),
+        "upsample": unet_card_vs_cpu(glide.up_params, GLIDE_UPSAMPLE, torch.randn(1, 6, 256, 256, generator=gen),
+                                     torch.full((1,), 500.0), cond)}
+    del glide
+    torch.cuda.empty_cache()
+    for name in ("glide", "glid3xl"):
+        if out[name]["launches"] != out[name].pop("want"):
+            raise AssertionError(f"sd_glide {name}: flash attention launched {out[name]['launches']} times")
+    unets = out["glide_unets_card_vs_cpu"]
+    if unets["base"]["launches"] != 14 or unets["upsample"]["launches"] != 10 or \
+            not all(u["psnr_db"] >= 40.0 for u in unets.values()):
+        raise AssertionError(f"sd_glide: GLIDE UNets card vs CPU {unets}")
+    if sum(cases.values()) != out["glide"]["launches"] + out["glid3xl"]["launches"]:
+        raise AssertionError(f"sd_glide: {sum(cases.values())} kernel calls recorded")
+    attention = check_attention_cases(cases, "sd_glide")
+
+    bert = BERTEmbedder(BERTConfig(), device="cuda", seed=0)
+    bert([SD_PROMPT])  # warm
+    with tf32_off():
+        card, bert_s, _ = timed_path(lambda: bert([SD_PROMPT]))
+        host = BERTEmbedder(BERTConfig(), params=to_device(bert.params, "cpu"), device="cpu")
+        t0 = time.perf_counter()
+        want = host([SD_PROMPT]).numpy()
+        host_s = time.perf_counter() - t0
+    card = card.cpu().numpy()
+    diff = float(np.abs(card - want).max())
+    if card.shape != (1, 77, 1280) or not diff <= BERT_TOL * float(np.abs(want).max()):
+        raise AssertionError(f"sd_glide: BERT card vs CPU {card.shape}, max abs diff {diff}")
+    del bert, host
+    return {**out, "bert_1280x32": {"tokens": 77, "seconds": bert_s, "cpu_seconds": host_s, "max_abs_diff": diff,
+                                    "abs_max": float(np.abs(want).max())},
+            "launches": out["glide"]["launches"] + out["glid3xl"]["launches"], "attention_cases": attention,
+            "attention_max_abs_err": max(r["max_abs_err"] for r in attention), **tf32}
+
+
+def write_frame(path: str, size: int, seed: int) -> np.ndarray:
+    """A smooth colour field with seeded texture, (size, size, 3) in [0, 1], written as a PNG."""
+    import numpy as np
+    from PIL import Image
+
+    rs = np.random.RandomState(seed)
+    y, x = np.mgrid[0:size, 0:size] / size
+    img = np.stack([0.5 + 0.4 * np.sin(6 * x + seed), y, 1 - x * y], -1) * 0.75 + rs.rand(size, size, 3) * 0.25
+    Image.fromarray((img * 255).astype(np.uint8)).save(path)
+    return img.astype(np.float32)
+
+
+def run_sd_animation(tmp: str):
+    """The diffusion animations at 512^2 through SD 1.x (seed-0 weights, f32, SLICE_STEPS LMS timesteps):
+    interpolate_latents between 2 synthetic images, 8 frames, renoised from t 0.5; klmc2_animation, 8
+    frames with forward-mode Hessian-vector products (the CLI's sigma, step, friction, alpha and cfg 5);
+    outpaint from 512^2 onto 640^2 from t 0.4; loop_video, 8 frames in batches of 4. Seconds and the
+    attention launches of each, reset before and read after (10 a UNet evaluation, 1 an encode or a
+    decode), every case held against the plain version, and every case the kernel route met under
+    forward mode held (output and tangent) against torch.func.jvp of the plain version. One KLMC2 score
+    evaluation with its jvp, and one without, under torch.profiler (profile_batch); the KLMC2 chain
+    again, warm (its seconds only)."""
+    import torch
+
+    from maua_tpu_torch.diffusion.image import get_diffusion_model
+    from maua_tpu_torch.diffusion.interpolate import interpolate_latents
+    from maua_tpu_torch.diffusion.klmc2 import klmc2_animation, score_from_denoiser
+    from maua_tpu_torch.diffusion.loop import loop_video
+    from maua_tpu_torch.diffusion.outpaint import outpaint
+    from maua_tpu_torch.diffusion.wrappers import cfg_denoiser
+    from maua_tpu_torch.prompt import TextPrompt
+
+    tf32 = _default_tf32()
+    model = get_diffusion_model("stable", timesteps=SLICE_STEPS, sampler="lms", device="cuda", seed=0)
+    images = [os.path.join(tmp, f"key{i}.png") for i in range(2)]
+    init = torch.from_numpy(write_frame(images[0], 512, 0) * 2 - 1)[None].cuda()
+    write_frame(images[1], 512, 1)
+    n_steps = {t: len(model.get_sigmas(t, 1.0)) - 1 for t in (0.4, 0.5, 0.6)}
+    out = {}
+
+    def gen():
+        return torch.Generator(device="cuda").manual_seed(0)
+
+    def frames_ok(frames, n, what):
+        frames = torch.as_tensor(frames)
+        check_image(frames, (n, 512, 512, 3), what)
+        if float((frames[0] - frames[-1]).abs().max()) < 1e-3:
+            raise AssertionError(f"{what}: the first and last frames are the same")
+
+    torch.cuda.reset_peak_memory_stats()
+    with attention_cases_recorded() as cases, forward_mode_attention_cases() as fwd_cases:
+        frames, s, n = timed_path(lambda: interpolate_latents(model, images, n_frames=8, renoise_t=0.5, gen=gen()))
+        frames_ok(frames, 8, "interpolate")
+        out["interpolate"] = {"frames": 8, "seconds": s, "launches": n, "want": 2 + 10 * n_steps[0.5] + 1}
+        frames, s, n = timed_path(lambda: klmc2_animation(
+            model, shape=(512, 512), n_frames=8, sigma=0.75, step_size=0.2, text=SD_PROMPT, cond_scale=5.0,
+            friction=0.5, alpha=1e-3, tau=1.0, use_hvp=True, gen=gen()))
+        frames_ok(frames, 8, "klmc2")
+        out["klmc2"] = {"frames": 8, "seconds": s, "launches": n, "launches_in_jvp": sum(fwd_cases.values()),
+                        "want": 10 * 8 + 1}
+        img, s, n = timed_path(lambda: outpaint(model, init, expand=(64, 64, 64, 64), text=SD_PROMPT, t_start=0.4,
+                                                gen=gen()))
+        check_image(img, (1, 640, 640, 3), "outpaint")
+        if not bool((img[:, 64:576, 64:576] == init).all()):
+            raise AssertionError("outpaint: the interior is not kept")
+        out["outpaint"] = {"canvas": [640, 640], "seconds": s, "launches": n, "want": 5 * n_steps[0.4] + 2}
+        frames, s, n = timed_path(lambda: loop_video(model, init, n_frames=8, batch_size=4, text=SD_PROMPT,
+                                                     verbose=False))
+        frames_ok(frames, 8, "loop")
+        out["loop"] = {"frames": 8, "seconds": s, "launches": n, "want": 1 + 2 * (10 * n_steps[0.6] + 1)}
+        del frames, img
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    _, out["klmc2"]["warm_seconds"], _ = timed_path(lambda: klmc2_animation(  # the same chain again, warm
+        model, shape=(512, 512), n_frames=8, sigma=0.75, step_size=0.2, text=SD_PROMPT, cond_scale=5.0,
+        friction=0.5, alpha=1e-3, tau=1.0, use_hvp=True, gen=gen()))
+    # one KLMC2 score evaluation with its Hessian-vector product (torch.func.jvp), and the score alone
+    cond, uncond = model.conditioning([TextPrompt(SD_PROMPT)])
+    score = score_from_denoiser(cfg_denoiser(model.denoiser, cond, uncond, 5.0), 0.75)
+    x, v = (torch.randn(1, 4, 64, 64, generator=gen(), device="cuda") * 0.75 for _ in range(2))
+    with torch.no_grad():
+        profiles = {"score_jvp": profile_batch(lambda: torch.func.jvp(score, (x,), (v,)), "flash_attention"),
+                    "score": profile_batch(lambda: score(x), "flash_attention")}
+    del model
+    torch.cuda.empty_cache()
+    for name, r in out.items():
+        if r["launches"] != r.pop("want"):
+            raise AssertionError(f"sd_animation {name}: flash attention launched {r['launches']} times")
+    launches = sum(r["launches"] for r in out.values())
+    if sum(cases.values()) != launches or sum(fwd_cases.values()) != 10 * 8:
+        raise AssertionError(f"sd_animation: {sum(cases.values())} kernel calls recorded for {launches} launches, "
+                             f"{sum(fwd_cases.values())} under forward mode, want 80 (KLMC2's jvps)")
+    shapes = {tuple(layouts[0][0]) for _, _, *layouts in cases}
+    if not {(2, 8, 6400, 40), (1, 1, 6400, 512)} <= shapes:
+        raise AssertionError(f"sd_animation: outpainting's 640^2 cases are missing from {sorted(shapes)}")
+    forward_mode = check_forward_mode_cases(fwd_cases, "sd_animation")
+    attention = check_attention_cases(cases, "sd_animation")
+    return {**out, "launches": launches, "peak_mem_gib": peak, "profiles": profiles, "forward_mode_cases": forward_mode,
+            "tangent_max_rel_err": max(r["tangent_rel_err"] for r in forward_mode), "attention_cases": attention,
+            "attention_max_abs_err": max(r["max_abs_err"] for r in attention), **tf32}
+
+
+def write_flow_clip(path: str, n: int = VIDEO_FRAMES, size: int = 512, shift=(3, 1)):
+    """A textured 512^2 image shifted (dx, dy) pixels a frame (wrapping), n frames written by the port's
+    write_video; returns the frames (n, size, size, 3) in [0, 1]."""
+    import numpy as np
+
+    from maua_tpu_torch.ops.video import write_video
+
+    rs = np.random.RandomState(9)
+    y, x = np.mgrid[0:size, 0:size] / size
+    base = np.stack([0.5 + 0.3 * np.sin(12 * x) * np.cos(9 * y), y, 0.5 + 0.4 * np.sin(7 * (x + y))], -1)
+    base = (0.8 * base + 0.2 * rs.rand(size // 8, size // 8, 3).repeat(8, 0).repeat(8, 1)).astype(np.float32)
+    frames = np.stack([np.roll(base, (shift[1] * i, shift[0] * i), axis=(0, 1)) for i in range(n)])
+    write_video(frames, path, fps=8, value_range=(0, 1))
+    return frames
+
+
+def run_sd_video(tmp: str):
+    """The flow-warped video over a synthetic 8-frame 512^2 clip (a texture shifted 3 px right and 1 down a
+    frame), SD 1.x from seed-0 weights in f32: video_sample at its defaults (Farneback, skip 0.7, first_skip
+    0.4, blend 2, consistency trust 0.75, noise injection 0.02) over VIDEO_STEPS LMS timesteps, the video
+    written and read back; then loop_direct_sample over the same clip with blend_every 0.1 (6 passes of 2
+    steps from skip 0.4). Flow seconds (host), seconds per frame, the attention launches (reset before and
+    read after: 10 a UNet evaluation, 1 an encode or a decode), every case held against the plain version.
+    Card vs CPU, TF32 off: Horn-Schunck flow between the first two frames within HS_TOL pixels, and the
+    warp-and-blend of one frame within WARP_TOL."""
+    import numpy as np
+    import torch
+
+    from maua_tpu_torch import utility
+    from maua_tpu_torch.diffusion.image import get_diffusion_model
+    from maua_tpu_torch.diffusion.loop_direct import _blend_init, loop_direct_sample
+    from maua_tpu_torch.diffusion.video import video_sample
+    from maua_tpu_torch.flow.lib import preprocess_optical_flow
+    from maua_tpu_torch.flow.models import farneback_flow, hs_flow
+    from maua_tpu_torch.ops.video import read_video
+
+    tf32 = _default_tf32()
+    workspace, utility.WORKSPACE = utility.WORKSPACE, os.path.join(tmp, "workspace")
+    try:
+        clip = os.path.join(tmp, "flow_clip.mp4")
+        write_flow_clip(clip)
+        model = get_diffusion_model("stable", timesteps=VIDEO_STEPS, sampler="lms", device="cuda", seed=0)
+        out_file, out, stages = os.path.join(tmp, "flow_diffused.mp4"), {}, {}
+        with attention_cases_recorded() as cases, \
+                counted_calls(model, "encode", "decode") as coded, counted_calls(model.denoiser, "eps_model") as evals:
+            written, s, n = timed_path(lambda: video_sample(model, clip, out_file=out_file, text=SD_PROMPT,
+                                                            size=(512, 512), stage_times=stages, verbose=False))
+            back, _ = read_video(written)
+            want = 10 * evals["eps_model"] + coded["encode"] + coded["decode"]
+            out["video"] = {"frames_written": VIDEO_FRAMES, "frames_read_back": int(back.shape[0]), "seconds": s,
+                            "flow_seconds": stages["flow"], "seconds_per_frame": (s - stages["flow"]) / VIDEO_FRAMES,
+                            "unet_evaluations": evals["eps_model"], "launches": n, "want": want}
+            if back.shape != (VIDEO_FRAMES, 512, 512, 3) or back.min() == back.max():
+                raise AssertionError(f"sd_video: read back {back.shape}, want {VIDEO_FRAMES} non-constant 512^2 frames")
+            evals.clear(), coded.clear()
+            ld_stages = {}
+            frames, s, n = timed_path(lambda: loop_direct_sample(model, clip, text=SD_PROMPT, size=(512, 512),
+                                                                 timesteps=VIDEO_STEPS, blend_every=0.1,
+                                                                 stage_times=ld_stages, verbose=False))
+            check_image(torch.from_numpy(frames), (VIDEO_FRAMES, 512, 512, 3), "loop_direct")
+            calls = coded["decode"]
+            out["loop_direct"] = {"passes": calls // VIDEO_FRAMES, "diffusion_calls": calls, "seconds": s,
+                                  "flow_seconds": ld_stages["flow"], "unet_evaluations": evals["eps_model"],
+                                  "launches": n, "want": 10 * evals["eps_model"] + coded["encode"] + calls}
+            if calls < 2 * VIDEO_FRAMES:
+                raise AssertionError(f"sd_video: loop_direct made {calls} diffusion calls, want two passes or more")
+        del model
+        torch.cuda.empty_cache()
+        for name, r in out.items():
+            if r["launches"] != r.pop("want") or r["launches"] == 0:
+                raise AssertionError(f"sd_video {name}: flash attention launched {r['launches']} times")
+        if sum(cases.values()) != out["video"]["launches"] + out["loop_direct"]["launches"]:
+            raise AssertionError(f"sd_video: {sum(cases.values())} kernel calls recorded")
+        attention = check_attention_cases(cases, "sd_video")
+
+        frames, forward, _, reliable = preprocess_optical_flow(clip, farneback_flow)
+        with tf32_off():
+            flows, seconds = {}, {}
+            for dev in ("cuda", "cpu"):
+                hs_flow(frames[0], frames[1], device=dev)  # warm
+                t0 = time.perf_counter()
+                flows[dev] = hs_flow(frames[0], frames[1], device=dev).cpu().numpy()
+                seconds[dev] = time.perf_counter() - t0
+            blends = {dev: _blend_init(torch.as_tensor(frames[1][None] * 2 - 1, device=dev),
+                                       torch.as_tensor(frames[0][None] * 2 - 1, device=dev),
+                                       torch.as_tensor(np.asarray(forward[0]), device=dev),
+                                       torch.as_tensor(np.asarray(reliable[0]), device=dev), 0.75, 2.0).cpu().numpy()
+                      for dev in ("cuda", "cpu")}
+        hs_diff = float(np.abs(flows["cuda"] - flows["cpu"]).max())
+        warp_diff = float(np.abs(blends["cuda"] - blends["cpu"]).max())
+        if not (hs_diff <= HS_TOL and warp_diff <= WARP_TOL):
+            raise AssertionError(f"sd_video card vs CPU: Horn-Schunck {hs_diff} px, warp and blend {warp_diff}")
+        reference = {"hs_max_abs_diff_px": hs_diff, "hs_card_seconds": seconds["cuda"],
+                     "hs_cpu_seconds": seconds["cpu"], "hs_mean_flow_px": flows["cpu"].mean((0, 1)).tolist(),
+                     "farneback_mean_flow_px": np.asarray(forward[0]).mean((0, 1)).tolist(),
+                     "warp_blend_max_abs_diff": warp_diff}
+    finally:
+        utility.WORKSPACE = workspace
+    return {**out, "launches": out["video"]["launches"] + out["loop_direct"]["launches"],
+            "attention_cases": attention, "attention_max_abs_err": max(r["max_abs_err"] for r in attention),
+            "card_vs_cpu": reference, **tf32}
+
+
 def run_writer(repo: str, tmp: str):
     """The FFMPEG renderer end to end through the normal entry point: 24
     frames (1 s of the synthetic mix at 24 fps) of the example patch at
@@ -3769,7 +4196,7 @@ def main() -> int:
               "ar_reference,gan_load,sd_load,writer,super_load,super_video,umx,noise_patch,gan_generate,fast,"
               "profile,sg3_profile,reference,sg3_reference,sd_e2e,sd_steps,sd_profile,sd_reference,super,"
               "super_reference,sd_multires,sg3_resize,realtime,ss_mir,ss_e2e,ss_reference,interactive,"
-              "av_correlation,sd_guided,sd_paths,delivery]",
+              "av_correlation,sd_guided,sd_paths,sd_glide,sd_animation,sd_video,delivery]",
               file=sys.stderr)
         return 2
 
@@ -3810,7 +4237,9 @@ def main() -> int:
                          ("ss_e2e", lambda: run_ss_e2e(wav, tmp)), ("ss_reference", lambda: run_ss_reference(wav)),
                          ("interactive", lambda: run_interactive(tmp)),
                          ("av_correlation", lambda: run_av_correlation(wav, tmp)),
-                         ("sd_guided", lambda: run_sd_guided(tmp)), ("sd_paths", lambda: run_sd_paths(tmp))):
+                         ("sd_guided", lambda: run_sd_guided(tmp)), ("sd_paths", lambda: run_sd_paths(tmp)),
+                         ("sd_glide", lambda: run_sd_glide(tmp)), ("sd_animation", lambda: run_sd_animation(tmp)),
+                         ("sd_video", lambda: run_sd_video(tmp))):
             if want(name):
                 results[name] = phase(name, fn)
                 torch.cuda.empty_cache()
@@ -3904,6 +4333,14 @@ def main() -> int:
         "paths_launches": {k: v["launches"] for k, v in results["sd_paths"].items()
                            if isinstance(v, dict) and "launches" in v},
         "paths_max_abs_err": results["sd_paths"]["attention_max_abs_err"],
+        "glide_launches": {k: results["sd_glide"][k]["launches"] for k in ("glide", "glid3xl")},
+        "animation_launches": {k: results["sd_animation"][k]["launches"]
+                               for k in ("interpolate", "klmc2", "outpaint", "loop")},
+        "video_launches": {k: results["sd_video"][k]["launches"] for k in ("video", "loop_direct")},
+        "slice_max_abs_err": max(results[p]["attention_max_abs_err"] for p in ("sd_glide", "sd_animation", "sd_video")),
+        "forward_mode_launches": results["sd_animation"]["klmc2"]["launches_in_jvp"],
+        "forward_mode_cases": len(results["sd_animation"]["forward_mode_cases"]),
+        "forward_mode_tangent_max_rel_err": results["sd_animation"]["tangent_max_rel_err"],
         "scope": f"the {10 * SD_STEPS + 1} launches of one 512^2 {SD_STEPS}-step SD 1.x image in f32 (sd_e2e's "
                  f"path, CUDA cores); bf16_*: the same launches in bf16 (the sd_steps path, tensor cores); "
                  f"loaded_launches: one {SD_LOAD_STEPS}-step image from a CompVis checkpoint (sd_load); "
@@ -3915,7 +4352,13 @@ def main() -> int:
                  f"held (dq, dk, dv) against autograd of the plain version within {GRAD_BAR:g} of their largest "
                  f"magnitude (autograd_grad_max_rel_err); paths_launches: sd_paths' image-conditioned, guided-"
                  f"diffusion and latent-diffusion runs, whose every case the kernel matches with "
-                 f"paths_max_abs_err (guided_max_abs_err: the same for sd_guided)",
+                 f"paths_max_abs_err (guided_max_abs_err: the same for sd_guided); glide_launches, "
+                 f"animation_launches, video_launches: the GLIDE and GLID3XL images (sd_glide), the four "
+                 f"animations (sd_animation) and the flow-warped video and loop (sd_video), whose every case the "
+                 f"kernel matches with slice_max_abs_err; forward_mode_*: KLMC2's launches inside torch.func.jvp "
+                 f"(the route's forward-mode rule: the kernel forward, a recomputed f32 tangent), each case's "
+                 f"tangent held against torch.func.jvp of the plain version within {TANGENT_BAR:g} of its "
+                 f"largest magnitude",
     }, {
         "name": "melspectrogram",
         "route": "cuda",

@@ -1,6 +1,7 @@
 """`python -m maua_tpu_torch <command> <subcommand> [options]`: audiovisual
 generate, audiovisual interactive, audiovisual selfsupervised, diffusion
-image, gan generate, super image, super video."""
+image, diffusion video, diffusion interpolate, diffusion klmc2, diffusion
+outpaint, diffusion loop, gan generate, super image, super video."""
 
 import importlib
 import sys
@@ -10,6 +11,11 @@ COMMANDS = {
     ("audiovisual", "interactive"): "maua_tpu_torch.audiovisual.interactive",
     ("audiovisual", "selfsupervised"): "maua_tpu_torch.audiovisual.selfsupervised.sample",
     ("diffusion", "image"): "maua_tpu_torch.diffusion.image",
+    ("diffusion", "video"): "maua_tpu_torch.diffusion.video",
+    ("diffusion", "interpolate"): "maua_tpu_torch.diffusion.interpolate",
+    ("diffusion", "klmc2"): "maua_tpu_torch.diffusion.klmc2",
+    ("diffusion", "outpaint"): "maua_tpu_torch.diffusion.outpaint",
+    ("diffusion", "loop"): "maua_tpu_torch.diffusion.loop_direct",
     ("gan", "generate"): "maua_tpu_torch.gan.cli",
     ("super", "image"): "maua_tpu_torch.super.image",
     ("super", "video"): "maua_tpu_torch.super.video",

@@ -11,8 +11,8 @@ and StyleGAN3's `freqs` (C, 2), `phases`, `transform` (3, 3) and
 `magnitude_ema` (). StyleGAN3's `layers` is a list of layer dicts and
 stays a list. The diffusion trees convert by rank (see
 `diffusion_params_to_torch`), and so do the super-resolution and RIFE
-trees (see `super_params_to_torch`) and the guidance networks' (see
-`guidance_params_to_torch`). Neither direction imports JAX.
+trees (see `super_params_to_torch`), the guidance networks' (see
+`guidance_params_to_torch`) and BERT's (see `bert_params_to_torch`). Neither direction imports JAX.
 """
 
 from __future__ import annotations
@@ -76,6 +76,12 @@ def diffusion_params_to_torch(jax_params: Dict, device: Optional[torch.device | 
         return torch.from_numpy(np.array(a, order="C")).to(device)
 
     return _walk(jax_params, conv)
+
+
+def bert_params_to_torch(jax_params: Dict, device: Optional[torch.device | str] = None) -> Dict:
+    """JAX BERT pytree (`maua_tpu.text.bert`) -> the port's (`maua_tpu_torch.text.bert`): linear
+    weights (in, out) -> (out, in); the embeddings, biases and norms unchanged."""
+    return diffusion_params_to_torch(jax_params, device)
 
 
 def diffusion_params_to_jax(torch_params: Dict) -> Dict:

@@ -13,9 +13,8 @@ size. Gradient guidance by CLIP (the text), LPIPS (the init or --content
 image), VGG style and colour histograms (the --style image) through the
 processor's decoder and model. The processors: Stable Diffusion (text, or
 with --image its image-conditioned variant), guided diffusion (OpenAI's
-256^2 UNet with the secondary model) and latent diffusion. Images are
-NHWC in [-1, 1]. Not ported yet, and raising: the GLIDE and GLID3XL
-processors.
+256^2 UNet with the secondary model), latent diffusion, GLIDE and GLID3XL.
+Images are NHWC in [-1, 1].
 
     python -m maua_tpu_torch diffusion image --text "a lighthouse" --sizes 512,512 --timesteps 50 --sampler lms
     python -m maua_tpu_torch diffusion image --text "a lighthouse" --sizes "512,512;1024,1024" --skips 0,0.5 \
@@ -89,15 +88,14 @@ def get_diffusion_model(
     builds Stable Diffusion (plms / ddim / p become lms, as in the reference;
     with `image`, the image-conditioned variant), "guided" guided diffusion
     (`guidance_speed` "fast" or "hyper"), "latent" latent diffusion (plms or
-    ddim). For "guided" and "stable", a scale above 0 adds its grad module,
-    with random perceptor weights on the processor's device. "latent" takes
-    no grad modules from the scales, as in the reference, so it refuses a
-    scale above 0 (pass `grad_modules` to LatentDiffusion instead)."""
+    ddim), "glide" GLIDE's base and upsampler (DDIM), "glid3xl" latent
+    diffusion conditioned by BERT (`sampler` as for "latent"). For "guided",
+    "stable" and "glid3xl", a scale above 0 adds its grad module, with random
+    perceptor weights on the processor's device. "latent" and "glide" take no
+    grad modules from the scales, as in the reference, so they refuse a scale
+    above 0 (pass `grad_modules` to LatentDiffusion instead)."""
     if isinstance(diffusion, BaseDiffusionProcessor):
         return diffusion
-    if diffusion in ("glide", "glid3xl"):
-        raise NotImplementedError(f"the {diffusion!r} processor is not ported yet (maua_tpu's "
-                                  f"diffusion/processors/glide.py, with text/bert.py)")
     scales = dict(clip_scale=clip_scale, lpips_scale=lpips_scale, style_scale=style_scale,
                   color_match_scale=color_match_scale)
 
@@ -115,14 +113,25 @@ def get_diffusion_model(
 
         return GuidedDiffusion(grad_modules=grad_modules(), sampler=sampler, timesteps=timesteps,
                                speed=guidance_speed, **model_kwargs)
+    if diffusion in ("latent", "glide") and any(s > 0 for s in scales.values()):
+        raise ValueError(f"{diffusion} diffusion takes no guidance scales, got "
+                         f"{[k for k, v in scales.items() if v > 0]}"
+                         + ("; pass grad_modules to LatentDiffusion" if diffusion == "latent" else ""))
     if diffusion == "latent":
         from .processors.latent import LatentDiffusion
 
-        if any(s > 0 for s in scales.values()):
-            raise ValueError(f"latent diffusion takes no guidance scales, got "
-                             f"{[k for k, v in scales.items() if v > 0]}; pass grad_modules to LatentDiffusion")
         smplr = sampler if sampler in ("plms", "ddim") else "plms"
         return LatentDiffusion(cfg_scale=cfg_scale, sampler=smplr, timesteps=timesteps, **model_kwargs)
+    if diffusion == "glide":
+        from .processors.glide import GLIDE
+
+        return GLIDE(cfg_scale=cfg_scale, timesteps=timesteps, **model_kwargs)
+    if diffusion == "glid3xl":
+        from .processors.glide import GLID3XL
+
+        smplr = sampler if sampler in ("plms", "ddim") else "plms"
+        return GLID3XL(grad_modules=grad_modules(), cfg_scale=cfg_scale, sampler=smplr, timesteps=timesteps,
+                       **model_kwargs)
     if diffusion == "stable":
         smplr = sampler if sampler not in ("plms", "ddim", "p") else "lms"
         model_kwargs.setdefault("image_cond", image is not None)

@@ -102,7 +102,8 @@ def group_norm(p, x, groups: int = 32, eps: float = 1e-5):
     g = min(groups, c)
     while c % g != 0:
         g -= 1
-    return F.group_norm(x.float(), g, p["scale"], p["bias"], eps).to(x.dtype)
+    # contiguous: group norm's forward-mode rule (KLMC2's jvp) views its input (the op copies it anyway)
+    return F.group_norm(x.float().contiguous(), g, p["scale"], p["bias"], eps).to(x.dtype)
 
 
 def layer_norm(p, x, eps: float = 1e-5):

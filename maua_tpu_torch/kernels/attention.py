@@ -28,7 +28,9 @@ dtype before the p.v product, the output in q's dtype.
 
 The kernel computes the forward only. `FlashAttention`'s backward
 recomputes P = softmax(q k^T s) in f32 and returns the gradients of the
-plain formulation, `attention_xla`'s, with `torch.matmul`. (maua_tpu's
+plain formulation, `attention_xla`'s, with `torch.matmul`; its forward-mode
+rule (KLMC2's Hessian-vector products through the UNet) recomputes P the
+same way and returns the plain formulation's tangent. (maua_tpu's
 Pallas kernel has no backward at all, so on a TPU its guided sampling
 cannot differentiate through it; JAX off the TPU differentiates
 `attention_xla`, which these gradients equal.)
@@ -41,6 +43,7 @@ import math
 from typing import Optional
 
 import torch
+from torch.autograd import forward_ad
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 512
@@ -184,15 +187,24 @@ def _kernel_layout(t: torch.Tensor) -> torch.Tensor:
 
 class FlashAttention(torch.autograd.Function):
     """`flash_attention_fused` forward (the kernel on the card, its plain
-    version on the CPU); backward from q, k and v saved in the forward: P
-    recomputed in f32, then dv = P^T do, dS = P * (do v^T - rowsum(P * do v^T)),
-    dq = dS k s and dk = dS^T q s, each in its input's dtype."""
+    version on the CPU), on q, k and v laid out as the kernel takes them.
+    Backward from q, k and v saved in the forward: P recomputed in f32, then
+    dv = P^T do, dS = P * (do v^T - rowsum(P * do v^T)), dq = dS k s and
+    dk = dS^T q s, each in its input's dtype. Forward mode (`jvp`, for
+    `torch.func.jvp` and `torch.autograd.forward_ad`): P recomputed in f32,
+    dS = s (dq k^T + q dk^T), dP = P * (dS - rowsum(P * dS)) and
+    dO = dP v + P dv, in q's dtype."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale):
+    def forward(q, k, v, scale):
+        return flash_attention_fused(_kernel_layout(q), _kernel_layout(k), _kernel_layout(v), scale)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, scale = inputs
         ctx.save_for_backward(q, k, v)
+        ctx.save_for_forward(q, k, v)
         ctx.scale = _scale(q, scale)
-        return flash_attention_fused(q, k, v, scale)
 
     @staticmethod
     def backward(ctx, do):
@@ -206,12 +218,36 @@ class FlashAttention(torch.autograd.Function):
         dk = torch.matmul(ds.transpose(-1, -2), qf)
         return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None
 
+    @staticmethod
+    def jvp(ctx, dq, dk, dv, _):
+        q, k, v = ctx.saved_tensors
+        qf, kf, vf = q.float(), k.float(), v.float()
+        p = torch.softmax(torch.matmul(qf, kf.transpose(-1, -2)) * ctx.scale, dim=-1)
+        ds = torch.zeros_like(p)
+        if dq is not None:
+            ds = ds + torch.matmul(dq.float(), kf.transpose(-1, -2))
+        if dk is not None:
+            ds = ds + torch.matmul(qf, dk.float().transpose(-1, -2))
+        ds = ds * ctx.scale
+        dp = p * (ds - (p * ds).sum(dim=-1, keepdim=True))
+        do = torch.matmul(dp, vf)
+        if dv is not None:
+            do = do + torch.matmul(p, dv.float())
+        return do.to(q.dtype)
+
+
+def _transformed(*ts) -> bool:
+    """Whether a tensor is wrapped by a torch.func transform or carries a forward-mode tangent."""
+    return any(torch._C._functorch.is_functorch_wrapped_tensor(t) or forward_ad.unpack_dual(t).tangent is not None
+               for t in ts)
+
 
 def flash_attention(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
     """The kernel route: `flash_attention_fused`, through `FlashAttention` where
-    autograd records (grad enabled and an input that requires grad); otherwise
-    the wrapper alone, which saves nothing."""
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+    autograd records (grad enabled and an input that requires grad) or a
+    forward-mode transform carries tangents; otherwise the wrapper alone,
+    which saves nothing."""
+    if (torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)) or _transformed(q, k, v):
         return FlashAttention.apply(q, k, v, scale)
     return flash_attention_fused(q, k, v, scale)
 
@@ -222,5 +258,7 @@ def attention(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
     if r == "packed":
         return attention_packed(q, k, v, scale)
     if r == "kernel":
+        if _transformed(q, k, v):  # a torch.func wrapper has no storage: FlashAttention.forward lays out its inputs
+            return FlashAttention.apply(q, k, v, scale)
         return flash_attention(_kernel_layout(q), _kernel_layout(k), _kernel_layout(v), scale)
     return attention_xla(q, k, v, scale)

@@ -1,1 +1,1 @@
-"""Text encoders: the CLIP text tower and its tokenizers."""
+"""Text encoders: the CLIP text tower and BERT, with their tokenizers."""

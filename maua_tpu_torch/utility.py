@@ -11,6 +11,8 @@ import torch
 
 # where checkpoints are looked up by file name, as in maua_tpu
 MODELZOO = os.environ.get("MAUA_MODELZOO", os.path.join(os.getcwd(), "modelzoo"))
+# where caches (optical flow, frame stores, video loops) are written, as in maua_tpu
+WORKSPACE = os.environ.get("MAUA_WORKSPACE", os.path.join(os.getcwd(), "workspace"))
 
 
 def resolve_device(device=None) -> torch.device:

@@ -16,6 +16,8 @@ up to 4096 keys in another order: 1e-4 relative plus 1e-5 absolute in
 f32; in bf16 one bf16 ulp plus 2^-5 of the output's RMS, since the kernel
 rounds p (each within 2^-9) against its running row max and the plain
 version against the final one, and those roundings average over the keys.
+The kernel route under forward mode (KLMC2's jvp) is held to 1e-4 of the
+largest output and tangent against torch.func.jvp of the plain version.
 The mel kernel's FFT and the plain version's cuFFT round differently:
 1e-4 of the largest output, the bar of the JAX package's own mel kernel
 test. kconv sums 9 Ci products in another order than cuDNN's f32 conv
@@ -190,6 +192,12 @@ def test_filtered_lrelu_kernel_rejects_what_it_does_not_take(cuda_device):
     ((1, 2, 256, 136), (1, 2, 256, 136)),  # not a multiple of 16, above 128
     ((1, 1, 256, 264), (1, 1, 512, 264)),  # not a multiple of 16, above 256: three output slices
     ((1, 2, 256, 64), (1, 2, 4096, 64)),  # few queries, many keys
+    ((2, 6, 1024, 64), (2, 6, 1024, 64)),  # GLIDE's 64^2 base UNet (CFG batch 2) at 32^2
+    ((2, 9, 256, 64), (2, 9, 256, 64)),  # and at 16^2
+    ((1, 6, 1024, 64), (1, 6, 1024, 64)),  # GLIDE's 256^2 upsampler at 32^2
+    ((1, 12, 256, 64), (1, 12, 256, 64)),  # and at 16^2
+    ((2, 8, 6400, 40), (2, 8, 6400, 40)),  # SD 1.x outpainted to 640^2: UNet level 0, above the packed route's 4096
+    ((1, 1, 6400, 512), (1, 1, 6400, 512)),  # and the VAE's mid attention there
 ])
 def test_flash_attention_kernel_matches_plain(cuda_device, dtype, shape_q, shape_kv):
     gen = torch.Generator(device=cuda_device).manual_seed(0)
@@ -325,6 +333,45 @@ def test_kernel_route_carries_a_gradient(cuda_device, shape_q, layout):
         assert g.shape == w.shape and float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
     with torch.no_grad():
         assert A.attention(q, k, v).grad_fn is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape_q,layout", [
+    ((2, 8, 1024, 80), "bnhd"),  # SD 1.x 512^2, UNet level 1 (CFG batch 2): KLMC2's jvp through the UNet
+    ((2, 8, 256, 160), "bnhd"),  # level 2
+    ((1, 1, 4096, 512), "bhnd"),  # the VAE decoder's mid attention
+])
+def test_kernel_route_forward_mode(cuda_device, shape_q, layout):
+    """The kernel route under torch.func.jvp (KLMC2's Hessian-vector products): the forward launches the
+    kernel once, and the output and its tangent match torch.func.jvp of the plain version on the card (f32,
+    TF32 off) within 1e-4 of their largest magnitude. torch.autograd.forward_ad reaches the same rule."""
+    b, h, n, d = shape_q
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+
+    def inputs():
+        if layout == "bnhd":
+            return [torch.randn(b, n, h * d, generator=gen, device=cuda_device).view(b, n, h, d).transpose(1, 2)
+                    for _ in range(3)]
+        return [torch.randn(b, h, n, d, generator=gen, device=cuda_device) for _ in range(3)]
+
+    primals, tangents = tuple(inputs()), tuple(inputs())
+    matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        A.reset_launches()
+        out, tangent = torch.func.jvp(A.attention, primals, tangents)
+        torch.cuda.synchronize()
+        assert A.launches == 1
+        ref_out, ref_tangent = torch.func.jvp(A.flash_attention_plain, primals, tangents)
+        with torch.autograd.forward_ad.dual_level():
+            dual = torch.autograd.forward_ad.make_dual(primals[0], tangents[0])
+            only_q = torch.autograd.forward_ad.unpack_dual(A.attention(dual, *primals[1:])).tangent
+        _, ref_q = torch.func.jvp(lambda q: A.flash_attention_plain(q, *primals[1:]), primals[:1], tangents[:1])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+    assert A.launches == 2
+    for got, want in ((out, ref_out), (tangent, ref_tangent), (only_q, ref_q)):
+        assert got.shape == want.shape and float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
 
 
 def _signal(shape, gen, device):

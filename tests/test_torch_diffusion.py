@@ -324,8 +324,8 @@ def test_img2img_and_latent_paths(pair):
 
 
 def test_not_ported_paths_raise(pair):
-    """GLIDE and GLID3XL still raise; guidance and the guided / latent processors now build
-    (tests/test_torch_guided_diffusion.py holds them against maua_tpu)."""
+    """Guidance, the guided / latent processors and GLID3XL build (tests/test_torch_guided_diffusion.py and
+    tests/test_torch_glide.py hold them against maua_tpu); GLIDE refuses a guidance scale."""
     _, tsd = pair
 
     class Grad:
@@ -333,9 +333,9 @@ def test_not_ported_paths_raise(pair):
 
     tiny = dict(unet_cfg=tsd.unet_cfg, vae_cfg=tsd.vae_cfg, text_cfg=tsd.text_cfg, device="cpu")
     assert StableDiffusion(grad_modules=[Grad()], **tiny).grad_modules[0].scale == 1.0
-    for name in ("glide", "glid3xl"):
-        with pytest.raises(NotImplementedError, match="processors/glide.py"):
-            TI.get_diffusion_model(name)
+    assert type(TI.get_diffusion_model("glid3xl", timesteps=3, **tiny)).__name__ == "GLID3XL"
+    with pytest.raises(ValueError, match="clip_scale"):
+        TI.get_diffusion_model("glide", clip_scale=1.0)
     model = TI.get_diffusion_model("stable", color_match_scale=1.0, **tiny)
     assert [type(g).__name__ for g in model.grad_modules] == ["ColorMatchGrads"]
 

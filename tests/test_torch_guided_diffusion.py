@@ -60,6 +60,13 @@ from maua_tpu_torch.text import clip_text as TT
 from test_torch_diffusion import TINY_GUIDED, TINY_TEXT, TINY_UNET, TINY_VAE, _psnr, port_cfg, random_params
 from test_torch_guidance import TINY_VISION, clip_grads_draws
 
+# One torch thread a process. Under `-n 6` six test workers share the host's cores and each worker's pool
+# defaults to a thread per core, so the pools oversubscribe the cores; every worker imports this module when
+# it collects the tests, so the cap holds for all the tests it runs. (Six workers on an 8-core host over the
+# six heaviest port test files: 621 s wall uncapped, 205 s capped; this file and
+# test_torch_guided_processors.py 1129 s and 290 s of junit time.)
+torch.set_num_threads(1)
+
 
 def _close(got, want, rtol):
     want = np.asarray(want)
@@ -299,9 +306,12 @@ def test_get_diffusion_model_builds_the_guidance_and_routes(sd_params):
     g = TI.get_diffusion_model("guided", sampler="ddim", timesteps=5, guidance_speed="hyper", clip_scale=1.0,
                                unet_cfg=port_cfg(TU.UNetConfig, TINY_GUIDED), device="cpu")
     assert isinstance(g, GuidedDiffusion) and g.conditioning.speed == "hyper" and len(g.timestep_map) == 5
-    for name in ("glide", "glid3xl"):
-        with pytest.raises(NotImplementedError, match="processors/glide.py"):
-            TI.get_diffusion_model(name, **tkw)
+    # GLIDE takes no grad modules: maua_tpu drops a guidance scale silently, the port refuses it
+    with pytest.raises(ValueError, match="clip_scale"):
+        TI.get_diffusion_model("glide", timesteps=3, clip_scale=1.0, device="cpu")
+    g3 = TI.get_diffusion_model("glid3xl", timesteps=3, color_match_scale=4.0, **tkw)
+    assert type(g3).__name__ == "GLID3XL" and [(type(g).__name__, g.scale) for g in g3.grad_modules] == \
+        [("ColorMatchGrads", 4.0)]
 
 
 def test_cli_passes_the_guidance_flags(monkeypatch, tmp_path):
