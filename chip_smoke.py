@@ -174,6 +174,18 @@ Phases, each printed as one JSON line with its elapsed seconds:
    over it (blend_every 0.1: 6 passes): flow seconds, seconds per frame,
    frames read back, launches; Horn-Schunck flow and a warp-and-blend card
    vs CPU.
+43. flow_neural: spynet, pwc, liteflownet, unflow, raft and gma from
+   synthetic checkpoints in their published layouts over an 8-frame 512^2
+   pan: seconds per pair, mean flow, card vs CPU at 256^2; then
+   video_sample on RAFT flow (20 LMS timesteps): seconds, attention
+   launches, every case held against the plain version.
+44. style: style transfer at 512^2, rgb + VGG19 + L-BFGS (20 iterations:
+   seconds and loss evaluations per iteration) and VQGAN + Adam (10
+   iterations: the decoder's (1, 1, 16384, 128) attention under autograd,
+   dq, dk, dv); one loss gradient at 128^2 card vs CPU; peak memory.
+45. style_video: the flow-consistent video style transfer at its defaults
+   (256^2, 4 passes, 64 iterations a frame) over the 8-frame pan with RAFT
+   flow: seconds per frame, flow seconds, the video read back.
 Phases that upscale fail if an out-of-memory ladder took a rung past its
 first.
 
@@ -3112,6 +3124,168 @@ def write_flow_clip(path: str, n: int = VIDEO_FRAMES, size: int = 512, shift=(3,
     return frames
 
 
+FLOW_NETS = ("spynet", "pwc", "liteflownet", "unflow", "raft", "gma")
+# each estimator's first checkpoint name in the registry (maua_tpu_torch/flow/models.py)
+FLOW_CHECKPOINTS = {"spynet": "spynet.pth", "pwc": "pwc.pth", "liteflownet": "liteflownet.pth",
+                    "unflow": "unflow.pth", "raft": "raft_large.pth", "gma": "gma-sintel.pth"}
+
+
+def _flow_tree_to_published(name: str, tree) -> dict:
+    """The port's flow parameter tree -> the published checkpoint's keys (the inverse of each
+    estimator's `params_from_torch`): sniklaus spynet / pwc / liteflownet, pytorch-unflow CSS,
+    torchvision raft_large (context-encoder norms as batch norms, feature-encoder instance norms
+    without weights) and zacjiang GMA (a `module.` prefix, attention convs without biases)."""
+    sd = {}
+
+    def put(key, p, bias=True):
+        sd[f"{key}.weight"] = p["w"]
+        if bias:
+            sd[f"{key}.bias"] = p["b"]
+
+    def seq(prefix, convs):
+        for i, p in enumerate(convs):
+            put(f"{prefix}.{2 * i}", p)
+
+    def norm(key, p, batch):
+        if batch:
+            sd.update({f"{key}.weight": p["g"], f"{key}.bias": p["b"], f"{key}.running_mean": p["b"] * 0,
+                       f"{key}.running_var": p["g"] * 1})
+
+    def encoder(base, enc, batch, names):
+        conv1, norm1, conv2, bconv, bnorm = names
+        put(f"{base}.{conv1}", enc["conv1"])
+        norm(f"{base}.{norm1}", enc["norm1"], batch)
+        put(f"{base}.{conv2}", enc["conv2"])
+        for layer in ("layer1", "layer2", "layer3"):
+            for bi, blk in enumerate(enc[layer]):
+                bb = f"{base}.{layer}.{bi}"
+                for j in ("1", "2"):
+                    put(f"{bb}.{bconv.format(j)}", blk[f"conv{j}"])
+                    norm(f"{bb}.{bnorm.format(j)}", blk[f"norm{j}"], batch)
+                if "down" in blk:
+                    put(f"{bb}.downsample.0", blk["down"])
+                    norm(f"{bb}.downsample.1", blk["dnorm"], batch)
+
+    if name == "spynet":
+        for lvl, unit in enumerate(tree):
+            seq(f"netBasic.{lvl}.netBasic", unit["convs"])
+    elif name == "pwc":
+        names = ["netOne", "netTwo", "netThr", "netFou", "netFiv", "netSix"]
+        for nm, level in zip(names, tree["extractor"]):
+            seq(f"netExtractor.{nm}", level)
+        for lvl, nm in ((6, "netSix"), (5, "netFiv"), (4, "netFou"), (3, "netThr"), (2, "netTwo")):
+            dec = tree["decoders"][lvl]
+            for sub, p in zip(names, dec["convs"]):
+                put(f"{nm}.{sub}.0", p)
+            if lvl != 6:
+                put(f"{nm}.netUpflow", dec["upflow"])
+                put(f"{nm}.netUpfeat", dec["upfeat"])
+        seq("netRefiner.netMain", tree["refiner"])
+    elif name == "liteflownet":
+        from maua_tpu_torch.flow.liteflownet import LEVELS
+
+        for part, convs in tree["features"].items():
+            seq(f"netFeatures.net{part.capitalize()}", convs)
+        for i, lvl in enumerate(LEVELS):
+            m, s, r = tree[f"matching{lvl}"], tree[f"subpixel{lvl}"], tree[f"regularization{lvl}"]
+            seq(f"netMatching.{i}.netFeat", m["feat"])
+            seq(f"netMatching.{i}.netMain", m["main"])
+            for key, mod in (("upflow", "netUpflow"), ("upcorr", "netUpcorr")):
+                if key in m:
+                    sd[f"netMatching.{i}.{mod}.weight"] = m[key]
+            seq(f"netSubpixel.{i}.netFeat", s["feat"])
+            seq(f"netSubpixel.{i}.netMain", s["main"])
+            for key, mod in (("feat", "netFeat"), ("main", "netMain"), ("dist", "netDist"), ("scale_x", "netScaleX"),
+                             ("scale_y", "netScaleY")):
+                seq(f"netRegularization.{i}.{mod}", r[key])
+    elif name == "unflow":
+        from maua_tpu_torch.flow.unflow import _stage_specs
+
+        for s, p in enumerate(tree):
+            pre = f"netFlownets.{s}"
+            for part, *_ in _stage_specs(s == 0):
+                put(f"{pre}.net{part.title().replace('_', '')}.0", p[part])
+            put(f"{pre}.netUpconv.netSixOut.0", p["flow_six"])
+            for part in ("fiv", "fou", "thr", "two"):
+                put(f"{pre}.netUpconv.net{part.title()}Next.0", p[f"up_{part}"])
+                put(f"{pre}.netUpconv.net{part.title()}Up.0", p[f"upflow_{part}"])
+                put(f"{pre}.netUpconv.net{part.title()}Out.0", p[f"flow_{part}"])
+    elif name == "raft":
+        names = ("convnormrelu.0", "convnormrelu.1", "conv", "convnormrelu{}.0", "convnormrelu{}.1")
+        encoder("feature_encoder", tree["fnet"], False, names)
+        encoder("context_encoder", tree["cnet"], True, names)
+        for key, mod in (("convc1", "convcorr1"), ("convc2", "convcorr2"), ("convf1", "convflow1"),
+                         ("convf2", "convflow2"), ("conv", "conv")):
+            put(f"update_block.motion_encoder.{mod}.0", tree["motion"][key])
+        for g, tv in (("z", "convz"), ("r", "convr"), ("q", "convq")):
+            for j in ("1", "2"):
+                put(f"update_block.recurrent_block.convgru{j}.{tv}", tree["gru"][f"{g}{j}"])
+        put("update_block.flow_head.conv1", tree["flow_head"]["conv1"])
+        put("update_block.flow_head.conv2", tree["flow_head"]["conv2"])
+        put("mask_predictor.convrelu.0", tree["mask"]["conv1"])
+        put("mask_predictor.conv", tree["mask"]["conv2"])
+    elif name == "gma":
+        names = ("conv1", "norm1", "conv2", "conv{}", "norm{}")
+        encoder("module.fnet", tree["fnet"], False, names)
+        encoder("module.cnet", tree["cnet"], True, names)
+        ub = "module.update_block"
+        for key in ("convc1", "convc2", "convf1", "convf2", "conv"):
+            put(f"{ub}.encoder.{key}", tree["motion"][key])
+        for g in ("z", "r", "q"):
+            for j in ("1", "2"):
+                put(f"{ub}.gru.conv{g}{j}", tree["gru"][f"{g}{j}"])
+        put(f"{ub}.flow_head.conv1", tree["flow_head"]["conv1"])
+        put(f"{ub}.flow_head.conv2", tree["flow_head"]["conv2"])
+        put(f"{ub}.mask.0", tree["mask"]["conv1"])
+        put(f"{ub}.mask.2", tree["mask"]["conv2"])
+        put("module.att.to_qk", tree["gma"]["to_qk"], bias=False)
+        put(f"{ub}.aggregator.to_v", tree["gma"]["to_v"], bias=False)
+        sd[f"{ub}.aggregator.gamma"] = tree["gma"]["gamma"].reshape(1)
+    else:
+        raise ValueError(f"unknown flow estimator {name!r}")
+    return sd
+
+
+def flow_checkpoint(name: str, seed: int = 0) -> dict:
+    """A synthetic checkpoint of a neural flow estimator in its published key layout, numpy f32:
+    the shapes of the port's init_params, every weight redrawn from `seed` at the init's scale,
+    biases 0.01 N(0, 1), batch norms with weights 1 + 0.1 N, biases and running means 0.1 N and
+    running variances U(0.5, 1.5), GMA's gamma 0.5."""
+    import numpy as np
+    import torch
+
+    import maua_tpu_torch.flow.liteflownet as LFN
+    import maua_tpu_torch.flow.pwc as PWC
+    import maua_tpu_torch.flow.raft as RAFT
+    import maua_tpu_torch.flow.spynet as SPY
+    import maua_tpu_torch.flow.unflow as UNF
+
+    init = {"spynet": SPY.init_params, "pwc": PWC.init_params, "liteflownet": LFN.init_params,
+            "unflow": UNF.init_params, "raft": RAFT.init_params,
+            "gma": lambda g: RAFT.init_params(g, gma=True)}[name]
+    sd = _flow_tree_to_published(name, init(torch.Generator().manual_seed(seed)))
+    rs = np.random.RandomState(seed)
+    out = {}
+    for key, v in sd.items():
+        v = v.numpy()
+        stem = key.rsplit(".", 1)[0]
+        batch_norm = f"{stem}.running_mean" in sd
+        if key.endswith("running_var"):
+            a = rs.uniform(0.5, 1.5, v.shape)
+        elif key.endswith("running_mean") or (batch_norm and key.endswith("bias")):
+            a = 0.1 * rs.randn(*v.shape)
+        elif batch_norm:  # a batch norm's weight
+            a = 1.0 + 0.1 * rs.randn(*v.shape)
+        elif key.endswith("gamma"):
+            a = np.full(v.shape, 0.5)
+        elif key.endswith("bias"):
+            a = 0.01 * rs.randn(*v.shape)
+        else:
+            a = rs.randn(*v.shape) * float(v.std())
+        out[key] = a.astype(np.float32)
+    return out
+
+
 def run_sd_video(tmp: str):
     """The flow-warped video over a synthetic 8-frame 512^2 clip (a texture shifted 3 px right and 1 down a
     frame), SD 1.x from seed-0 weights in f32: video_sample at its defaults (Farneback, skip 0.7, first_skip
@@ -3197,6 +3371,214 @@ def run_sd_video(tmp: str):
     return {**out, "launches": out["video"]["launches"] + out["loop_direct"]["launches"],
             "attention_cases": attention, "attention_max_abs_err": max(r["max_abs_err"] for r in attention),
             "card_vs_cpu": reference, **tf32}
+
+
+FLOW_TOL = 1e-2  # neural flows card vs CPU at 256^2, TF32 off: px
+STYLE_LBFGS_ITERS = 20  # L-BFGS iterations of the style phase's rgb transfer (cut from the CLI's 512)
+STYLE_VQGAN_ITERS = 10  # Adam iterations of its vqgan transfer
+STYLE_PSNR_BAR = 40.0  # the style loss's gradient card vs CPU at 128^2, TF32 off: dB
+
+
+def write_flow_checkpoints(zoo: str, names=FLOW_NETS) -> None:
+    """Each estimator's synthetic published checkpoint under its first registry file name in `zoo`."""
+    import torch
+
+    os.makedirs(zoo, exist_ok=True)
+    for name in names:
+        torch.save({k: torch.from_numpy(v) for k, v in flow_checkpoint(name).items()},
+                   os.path.join(zoo, FLOW_CHECKPOINTS[name]))
+
+
+@contextlib.contextmanager
+def flow_dirs(tmp: str, tag: str, names=FLOW_NETS):
+    """utility.MODELZOO holding the estimators' synthetic checkpoints and a WORKSPACE of its own, within the block."""
+    from maua_tpu_torch import utility
+
+    zoo = os.path.join(tmp, f"modelzoo_{tag}")
+    write_flow_checkpoints(zoo, names)
+    saved = utility.MODELZOO, utility.WORKSPACE
+    utility.MODELZOO, utility.WORKSPACE = zoo, os.path.join(tmp, f"workspace_{tag}")
+    try:
+        yield
+    finally:
+        utility.MODELZOO, utility.WORKSPACE = saved
+
+
+def run_flow_neural(tmp: str):
+    """The five neural estimators (spynet, pwc, liteflownet, unflow, raft and gma) from synthetic checkpoints
+    in their published layouts, through get_flow_model on the card over write_flow_clip's 8-frame 512^2 pan
+    (3 px right, 1 down a frame): seconds per pair (warm), the mean and largest flow. Card vs CPU, TF32 off,
+    on one 256^2 pair per estimator within FLOW_TOL px. Then video_sample over the clip with flow_models
+    ("raft",) (VIDEO_STEPS LMS timesteps, SD 1.x from seed 0, f32): seconds, the flow's seconds, frames read
+    back, attention launches (reset before and read after; 10 a UNet evaluation, 1 an encode or decode),
+    every case held against the plain version."""
+    import numpy as np
+    import torch
+
+    from maua_tpu_torch.diffusion.image import get_diffusion_model
+    from maua_tpu_torch.diffusion.video import video_sample
+    from maua_tpu_torch.flow.models import get_flow_model
+    from maua_tpu_torch.ops.video import read_video
+
+    tf32 = _default_tf32()
+    out = {}
+    with flow_dirs(tmp, "flow"):
+        clip = os.path.join(tmp, "neural_flow_clip.mp4")
+        frames = write_flow_clip(clip)
+        for name in FLOW_NETS:
+            model = get_flow_model((name,), device="cuda")
+            model(frames[0], frames[1])  # warm
+            t0 = time.perf_counter()
+            flows = np.stack([model(frames[i], frames[i + 1]) for i in range(len(frames) - 1)])
+            s = (time.perf_counter() - t0) / (len(frames) - 1)
+            if flows.shape != (len(frames) - 1, 512, 512, 2) or not np.isfinite(flows).all():
+                raise AssertionError(f"flow_neural {name}: flows {flows.shape}, want finite (7, 512, 512, 2)")
+            out[name] = {"seconds_per_pair": s, "mean_flow_px": flows.mean((0, 1, 2)).tolist(),
+                         "max_abs_flow_px": float(np.abs(flows).max())}
+            del model
+            torch.cuda.empty_cache()
+        small = frames[:2, ::2, ::2]
+        with tf32_off():
+            for name in FLOW_NETS:
+                got = {dev: get_flow_model((name,), device=dev)(small[0], small[1]) for dev in ("cuda", "cpu")}
+                diff = float(np.abs(got["cuda"] - got["cpu"]).max())
+                out[name].update(card_vs_cpu_px=diff, card_vs_cpu_of_px=float(np.abs(got["cpu"]).max()))
+                if not diff <= FLOW_TOL:
+                    raise AssertionError(f"flow_neural {name}: card vs CPU {diff} px")
+        model = get_diffusion_model("stable", timesteps=VIDEO_STEPS, sampler="lms", device="cuda", seed=0)
+        out_file, stages = os.path.join(tmp, "raft_diffused.mp4"), {}
+        with attention_cases_recorded() as cases, \
+                counted_calls(model, "encode", "decode") as coded, counted_calls(model.denoiser, "eps_model") as evals:
+            written, s, n = timed_path(lambda: video_sample(model, clip, out_file=out_file, text=SD_PROMPT,
+                                                            size=(512, 512), flow_models=("raft",),
+                                                            stage_times=stages, verbose=False))
+            want = 10 * evals["eps_model"] + coded["encode"] + coded["decode"]
+        back, _ = read_video(written)
+        del model
+        torch.cuda.empty_cache()
+        if back.shape != (VIDEO_FRAMES, 512, 512, 3) or back.min() == back.max():
+            raise AssertionError(f"flow_neural video: read back {back.shape}")
+        if n != want or n == 0 or sum(cases.values()) != n:
+            raise AssertionError(f"flow_neural video: {n} launches, {sum(cases.values())} recorded, want {want}")
+        attention = check_attention_cases(cases, "flow_neural")
+        out["video"] = {"seconds": s, "flow_seconds": stages["flow"], "frames_read_back": int(back.shape[0]),
+                        "seconds_per_frame": (s - stages["flow"]) / VIDEO_FRAMES,
+                        "unet_evaluations": evals["eps_model"], "launches": n}
+    return {**out, "launches": n, "attention_cases": attention,
+            "attention_max_abs_err": max(r["max_abs_err"] for r in attention), **tf32}
+
+
+def style_loss_and_grad(content: str, style: str, size: int, device: str, vgg):
+    """One evaluation of style/image.transfer's loss (rgb from the content, kbc-vgg19 with the given
+    parameters, its default weights) and its gradient, at size^2 on `device`."""
+    import torch
+
+    from maua_tpu_torch.loss import gram_matrix, scaled_mse_loss, tv_loss
+    from maua_tpu_torch.ops.image import resample
+    from maua_tpu_torch.ops.io import load_images
+    from maua_tpu_torch.parameterizations import load_parameterization
+    from maua_tpu_torch.style.image import build_perceptor, style_targets, to_image
+
+    c, (s,) = load_images(content, [style])
+    c, s = resample(to_image(c, device), size), resample(to_image(s, device), size)
+    percept = build_perceptor("kbc-vgg19", {"params": vgg}, device)
+    pastiche = load_parameterization("rgb")(size, size, tensor=c, device=device)
+    with torch.no_grad():
+        feats = percept.get_features(c)
+        content_targets = [feats[i] for i in percept.content_layers]
+    targets = style_targets(percept, [s])
+    img = pastiche.decode()
+    feats = percept.get_features(img)
+    loss = 100.0 * tv_loss(img)
+    for i, t in zip(percept.content_layers, content_targets):
+        loss = loss + scaled_mse_loss(feats[i], t)
+    for i, t in zip(percept.style_layers, targets):
+        loss = loss + 50.0 * scaled_mse_loss(gram_matrix(feats[i]), t)
+    loss.backward()
+    return float(loss.detach()), pastiche.tensor.grad.cpu().numpy()
+
+
+def run_style(tmp: str):
+    """style/image.transfer at 512^2 (the CLI's size): rgb + kbc-vgg19 + lbfgs (STYLE_LBFGS_ITERS iterations,
+    cut from 512): seconds and loss evaluations per iteration (the zoom linesearch's), peak memory; then
+    vqgan (its in-tree AutoencoderKL decoder from seed 0, init_type "random") + adam for STYLE_VQGAN_ITERS
+    iterations (per-iteration seconds: the optimization loop's, set-up apart): the decoder's (1, 1, 16384, 128)
+    mid attention runs through the kernel route's FlashAttention
+    under autograd, one launch an iteration and one for the final decode; every case held against the
+    plain version, forward and dq, dk, dv. Card vs CPU, TF32 off, at 128^2: one loss and gradient
+    evaluation (rgb), the gradient's PSNR (peak: its largest magnitude) at least STYLE_PSNR_BAR."""
+    import numpy as np
+    import torch
+
+    from maua_tpu_torch.perceptors import vgg as VGG
+    from maua_tpu_torch.style.image import transfer
+
+    tf32 = _default_tf32()
+    content, style = os.path.join(tmp, "style_content.png"), os.path.join(tmp, "style_style.png")
+    write_frame(content, 512, 5)
+    write_style_image(style, 512, seed=4)
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+    stats = {}
+    img, s, n = timed_path(lambda: transfer(content, [style], n_iters=STYLE_LBFGS_ITERS, device="cuda",
+                                            stats=stats, verbose=False))
+    check_image(img, (1, 512, 512, 3), "style rgb")
+    out["rgb_lbfgs"] = {"seconds": s, "seconds_per_iteration": stats["loop_seconds"] / STYLE_LBFGS_ITERS,
+                        "evaluations_per_iteration": stats["evaluations"] / STYLE_LBFGS_ITERS, "launches": n,
+                        "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    torch.cuda.reset_peak_memory_stats()
+    with attention_cases_recorded() as cases, autograd_attention_cases() as grad_cases:
+        img, s, n = timed_path(lambda: transfer(content, [style], parameterization="vqgan", init_type="random",
+                                                optimizer="adam", lr=0.05, n_iters=STYLE_VQGAN_ITERS, device="cuda",
+                                                stats=stats, verbose=False))
+    check_image(img, (1, 512, 512, 3), "style vqgan")
+    if n != STYLE_VQGAN_ITERS + 1 or sum(cases.values()) != n or sum(grad_cases.values()) != STYLE_VQGAN_ITERS:
+        raise AssertionError(f"style vqgan: {n} launches, {sum(cases.values())} recorded, "
+                             f"{sum(grad_cases.values())} under autograd")
+    out["vqgan_adam"] = {"seconds": s, "seconds_per_iteration": stats["loop_seconds"] / STYLE_VQGAN_ITERS,
+                         "launches": n, "launches_under_autograd": sum(grad_cases.values()),
+                         "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    torch.cuda.empty_cache()
+    attention = check_attention_cases(cases, "style")
+    gradients = check_attention_gradients(grad_cases, "style")
+    vgg = VGG.init_params(torch.Generator().manual_seed(0))
+    with tf32_off():
+        (loss_card, grad_card), (loss_cpu, grad_cpu) = (style_loss_and_grad(content, style, 128, dev, vgg)
+                                                        for dev in ("cuda", "cpu"))
+    psnr = psnr_db(grad_card, grad_cpu, float(np.abs(grad_cpu).max()))
+    if not psnr >= STYLE_PSNR_BAR:
+        raise AssertionError(f"style card vs CPU: gradient {psnr} dB")
+    out["card_vs_cpu"] = {"loss_card": loss_card, "loss_cpu": loss_cpu, "grad_psnr_db": psnr}
+    return {**out, "launches": n, "attention_cases": attention, "gradient_cases": gradients,
+            "attention_max_abs_err": max(r["max_abs_err"] for r in attention), **tf32}
+
+
+def run_style_video(tmp: str):
+    """style/video.transfer at its defaults (256^2, 4 passes, 64 Adam iterations a frame, blending and the
+    temporal loss on, kbc-vgg19 from seed 0) over write_flow_clip's 8-frame 512^2 pan, with flow_models
+    ("raft",) from the synthetic raft_large checkpoint: the video written and read back, seconds per frame,
+    the flow's seconds."""
+    import numpy as np
+
+    from maua_tpu_torch.ops.video import read_video, write_video
+    from maua_tpu_torch.style.video import transfer
+
+    tf32 = _default_tf32()
+    with flow_dirs(tmp, "style_video", ("raft",)):
+        clip, style = os.path.join(tmp, "style_clip.mp4"), os.path.join(tmp, "video_style.png")
+        write_flow_clip(clip)
+        write_style_image(style, 512, seed=5)
+        stages = {}
+        video, s, n = timed_path(lambda: transfer(clip, [style], flow_models=("raft",), device="cuda",
+                                                  stage_times=stages, verbose=False))
+        out_file = os.path.join(tmp, "style_video.mp4")
+        write_video(video, out_file, fps=8)
+        back, _ = read_video(out_file)
+    if back.shape != (VIDEO_FRAMES, 256, 256, 3) or not np.isfinite(video).all() or back.min() == back.max():
+        raise AssertionError(f"style_video: read back {back.shape}")
+    return {"seconds": s, "flow_seconds": stages["flow"], "passes_seconds": stages["passes"],
+            "seconds_per_frame": stages["passes"] / VIDEO_FRAMES, "frames_read_back": int(back.shape[0]),
+            "launches": n, **tf32}
 
 
 def run_writer(repo: str, tmp: str):
@@ -4196,7 +4578,8 @@ def main() -> int:
               "ar_reference,gan_load,sd_load,writer,super_load,super_video,umx,noise_patch,gan_generate,fast,"
               "profile,sg3_profile,reference,sg3_reference,sd_e2e,sd_steps,sd_profile,sd_reference,super,"
               "super_reference,sd_multires,sg3_resize,realtime,ss_mir,ss_e2e,ss_reference,interactive,"
-              "av_correlation,sd_guided,sd_paths,sd_glide,sd_animation,sd_video,delivery]",
+              "av_correlation,sd_guided,sd_paths,sd_glide,sd_animation,sd_video,flow_neural,style,style_video,"
+              "delivery]",
               file=sys.stderr)
         return 2
 
@@ -4239,7 +4622,8 @@ def main() -> int:
                          ("av_correlation", lambda: run_av_correlation(wav, tmp)),
                          ("sd_guided", lambda: run_sd_guided(tmp)), ("sd_paths", lambda: run_sd_paths(tmp)),
                          ("sd_glide", lambda: run_sd_glide(tmp)), ("sd_animation", lambda: run_sd_animation(tmp)),
-                         ("sd_video", lambda: run_sd_video(tmp))):
+                         ("sd_video", lambda: run_sd_video(tmp)), ("flow_neural", lambda: run_flow_neural(tmp)),
+                         ("style", lambda: run_style(tmp)), ("style_video", lambda: run_style_video(tmp))):
             if want(name):
                 results[name] = phase(name, fn)
                 torch.cuda.empty_cache()
@@ -4341,6 +4725,12 @@ def main() -> int:
         "forward_mode_launches": results["sd_animation"]["klmc2"]["launches_in_jvp"],
         "forward_mode_cases": len(results["sd_animation"]["forward_mode_cases"]),
         "forward_mode_tangent_max_rel_err": results["sd_animation"]["tangent_max_rel_err"],
+        "neural_flow_video_launches": results["flow_neural"]["launches"],
+        "style_launches": results["style"]["launches"],
+        "style_launches_under_autograd": results["style"]["vqgan_adam"]["launches_under_autograd"],
+        "style_grad_max_rel_err": max(r["grad_rel_err"][g] for r in results["style"]["gradient_cases"]
+                                      for g in ("dq", "dk", "dv")),
+        "style_max_abs_err": max(results[p]["attention_max_abs_err"] for p in ("flow_neural", "style")),
         "scope": f"the {10 * SD_STEPS + 1} launches of one 512^2 {SD_STEPS}-step SD 1.x image in f32 (sd_e2e's "
                  f"path, CUDA cores); bf16_*: the same launches in bf16 (the sd_steps path, tensor cores); "
                  f"loaded_launches: one {SD_LOAD_STEPS}-step image from a CompVis checkpoint (sd_load); "
@@ -4358,7 +4748,11 @@ def main() -> int:
                  f"kernel matches with slice_max_abs_err; forward_mode_*: KLMC2's launches inside torch.func.jvp "
                  f"(the route's forward-mode rule: the kernel forward, a recomputed f32 tangent), each case's "
                  f"tangent held against torch.func.jvp of the plain version within {TANGENT_BAR:g} of its "
-                 f"largest magnitude",
+                 f"largest magnitude; neural_flow_video_launches: the flow-warped video on RAFT flow "
+                 f"(flow_neural); style_launches: the 512^2 VQGAN style transfer ({STYLE_VQGAN_ITERS} Adam "
+                 f"iterations, style), whose (1, 1, 16384, 128) decoder attention runs under autograd "
+                 f"(style_launches_under_autograd; dq, dk, dv within style_grad_max_rel_err), every case of both "
+                 f"matched with style_max_abs_err",
     }, {
         "name": "melspectrogram",
         "route": "cuda",

@@ -1,7 +1,8 @@
 """`python -m maua_tpu_torch <command> <subcommand> [options]`: audiovisual
 generate, audiovisual interactive, audiovisual selfsupervised, diffusion
 image, diffusion video, diffusion interpolate, diffusion klmc2, diffusion
-outpaint, diffusion loop, gan generate, super image, super video."""
+outpaint, diffusion loop, gan generate, style image, style video, super image,
+super video."""
 
 import importlib
 import sys
@@ -17,6 +18,8 @@ COMMANDS = {
     ("diffusion", "outpaint"): "maua_tpu_torch.diffusion.outpaint",
     ("diffusion", "loop"): "maua_tpu_torch.diffusion.loop_direct",
     ("gan", "generate"): "maua_tpu_torch.gan.cli",
+    ("style", "image"): "maua_tpu_torch.style.cli",
+    ("style", "video"): "maua_tpu_torch.style.video",
     ("super", "image"): "maua_tpu_torch.super.image",
     ("super", "video"): "maua_tpu_torch.super.video",
 }

@@ -138,3 +138,48 @@ def super_params_to_torch(jax_params: Dict, device: Optional[torch.device | str]
         return conv(tree, perm)
 
     return walk(jax_params)
+
+
+# transposed convs of the flow estimators: a dict under one of these names holds one whose "w" maua_tpu
+# keeps spatially flipped in HWIO (kh, kw, in, out) for an lhs-dilated conv; liteflownet's grouped ones
+# ("upflow", "upcorr" as bare (4, 4, 1, C) arrays) hold one channel a group
+_FLOW_DECONV = ("upflow", "upfeat", "upcorr")
+
+
+def _is_flow_deconv(name: Optional[str]) -> bool:
+    return isinstance(name, str) and (name in _FLOW_DECONV or name.startswith(("up_", "upflow_")))
+
+
+def flow_params_to_torch(name: str, jax_params, device: Optional[torch.device | str] = None):
+    """A JAX neural flow estimator's tree (`maua_tpu.flow.{spynet,pwc,liteflownet,unflow,raft}`;
+    `name` is its registry name) -> the port's: conv weights HWIO -> OIHW, the transposed convs
+    unflipped into (in, out, kh, kw), liteflownet's grouped ones into (C, 1, 4, 4); biases, norms
+    (the folded frozen ones keep their "frozen" mark), GMA's gamma and PWC's refiner dilations
+    unchanged."""
+    if name not in ("spynet", "pwc", "pwcnet", "liteflownet", "unflow", "raft", "raft_large", "gma"):
+        raise ValueError(f"unknown flow estimator {name!r}")
+
+    def leaf(a, perm=None, flip=False):
+        a = np.asarray(a, dtype=np.float32)
+        if flip:
+            a = a[::-1, ::-1]
+        if perm is not None:
+            a = a.transpose(perm)
+        return torch.from_numpy(np.array(a, order="C")).to(device)
+
+    def walk(tree, key=None):
+        if isinstance(tree, dict):
+            if "w" in tree and not isinstance(tree["w"], dict):
+                deconv = _is_flow_deconv(key)
+                return {k: leaf(v, ((2, 3, 0, 1) if deconv else (3, 2, 0, 1)), deconv) if k == "w" else leaf(v)
+                        for k, v in tree.items()}
+            return {k: walk(v, k) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [walk(v, key) for v in tree]
+        if isinstance(tree, tuple):  # PWC's refiner dilations
+            return tuple(tree)
+        if key in ("upflow", "upcorr"):  # liteflownet's grouped transposed convs, (4, 4, 1, C)
+            return leaf(tree, (3, 2, 0, 1), flip=True)
+        return leaf(tree)
+
+    return walk(jax_params)

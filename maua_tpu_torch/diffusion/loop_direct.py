@@ -193,7 +193,8 @@ def main(args=None):
     parser.add_argument("--blend", default=2.0, type=float)
     parser.add_argument("--consistency_trust", default=0.75, type=float)
     parser.add_argument("--turbo", default=1, type=int)
-    parser.add_argument("--flow_models", default="farneback", type=str, help="comma-separated: farneback, hs")
+    parser.add_argument("--flow_models", default="farneback", type=str,
+                        help="comma-separated: farneback, hs, spynet, pwc, liteflownet, unflow, raft, gma")
     parser.add_argument("--cfg_scale", default=3.0, type=float)
     parser.add_argument("--max_frames", default=None, type=int)
     parser.add_argument("--fps", default=12, type=float)

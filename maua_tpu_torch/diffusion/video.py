@@ -310,7 +310,8 @@ def main(args=None):
     parser.add_argument("--turbo", default=1, type=int, help="diffuse every turbo'th frame, flow-interpolate the rest")
     parser.add_argument("--noise_injection", default=0.02, type=float)
     parser.add_argument("--flow_exaggeration", default=1.0, type=float)
-    parser.add_argument("--flow_models", default="farneback", type=str, help="comma-separated: farneback, hs")
+    parser.add_argument("--flow_models", default="farneback", type=str,
+                        help="comma-separated: farneback, hs, spynet, pwc, liteflownet, unflow, raft, gma")
     parser.add_argument("--guidance_speed", default="fast", choices=["regular", "fast"])
     parser.add_argument("--clip_scale", default=0.0, type=float)
     parser.add_argument("--lpips_scale", default=0.0, type=float)

@@ -2,27 +2,38 @@
 
 Port of `maua_tpu/flow/models.py`: OpenCV's Farneback on the host (the
 reference's default estimator), a coarse-to-fine Horn-Schunck flow on the
-device (`hs_flow`, the registry's "hs" or "jax"), and `get_flow_model`,
-which averages the estimators it is given. The five neural estimators
-(spynet, pwc, liteflownet, unflow, raft / gma) are not ported yet and
-raise; an unknown name raises too (the reference prints a message and
-substitutes Farneback).
+device (`hs_flow`, the registry's "hs" or "jax"), the five neural
+estimators (spynet, pwc, liteflownet, unflow, raft / gma) from their
+published checkpoints in `utility.MODELZOO` (`_neural_params`), and
+`get_flow_model`, which averages the estimators it is given. An unknown
+name raises (the reference prints a message and substitutes Farneback).
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, Sequence
+import os
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import utility
 from ..ops.warp import grid_sample, identity_grid, resize
-from ..utility import resolve_device
+from ..utility import resolve_device, to_device
 
-# the neural estimators' maua_tpu files, by registry name
-_NEURAL = {"spynet": "spynet.py", "pwc": "pwc.py", "pwcnet": "pwc.py", "liteflownet": "liteflownet.py",
-           "unflow": "unflow.py", "raft": "raft.py", "gma": "raft.py", "raft_large": "raft.py"}
+# the neural estimators by registry name: (module, flow function, converter, checkpoint file names)
+_NEURAL = {
+    "spynet": ("spynet", "spynet_flow", "params_from_torch",
+               ("spynet.pth", "network-sintel-final.pytorch", "spynet_sintel_final.pth")),
+    "pwc": ("pwc", "pwc_flow", "params_from_torch", ("pwc.pth", "network-default.pytorch", "pwc_default.pth")),
+    "liteflownet": ("liteflownet", "liteflownet_flow", "params_from_torch",
+                    ("liteflownet.pth", "network-default-lfn.pytorch", "liteflownet_default.pth")),
+    "unflow": ("unflow", "unflow_flow", "params_from_torch", ("unflow.pth", "network-css.pytorch", "unflow_css.pth")),
+    "raft": ("raft", "raft_flow", "params_from_torch", ("raft_large.pth",)),
+    "gma": ("raft", "raft_flow", "params_from_torch_gma", ("gma-sintel.pth", "gma-things.pth", "gma.pth")),
+}
+_NEURAL["pwcnet"], _NEURAL["raft_large"] = _NEURAL["pwc"], _NEURAL["raft"]
 
 
 def farneback_flow(frame1: np.ndarray, frame2: np.ndarray) -> np.ndarray:
@@ -97,12 +108,57 @@ def hs_flow(frame1, frame2, levels: int = 4, device=None) -> torch.Tensor:
     return flow
 
 
+def _neural_params(name: str, candidates: Sequence[str], convert: Callable, allow_random: bool) -> Optional[dict]:
+    """The converted parameters of the first checkpoint of `candidates` present in
+    `utility.MODELZOO` (a `{"model": state_dict}` training state is unwrapped). With none
+    loadable, FileNotFoundError naming the paths, unless `allow_random` (then None: random
+    weights, with the load errors printed). Random weights averaged into an ensemble would
+    corrupt every warp downstream, so they are an explicit opt-in."""
+    errs = []
+    for fname in candidates:
+        ckpt = os.path.join(utility.MODELZOO, fname)
+        if os.path.exists(ckpt):
+            try:
+                sd = torch.load(ckpt, map_location="cpu", weights_only=True)
+                if isinstance(sd, dict) and "model" in sd:
+                    sd = sd["model"]  # training-state wrapper (raft / gma)
+                return convert({k: torch.as_tensor(v).float() for k, v in sd.items()})
+            except Exception as e:  # noqa: BLE001 - every failure is reported with its path
+                errs.append(f"{ckpt}: {e}")
+    if allow_random:
+        if errs:
+            print(f"{name} checkpoint load failed ({'; '.join(errs)}); using random init")
+        return None
+    paths = ", ".join(os.path.join(utility.MODELZOO, f) for f in candidates)
+    raise FileNotFoundError(
+        f"flow model {name!r} has no checkpoint (looked for: {paths})"
+        + (f"; load errors: {'; '.join(errs)}" if errs else "")
+        + " -- pass allow_random=True to get_flow_model to run it with random weights")
+
+
+def _neural_flow(name: str, allow_random: bool, device) -> Callable:
+    """fn(frame1, frame2) -> numpy flow of a neural estimator, its parameters on `device`."""
+    import importlib
+
+    module, flow_fn, converter, candidates = _NEURAL[name]
+    mod = importlib.import_module(f"{__package__}.{module}")
+    params = _neural_params(name, candidates, getattr(mod, converter), allow_random)
+    if params is None:  # seed-0 random weights, drawn once
+        gen = torch.Generator(device=device).manual_seed(0)
+        params = mod.init_params(gen, gma=True) if name == "gma" else mod.init_params(gen)
+    params = to_device(params, device)
+    fn = getattr(mod, flow_fn)
+    return lambda a, b: fn(a, b, params=params, device=device)
+
+
 def get_flow_model(which: Sequence[str] = ("farneback",), allow_random: bool = False, device=None) -> Callable:
     """fn(frame1, frame2) -> (H, W, 2) numpy flow, the mean of the named
-    estimators': "farneback" (on the host) and "hs" / "jax" (Horn-Schunck on
-    `device`, cuda unless told otherwise). The neural estimators raise
-    NotImplementedError (`allow_random`, their random-weight opt-in, waits
-    for them) and an unknown name raises ValueError."""
+    estimators': "farneback" (on the host), "hs" / "jax" (Horn-Schunck) and
+    the neural spynet, pwc (pwcnet), liteflownet, unflow, raft (raft_large)
+    and gma, each on `device` (cuda unless told otherwise). A neural
+    estimator loads its published checkpoint from `utility.MODELZOO` and
+    raises FileNotFoundError without one, unless `allow_random` (seed-0
+    random weights). An unknown name raises ValueError."""
     fns: List[Callable] = []
     for name in which:
         if name == "farneback":
@@ -111,7 +167,7 @@ def get_flow_model(which: Sequence[str] = ("farneback",), allow_random: bool = F
             dev = resolve_device(device)
             fns.append(lambda a, b: hs_flow(a, b, device=dev).cpu().numpy())
         elif name in _NEURAL:
-            raise NotImplementedError(f"the {name!r} flow estimator is not ported yet (maua_tpu/flow/{_NEURAL[name]})")
+            fns.append(_neural_flow(name, allow_random, resolve_device(device)))
         else:
             raise ValueError(f"unknown flow model {name!r}: farneback, hs, jax or one of {sorted(_NEURAL)}")
 

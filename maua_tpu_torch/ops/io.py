@@ -1,7 +1,7 @@
 """Host-side image IO: PIL <-> NHWC float arrays.
 
 Port of `maua_tpu/ops/io.py` (img2tensor, tensor2img, save_image,
-load_image). Arrays are numpy NHWC float32; `save_image` takes [-1, 1]
+load_image, load_images). Arrays are numpy NHWC float32; `save_image` takes [-1, 1]
 and also accepts a torch tensor on any device. PIL is imported inside
 the functions that read or write a file.
 """
@@ -57,3 +57,16 @@ def load_image(im) -> np.ndarray:
         return img2tensor(im)
     arr = np.asarray(_numpy(im), dtype=np.float32)
     return arr if arr.ndim == 4 else arr[None]
+
+
+def load_images(*inputs):
+    """Each input loaded by `load_image`, None kept, lists and tuples loaded recursively into lists."""
+    results = []
+    for item in inputs:
+        if item is None:
+            results.append(None)
+        elif isinstance(item, (list, tuple)):
+            results.append(load_images(*item))
+        else:
+            results.append(load_image(item))
+    return results

@@ -1,5 +1,5 @@
-"""Device selection, stage timing, prompt parsing and the model directory
-shared by the port's entry points."""
+"""Device selection, stage timing, prompt and CLI kwarg parsing and the
+model directory shared by the port's entry points."""
 
 from __future__ import annotations
 
@@ -75,12 +75,13 @@ class StageClock:
 
 
 def to_device(tree, device):
-    """A parameter tree (nested dicts and lists of tensors) on `device`."""
+    """A parameter tree (nested dicts and lists of tensors) on `device`; other leaves (a tuple of
+    dilations) as they are."""
     if isinstance(tree, dict):
         return {k: to_device(v, device) for k, v in tree.items()}
     if isinstance(tree, list):
         return [to_device(v, device) for v in tree]
-    return tree.to(device)
+    return tree.to(device) if isinstance(tree, torch.Tensor) else tree
 
 
 def parse_prompt(prompt: str):
@@ -92,3 +93,31 @@ def parse_prompt(prompt: str):
         vals = prompt.rsplit(":", 1)
     vals = vals + ["", "1"][len(vals) :]
     return vals[0], float(vals[1])
+
+
+def parse_kwarg_list(items) -> dict:
+    """A CLI kwarg list as a dict: `key=value` pairs (values read as Python literals where they
+    parse) or `key type value` triplets with type str, int, float or bool."""
+    import ast
+
+    items = list(items or [])
+    if not items:
+        return {}
+    if all("=" in it for it in items):
+        out = {}
+        for it in items:
+            k, v = it.split("=", 1)
+            try:
+                out[k] = ast.literal_eval(v)
+            except (ValueError, SyntaxError):
+                out[k] = v
+        return out
+    if len(items) % 3 != 0:
+        raise ValueError(f"kwarg list must be key=value pairs or 'key type value' triplets, got {items}")
+    casts = {"str": str, "int": int, "float": float, "bool": lambda v: v.lower() not in ("false", "0", "")}
+    out = {}
+    for k, t, v in zip(items[::3], items[1::3], items[2::3]):
+        if t not in casts:
+            raise ValueError(f"unsupported kwarg type {t!r} (one of {sorted(casts)})")
+        out[k] = casts[t](v)
+    return out
