@@ -186,6 +186,40 @@ Phases, each printed as one JSON line with its elapsed seconds:
 45. style_video: the flow-consistent video style transfer at its defaults
    (256^2, 4 passes, 64 iterations a frame) over the 8-frame pan with RAFT
    flow: seconds per frame, flow seconds, the video read back.
+46. epilogue_grad (after kernel): the epilogue's autograd route
+   (`ModconvEpilogue`: the kernel forward, a recomputed f32 backward) at
+   every epilogue shape of a 1024^2 StyleGAN2 frame batch of 8 (the plain
+   route's layers, the s2d cells with pre_next), f32 and bf16: dz, dpost,
+   dnoise, dbias and dpre_next against autograd of the plain version on the
+   card, the backward's ms per batch beside its bound.
+47. gan_langevin (after style_video): `gan generate --sampling langevin
+   --langevin_critic "a red fox" --seeds 0-2` at 1024^2 (50 steps, seed-0
+   StyleGAN2 and CLIP): the PNGs, 17 launches under autograd a step, each
+   case's gradients; dE/dz through the kernel against the plain version at
+   1024^2 (f32) and card vs CPU at 128^2, TF32 off; beside it dE/dz with the
+   Function's backward on the plain forward (the backward alone), with every
+   epilogue output one ulp off (forward rounding alone), and two wrong
+   gradients the bar must catch (a launch with no grad_fn, dpost dropped).
+48. style_zoo: style transfer at 512^2, 10 iterations each: the stylegan
+   parameterization with adam (15 launches a decode under autograd), the
+   caffe zoo's pgg-vgg19 with lbfgs and nin with avg pooling, nima_score of
+   a result, ranger (a Lookahead over RAdam); the stylegan loss's gradient
+   card vs CPU at 128^2.
+49. nca: `python -m maua_tpu_torch nca run` trains at 128^2 (batch 4,
+   rollouts of 32-63 steps) for 20 steps and renders 120 frames at 256^2,
+   read back: seconds per step, each step's loss and state peak (maua_tpu's
+   recipe lets the states grow until they overflow; a loss may go
+   non-finite only where the states did); 6 steps at 128^2 card vs CPU on
+   the same draws; 120 frames rendered from those params, all finite:
+   render fps.
+50. video_vit (after realtime): the video ViT's gram style transfer at
+   width 128, 4 layers, 4 heads, patch 8, tubelet 2 over an 8-frame 256^2
+   clip, 20 Adam iterations: seconds per iteration, peak memory.
+51. optimizers: every one of the 104 registry names 10 steps on an (8, 6)
+   and a (6,) parameter, card vs CPU (TF32 off) within 1e-5; beside each,
+   how far one ulp of every gradient moves it on the CPU alone; the two
+   shampoo names (one ulp moves them 3e-5 to 3.5e-4) within 1e-3, on nine
+   draws of the problem.
 Phases that upscale fail if an out-of-memory ladder took a rung past its
 first.
 
@@ -1966,7 +2000,7 @@ def synchronous_delivery():
 
 DELIVERY_FRAMES = 96  # frames per timed render: 12 batches of 8, 3 of 32
 DELIVERY_ROUTES = (("sync", "rgb24"), ("pipelined", "rgb24"), ("pipelined", "yuv420p"), ("sync", "yuv420p"))
-DELIVERY_ROUNDS = 3  # timed renders of each route: 2 per round, in the order A B C D D C B A
+DELIVERY_ROUNDS = 2  # timed renders of each route: 2 per round, in the order A B C D D C B A
 
 
 def device_busy_ms(prof) -> float:
@@ -2875,6 +2909,17 @@ def check_forward_mode_cases(cases, what: str):
             rows.append(row)
     A.reset_launches()
     return rows
+
+
+@contextlib.contextmanager
+def swapped(obj, name: str, value):
+    """obj.name set to value within the block, then restored."""
+    real = obj.__dict__[name] if isinstance(obj, type) else getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, real)
 
 
 @contextlib.contextmanager
@@ -4548,6 +4593,581 @@ def run_av_correlation(wav: str, tmp: str):
             "over_1e-3_and_moving_at_roundoff": sorted(over), "reference_frames": AV_REFERENCE_FRAMES,
             "reference_card_seconds": card_seconds, "reference_cpu_seconds": cpu_seconds}
 
+LANGEVIN_PROMPT = "a red fox"
+LANGEVIN_SEEDS = "0-2"  # two images at the command's defaults (50 Langevin steps)
+# dE/dz at 1024^2 through the kernel route against the plain version, of its largest magnitude, with cuDNN's
+# deterministic algorithms: the two forwards round apart (the kernel's fused multiply-adds) and 18 f32 conv
+# layers, the resize and CLIP's 12 blocks carry that to the gradient, as far as one ulp on every epilogue output
+# does (run_gan_langevin measures both); a dropped or detached epilogue gradient moves it by over 0.1. Each
+# case's own gradients are held to GRAD_BAR (check_epilogue_gradients)
+LANGEVIN_ROUTE_BAR = 1e-3
+ZOO_ITERS = 10  # iterations of each style_zoo transfer (cut from the CLI's 512)
+ZOO_PSNR_BAR = 40.0  # the stylegan loss gradient card vs CPU at 128^2, TF32 off: dB
+VIT_ITERS = 20  # Adam iterations of the video_vit phase (cut from 100)
+NCA_STEPS, NCA_FRAMES = 20, 120  # nca run: training steps (cut from 2000), rendered frames (cut from 600)
+NCA_PARITY_STEPS = 6  # training steps at 128^2 held card vs CPU on the same draws
+OPT_STEPS = 10  # steps of each registry name in the optimizers phase
+OPT_TOL = 1e-5  # each registry name card vs CPU, TF32 off: of each parameter's largest magnitude
+# shampoo and lookahead-shampoo: on the CPU alone, gradients put one ulp off move their parameters by 3e-5 to
+# 3.5e-4 of their largest magnitude after OPT_STEPS steps (every other name: under 2e-7), so no bar under that
+# tells the two devices' last-bit differences in the statistics' products and eigh from a fault; card vs CPU
+# they read 2.7e-5 to 2.33e-4 over the nine problems (H100 80GB HBM3, 700.00 W); a wrong power or a dropped
+# preconditioner moves them by O(1)
+OPT_TOL_SHAMPOO = 1e-3
+SHAMPOO_PROBLEMS = 8  # further draws of the optimizers problem for the two shampoo names
+
+
+@contextlib.contextmanager
+def autograd_epilogue_cases():
+    """Counts the epilogue's launches on the card under autograd (`ModconvEpilogue`'s forward), by case:
+    (z's shape, its dtype, the noise's shape or None, whether a next style scale is applied, alpha, gain,
+    clamp)."""
+    import collections
+
+    from maua_tpu_torch.kernels import epilogue as E
+
+    cases = collections.Counter()
+    real = E.ModconvEpilogue.forward
+
+    def recording(z, post, noise, bias, pre_next, alpha, gain, clamp):
+        if z.is_cuda:
+            cases[(tuple(z.shape), str(z.dtype).removeprefix("torch."), None if noise is None else tuple(noise.shape),
+                   pre_next is not None, alpha, gain, clamp)] += 1
+        return real(z, post, noise, bias, pre_next, alpha, gain, clamp)
+
+    E.ModconvEpilogue.forward = staticmethod(recording)
+    try:
+        yield cases
+    finally:
+        E.ModconvEpilogue.forward = staticmethod(real)
+
+
+def check_epilogue_gradients(cases, what: str):
+    """At every case met under autograd (a Counter of autograd_epilogue_cases' keys): random card tensors
+    of that case's shapes, the five gradients (dz, dpost, dnoise, dbias, dpre_next) through the kernel route
+    (`ModconvEpilogue`: the kernel forward, the recomputed f32 backward) against autograd of the plain
+    version on the card, each within GRAD_BAR of its largest magnitude, plus one bf16 ulp (2^-8) of it in
+    bf16. Then the backward's time (`bwd_ms`, cuda_time_ms), the plain version's autograd backward
+    (`plain_bwd_ms`) and the backward's bound: reading z and g and writing dz (and the noise's gradient)
+    over 3.35 TB/s, against some 20 f32 operations an element over 67 TFLOP/s. The comparison launches do
+    not count."""
+    import torch
+
+    from maua_tpu_torch.kernels import epilogue as E
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    rows = []
+    for (shape, dtype, noise_shape, pre, alpha, gain, clamp), n in sorted(cases.items(), key=lambda c: -c[1]):
+        dt = getattr(torch, dtype)
+        b, c = shape[:2]
+
+        def rnd(*s):
+            return torch.randn(*s, generator=gen, device="cuda")
+
+        leaves = {"z": (rnd(*shape) * 4).to(dt), "post": rnd(b, c).abs() + 0.1,
+                  "noise": None if noise_shape is None else rnd(*noise_shape), "bias": rnd(c) * 0.1,
+                  "pre_next": rnd(b, c).abs() + 0.5 if pre else None}
+        g = rnd(*shape).to(dt)
+        outs, grads = {}, {}
+        for route, fn in (("kernel", E.modconv_epilogue), ("plain", E.modconv_epilogue_plain)):
+            ts = {k: None if v is None else v.clone().requires_grad_(True) for k, v in leaves.items()}
+            y = fn(ts["z"], ts["post"], ts["noise"], ts["bias"], alpha, gain, clamp, ts["pre_next"])
+            names = [k for k, t in ts.items() if t is not None]
+            got = torch.autograd.grad(y, [ts[k] for k in names], g, retain_graph=True)
+            outs[route] = (y, [ts[k] for k in names])
+            grads[route] = dict(zip(names, got))
+        if type(outs["kernel"][0].grad_fn).__name__ != "ModconvEpilogueBackward":
+            raise AssertionError(f"{what}: the epilogue's kernel route is not under its autograd Function")
+        errs = {}
+        for k, ref in grads["plain"].items():
+            scale = float(ref.float().abs().max())
+            errs[f"d{k}"] = float((grads["kernel"][k].float() - ref.float()).abs().max()) / max(scale, 1e-30)
+        bar = GRAD_BAR + (2.0**-8 if dt == torch.bfloat16 else 0.0)
+        row = {"shape": list(shape), "dtype": dtype, "noise": noise_shape and list(noise_shape), "pre_next": pre,
+               "clamp": clamp, "launches_under_autograd": n, "grad_rel_err": errs}
+        if max(errs.values()) > bar:
+            raise AssertionError(f"{what}: the epilogue's gradient disagrees with the plain version's at {row}")
+        numel, item = math.prod(shape), leaves["z"].element_size()
+        nbytes = 3 * numel * item + (4 * math.prod(noise_shape) if noise_shape else 0)
+        row.update(
+            bwd_ms=cuda_time_ms(lambda: torch.autograd.grad(outs["kernel"][0], outs["kernel"][1], g,
+                                                            retain_graph=True), iters=5),
+            plain_bwd_ms=cuda_time_ms(lambda: torch.autograd.grad(outs["plain"][0], outs["plain"][1], g,
+                                                                  retain_graph=True), iters=5),
+            bwd_bound_ms=max(nbytes / HBM_BYTES_PER_S, 20 * numel / F32_FLOPS) * 1e3)
+        rows.append(row)
+        del leaves, g, outs, grads
+        torch.cuda.empty_cache()
+    E.reset_launches()
+    return rows
+
+
+def run_epilogue_grad():
+    """ModconvEpilogue's five gradients at every epilogue shape of a 1024^2 StyleGAN2 frame batch of 8 (the
+    plain route's b4..b1024 with the example patch's noise, and the s2d route's cells with pre_next), in f32
+    and in bf16, each against the plain version's autograd on the card (check_epilogue_gradients); the
+    backward's ms per frame batch (each layer's case times its convs) beside its bound and the plain
+    version's."""
+    import collections
+
+    import torch
+
+    cfg, cases = epilogue_cases()
+    counted, reps = collections.Counter(), {}
+    for label, b, c, h, w, _, nb, g, pre, clamp in cases:
+        plain_layer = label.startswith("b") and label[1:].isdigit()
+        if not (plain_layer or label.startswith("s2d-b")) or label.endswith("frame-noise"):
+            continue
+        for dtype in ("float32", "bfloat16"):
+            key = ((b, c, h, w), dtype, (nb, g, h, w), pre, 0.2, math.sqrt(2.0), clamp)
+            counted[key] += 1
+            reps[key] = cfg.block_num_conv(int(label[1:])) if plain_layer else 1
+    rows = check_epilogue_gradients(counted, "epilogue_grad")
+    out = {"cases": len(rows), "grad_max_rel_err": {d: max(max(r["grad_rel_err"].values()) for r in rows
+                                                           if r["dtype"] == d) for d in ("float32", "bfloat16")}}
+    for dtype in ("float32", "bfloat16"):
+        for route, groups in (("plain_route", 1), ("s2d_cells", 4)):
+            sel = [r for r in rows if r["dtype"] == dtype and r["noise"][1] == groups]
+            keys = [(tuple(r["shape"]), dtype, tuple(r["noise"]), r["pre_next"], 0.2, math.sqrt(2.0), r["clamp"])
+                    for r in sel]
+            out[f"{route}_{dtype}"] = {k: sum(reps[key] * r[k] for key, r in zip(keys, sel))
+                                       for k in ("bwd_ms", "plain_bwd_ms", "bwd_bound_ms")}
+    for r in rows:
+        print(json.dumps({"epilogue_grad": r}), flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def clip_energy_grad(device: str, size: int, g_params, clip_perceptor, z):
+    """dE/dz of CLIP-guided Langevin's energy (gan/sampling.clip_energy) through an f32 StyleGAN2 at
+    size^2 with the given parameters and CLIP perceptor, on `device`."""
+    import torch
+
+    from maua_tpu_torch.gan import sampling as S
+    from maua_tpu_torch.gan import stylegan2 as S2
+    from maua_tpu_torch.utility import to_device
+
+    gan = S2.Generator(S2.SG2Config(img_resolution=size, num_fp16_res=0), params=to_device(g_params, device))
+    energy = S.clip_energy(gan, LANGEVIN_PROMPT, perceptor=clip_perceptor)
+    zz = z.to(device).requires_grad_(True)
+    (grad,) = torch.autograd.grad(energy(zz).sum(), zz)
+    return grad.cpu().numpy()
+
+
+def run_gan_langevin(tmp: str):
+    """`python -m maua_tpu_torch gan generate --sampling langevin --langevin_critic "a red fox" --seeds 0-2`
+    at 1024^2 (seed-0 StyleGAN2 and CLIP ViT-B/32, the command's 50 steps): the PNGs written and distinct,
+    the epilogue's launches and those under autograd (17 a Langevin step), each such case's five gradients
+    against the plain version's (check_epilogue_gradients). Then dE/dz of the energy at 1024^2 (f32, TF32
+    off, cuDNN's deterministic algorithms) through the kernel route against the plain version on the card,
+    within LANGEVIN_ROUTE_BAR of its largest magnitude; beside it, against the same plain version, the plain
+    version run again (also under the default flags), the Function's backward on the plain forward, every
+    epilogue output one ulp off, and two wrong gradients that must land beyond the bar (a launch with no
+    grad_fn, dpost dropped). Then dE/dz at 128^2 card vs CPU, TF32 off (PSNR, peak the CPU gradient's
+    largest magnitude)."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from maua_tpu_torch import __main__ as command
+    from maua_tpu_torch.gan import stylegan2 as S2
+    from maua_tpu_torch.kernels import epilogue as E
+    from maua_tpu_torch.perceptors.clip import CLIPPerceptor
+
+    out_dir = os.path.join(tmp, "gan_langevin")
+    E.reset_launches()
+    t0 = time.perf_counter()
+    with autograd_epilogue_cases() as cases:
+        command.main(["gan", "generate", "--sampling", "langevin", "--langevin_critic", LANGEVIN_PROMPT, "--seeds",
+                      LANGEVIN_SEEDS, "--out_dir", out_dir])
+    torch.cuda.synchronize()
+    seconds, launches = time.perf_counter() - t0, E.launches
+    files = sorted(os.listdir(out_dir))
+    imgs = [np.asarray(Image.open(os.path.join(out_dir, f))) for f in files]
+    if len(files) != 2 or len({im.tobytes() for im in imgs}) != 2 or any(im.shape != (1024, 1024, 3) for im in imgs):
+        raise AssertionError(f"gan langevin: {files}, {[im.shape for im in imgs]}")
+    under = sum(cases.values())
+    if under < 17 * 50 or launches < under:
+        raise AssertionError(f"gan langevin: {launches} launches, {under} under autograd")
+    out = {"command_seconds": seconds, "pngs": len(files), "launches": launches, "launches_under_autograd": under,
+           "gradient_cases": check_epilogue_gradients(cases, "gan_langevin")}
+    # dE/dz at 1024^2, f32: the kernel route against the plain version, both on the card
+    cpu_clip = CLIPPerceptor(device="cpu")
+    card_clip = CLIPPerceptor(vision_params=cpu_clip.vision_params, text_params=cpu_clip.text_params,
+                              text_proj=cpu_clip.text_proj, device="cuda")
+    z = torch.randn(2, 512, generator=torch.Generator().manual_seed(1))
+    params = S2.init_params(S2.SG2Config(num_fp16_res=0), torch.Generator(device="cuda").manual_seed(0))
+    ulp_gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def plain_launch(z, post, noise, bias, alpha, gain, clamp, pre_next):
+        return E.modconv_epilogue_plain(z, post, noise, bias, alpha, gain, clamp, pre_next)
+
+    def one_ulp_off(*a, **k):  # the plain version's output moved one ulp, each element a random way
+        y = E.modconv_epilogue_plain(*a, **k)
+        yd, up = y.detach(), torch.rand(y.shape, generator=ulp_gen, device=y.device) < 0.5
+        return y + (torch.nextafter(yd, torch.where(up, math.inf, -math.inf).to(yd)) - yd)
+
+    def detached_launch(z, post, noise, bias, alpha=0.2, gain=math.sqrt(2.0), clamp=256.0, pre_next=None):
+        return E._launch(z, post, noise, bias, alpha, gain, clamp, pre_next)  # a launch with no grad_fn
+
+    real_backward = E.ModconvEpilogue.backward
+
+    def without_dpost(ctx, g):
+        grads = list(real_backward(ctx, g))
+        grads[1] = None if grads[1] is None else torch.zeros_like(grads[1])
+        return tuple(grads)
+
+    spread = {}
+    with tf32_off():  # the flags the command runs under: cuDNN free to pick algorithms that sum with atomics
+        for k in ("plain", "plain_again"):
+            with swapped(S2, "modconv_epilogue", E.modconv_epilogue_plain):
+                spread[k] = clip_energy_grad("cuda", 1024, params, card_clip, z)
+    det = torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True, allow_tf32=False)
+    variants = {}
+    with tf32_off(), det:
+        kernel_grad = clip_energy_grad("cuda", 1024, params, card_clip, z)
+        with swapped(S2, "modconv_epilogue", E.modconv_epilogue_plain):
+            plain_grad = clip_energy_grad("cuda", 1024, params, card_clip, z)
+            variants["plain_again"] = clip_energy_grad("cuda", 1024, params, card_clip, z)
+        with swapped(E, "_launch", plain_launch):  # the Function's backward alone
+            variants["function_on_the_plain_forward"] = clip_energy_grad("cuda", 1024, params, card_clip, z)
+        with swapped(S2, "modconv_epilogue", one_ulp_off):  # forward rounding alone
+            variants["plain_one_ulp_off"] = clip_energy_grad("cuda", 1024, params, card_clip, z)
+        with swapped(S2, "modconv_epilogue", detached_launch):  # what the check must catch
+            variants["detached_launch"] = clip_energy_grad("cuda", 1024, params, card_clip, z)
+        with swapped(E.ModconvEpilogue, "backward", staticmethod(without_dpost)):
+            variants["backward_without_dpost"] = clip_energy_grad("cuda", 1024, params, card_clip, z)
+    scale = np.abs(plain_grad).max()
+    rel = float(np.abs(kernel_grad - plain_grad).max() / scale)
+    isolated = {k: float(np.abs(v - plain_grad).max() / scale) for k, v in variants.items()}
+    isolated["plain_again_default_flags"] = float(np.abs(spread["plain_again"] - spread["plain"]).max() / scale)
+    if not rel <= LANGEVIN_ROUTE_BAR:
+        raise AssertionError(f"gan langevin: dE/dz through the kernel {rel} from the plain version's ({isolated})")
+    if not (isolated["function_on_the_plain_forward"] <= LANGEVIN_ROUTE_BAR
+            and min(isolated["detached_launch"], isolated["backward_without_dpost"]) > LANGEVIN_ROUTE_BAR):
+        raise AssertionError(f"gan langevin: dE/dz isolation {isolated} (bar {LANGEVIN_ROUTE_BAR})")
+    del params, variants
+    torch.cuda.empty_cache()
+    small = S2.init_params(S2.SG2Config(img_resolution=128, num_fp16_res=0), torch.Generator().manual_seed(0))
+    with tf32_off():
+        card, cpu = clip_energy_grad("cuda", 128, small, card_clip, z), clip_energy_grad("cpu", 128, small, cpu_clip, z)
+    psnr = psnr_db(card, cpu, float(np.abs(cpu).max()))
+    if not psnr >= ZOO_PSNR_BAR:
+        raise AssertionError(f"gan langevin: dE/dz card vs CPU {psnr} dB")
+    E.reset_launches()
+    return {**out, "grad_kernel_vs_plain_rel_err": rel, "grad_vs_plain_rel_err_of": isolated,
+            "grad_kernel_vs_plain_psnr_db": psnr_db(kernel_grad, plain_grad, float(np.abs(plain_grad).max())),
+            "grad_card_vs_cpu_psnr_db": psnr}
+
+
+def stylegan_loss_and_grad(content: str, style: str, size: int, device: str, g_params, vgg, z):
+    """One evaluation of style/image.transfer's loss through the stylegan parameterization (an f32
+    StyleGAN2 at size^2 with the given parameters, w+ from z) and kbc-vgg19 (the given parameters) at its
+    default weights, and the gradient with respect to w+, on `device`."""
+    import torch
+
+    from maua_tpu_torch.gan import stylegan2 as S2
+    from maua_tpu_torch.loss import gram_matrix, scaled_mse_loss, tv_loss
+    from maua_tpu_torch.ops.image import resample
+    from maua_tpu_torch.ops.io import load_images
+    from maua_tpu_torch.parameterizations import load_parameterization
+    from maua_tpu_torch.style.image import build_perceptor, style_targets, to_image
+    from maua_tpu_torch.utility import to_device
+
+    c, (s,) = load_images(content, [style])
+    c, s = resample(to_image(c, device), size), resample(to_image(s, device), size)
+    percept = build_perceptor("kbc-vgg19", {"params": vgg}, device)
+    gan = S2.Generator(S2.SG2Config(img_resolution=size, num_fp16_res=0), params=to_device(g_params, device))
+    pastiche = load_parameterization("stylegan")(size, size, generator=gan, z=z.to(device), device=device)
+    with torch.no_grad():
+        feats = percept.get_features(c)
+        content_targets = [feats[i] for i in percept.content_layers]
+    targets = style_targets(percept, [s])
+    img = pastiche.decode()
+    feats = percept.get_features(img)
+    loss = 100.0 * tv_loss(img)
+    for i, t in zip(percept.content_layers, content_targets):
+        loss = loss + scaled_mse_loss(feats[i], t)
+    for i, t in zip(percept.style_layers, targets):
+        loss = loss + 50.0 * scaled_mse_loss(gram_matrix(feats[i]), t)
+    loss.backward()
+    return float(loss.detach()), pastiche.tensor.grad.cpu().numpy()
+
+
+def run_style_zoo(tmp: str):
+    """style/image.transfer at 512^2 (the CLI's size), ZOO_ITERS iterations each: the stylegan
+    parameterization (a full-width seed-0 StyleGAN2 at 512^2, f32, init_type "random") with adam, whose
+    every decode launches the epilogue 15 times, under autograd in the loop (each such case's gradients
+    checked); pgg-vgg19 with lbfgs and nin with avg pooling (the caffe zoo, seed-0 draws); nima_score of the
+    vgg19 result; ranger (a Lookahead over RAdam, which maua_tpu's route cannot run). Seconds per iteration
+    (the loop's), launches, peak memory. Card vs CPU at 128^2, TF32 off: the stylegan loss and its gradient
+    with respect to w+ (PSNR, peak the CPU gradient's largest magnitude) at least ZOO_PSNR_BAR."""
+    import numpy as np
+    import torch
+
+    from maua_tpu_torch.gan import stylegan2 as S2
+    from maua_tpu_torch.kernels import epilogue as E
+    from maua_tpu_torch.perceptors import vgg as VGG
+    from maua_tpu_torch.perceptors.nima import nima_score
+    from maua_tpu_torch.style.image import transfer
+
+    content, style = os.path.join(tmp, "zoo_content.png"), os.path.join(tmp, "zoo_style.png")
+    write_frame(content, 512, 6)
+    write_style_image(style, 512, seed=7)
+    runs = (("stylegan_adam", dict(parameterization="stylegan", init_type="random", optimizer="adam", lr=0.05)),
+            ("pgg_vgg19_lbfgs", dict(perceptor="pgg-vgg19")),
+            ("nin_avg_lbfgs", dict(perceptor="nin", perceptor_kwargs={"pooling": "avg"})),
+            ("rgb_ranger", dict(optimizer="ranger", lr=0.05)))
+    out, imgs = {}, {}
+    for name, kw in runs:
+        torch.cuda.reset_peak_memory_stats()
+        stats = {}
+        E.reset_launches()
+        with autograd_epilogue_cases() as cases:
+            t0 = time.perf_counter()
+            img = transfer(content, [style], n_iters=ZOO_ITERS, device="cuda", stats=stats, verbose=False, **kw)
+            torch.cuda.synchronize()
+        check_image(img, (1, 512, 512, 3), f"style_zoo {name}")
+        imgs[name] = img
+        out[name] = {"seconds": time.perf_counter() - t0, "seconds_per_iteration": stats["loop_seconds"] / ZOO_ITERS,
+                     "evaluations_per_iteration": stats["evaluations"] / ZOO_ITERS, "launches": E.launches,
+                     "launches_under_autograd": sum(cases.values()),
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        if name == "stylegan_adam":
+            if E.launches != 15 * (ZOO_ITERS + 1) or sum(cases.values()) != 15 * ZOO_ITERS:
+                raise AssertionError(f"style_zoo stylegan: {E.launches} launches, {sum(cases.values())} under "
+                                     f"autograd (want {15 * (ZOO_ITERS + 1)}, {15 * ZOO_ITERS})")
+            out[name]["gradient_cases"] = check_epilogue_gradients(cases, "style_zoo")
+        torch.cuda.empty_cache()
+    score, std = (float(v) for v in nima_score((imgs["pgg_vgg19_lbfgs"] + 1) / 2, device="cuda"))
+    if not (0 <= score <= 9 and np.isfinite(std)):
+        raise AssertionError(f"style_zoo nima: {score}, {std}")
+    out["nima"] = {"score": score, "std": std}
+    vgg = VGG.init_params(torch.Generator().manual_seed(0))
+    g_params = S2.init_params(S2.SG2Config(img_resolution=128, num_fp16_res=0), torch.Generator().manual_seed(0))
+    z = torch.randn(1, 512, generator=torch.Generator().manual_seed(2))
+    with tf32_off():
+        (loss_card, grad_card), (loss_cpu, grad_cpu) = (stylegan_loss_and_grad(content, style, 128, dev, g_params,
+                                                                               vgg, z) for dev in ("cuda", "cpu"))
+    psnr = psnr_db(grad_card, grad_cpu, float(np.abs(grad_cpu).max()))
+    if not psnr >= ZOO_PSNR_BAR:
+        raise AssertionError(f"style_zoo stylegan card vs CPU: gradient {psnr} dB")
+    out["card_vs_cpu"] = {"loss_card": loss_card, "loss_cpu": loss_cpu, "grad_psnr_db": psnr}
+    E.reset_launches()
+    return out
+
+
+def run_video_vit():
+    """style/video_vit.video_style_transfer at VideoViTConfig(image_size=256) (width 128, 4 layers, 4 heads,
+    patch 8, tubelet 2; seed-0 weights) over an 8-frame 256^2 pan (3 px a frame) and a noise style clip,
+    VIT_ITERS Adam iterations: seconds per iteration (the loop's), peak memory, the clip finite and moved."""
+    import numpy as np
+    import torch
+
+    from maua_tpu_torch.style.video_vit import VideoViTConfig, video_style_transfer
+
+    rs = np.random.RandomState(8)
+    y, x = np.mgrid[0:256, 0:280] / 256
+    field = np.stack([0.5 + 0.4 * np.sin(6 * x), y, 1 - x * y / 1.2], -1) * 0.8 + rs.rand(256, 280, 3) * 0.2
+    content = np.stack([field[:, 3 * t:3 * t + 256] for t in range(8)]).astype(np.float32) * 2 - 1
+    style = rs.rand(8, 256, 256, 3).astype(np.float32) * 2 - 1
+    torch.cuda.reset_peak_memory_stats()
+    stats = {}
+    t0 = time.perf_counter()
+    video = video_style_transfer(content, style, VideoViTConfig(image_size=256), n_iters=VIT_ITERS, device="cuda",
+                                 verbose=False, stats=stats)
+    seconds = time.perf_counter() - t0
+    if video.shape != content.shape or not np.isfinite(video).all() or np.abs(video - content).max() < 1e-3:
+        raise AssertionError(f"video_vit: {video.shape}, moved {np.abs(video - content).max()}")
+    return {"seconds": seconds, "seconds_per_iteration": stats["loop_seconds"] / VIT_ITERS, "tokens": 4 * 32 * 32,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def run_nca(tmp: str):
+    """`python -m maua_tpu_torch nca run --style s.png` (the command's main, in this process): training at
+    128^2 (batch 4, rollouts of 32-63 steps, pool 256) for NCA_STEPS steps, then NCA_FRAMES frames rendered
+    at 256^2; the params file written, the video read back; seconds per training step, each step's loss,
+    its states' largest magnitude and the share of their rgb clipped, render fps. maua_tpu's recipe has no
+    overflow loss and its states grow without bound (tools/nca_divergence.py: on its own draws they reach
+    1e25 by step 18); a loss may go non-finite only at a step whose states did, and while the states stay
+    finite the trained parameters and every rendered frame must be finite too. Then NCA_PARITY_STEPS
+    training steps at 128^2 on the card and on the CPU from the same draws, TF32 off: every loss finite on
+    both, the parameters' PSNR (peak: the CPU's largest magnitude) at least ZOO_PSNR_BAR. The render fps
+    reported is NCA_FRAMES at 256^2 from the card's parity params, every frame finite."""
+    import numpy as np
+    import torch
+
+    from maua_tpu_torch import __main__ as command
+    from maua_tpu_torch.nca import nca as N
+    from maua_tpu_torch.ops import video as V
+    from maua_tpu_torch.ops.io import load_image
+    from maua_tpu_torch.ops.video import read_video
+    from maua_tpu_torch.perceptors.vgg import VGGPerceptor
+    from maua_tpu_torch.perceptors.vgg import init_params as vgg_init
+
+    style = os.path.join(tmp, "nca_style.png")
+    write_style_image(style, 128, seed=9)
+    out_dir = os.path.join(tmp, "nca")
+    timed, stats, real = {}, {}, {"train_nca": N.train_nca, "generate_video": N.generate_video}
+    trained, finite_frames = {}, []
+
+    def timer(name):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            r = real[name](*a, **({"stats": stats} if name == "train_nca" else {}), **k)
+            timed[name] = time.perf_counter() - t0
+            if name == "train_nca":
+                trained.update(r)
+            return r
+        return call
+
+    class Writer(V.VideoWriter):  # notes whether each frame handed to the writer is finite
+        def write(self, frame):
+            finite_frames.append(bool(np.isfinite(np.asarray(frame)).all()))
+            return super().write(frame)
+
+    with contextlib.ExitStack() as stack:
+        for name in real:
+            stack.enter_context(swapped(N, name, timer(name)))
+        stack.enter_context(swapped(V, "VideoWriter", Writer))
+        command.main(["nca", "run", "--style", style, "--n_steps", str(NCA_STEPS), "--num_frames", str(NCA_FRAMES),
+                      "--out_dir", out_dir])
+    frames, fps = read_video(os.path.join(out_dir, "nca_style_nca.mp4"))
+    if frames.shape != (NCA_FRAMES, 256, 256, 3) or not os.path.exists(os.path.join(out_dir, "nca_style_nca.pkl")):
+        raise AssertionError(f"nca: video {frames.shape}")
+    losses, peaks = stats["losses"], stats["state_peaks"]
+    if len(losses) != NCA_STEPS or len(finite_frames) != NCA_FRAMES:
+        raise AssertionError(f"nca: {len(losses)} training steps, {len(finite_frames)} frames written")
+    nan_from_finite = [i for i, (v, p) in enumerate(zip(losses, peaks)) if not math.isfinite(v) and math.isfinite(p)]
+    overflow = next((i for i, p in enumerate(peaks) if not math.isfinite(p)), None)
+    params_finite = all(bool(torch.isfinite(v).all()) for v in trained.values())
+    if nan_from_finite or (overflow is None and not (params_finite and all(finite_frames))):
+        raise AssertionError(f"nca: non-finite losses at finite states {nan_from_finite}; overflow at {overflow}, "
+                             f"params finite {params_finite}, frames finite {sum(finite_frames)}/{NCA_FRAMES}")
+    # card vs CPU at 128^2: the same VGG16, initial params, indices, rollout lengths and masks on both
+    gen = torch.Generator().manual_seed(5)
+    style_img = torch.from_numpy(load_image(style) * 2 - 1)
+    vgg = vgg_init(torch.Generator().manual_seed(0), "vgg16")
+    init = N.init_params(torch.Generator().manual_seed(0))
+    draws = []
+    for _ in range(NCA_PARITY_STEPS):
+        n = int(torch.randint(32, 64, (), generator=gen))
+        draws.append((torch.randperm(256, generator=gen)[:4], n, torch.rand(n, 4, 128, 128, 1, generator=gen)))
+    parity, runs = {}, {}
+    with tf32_off():
+        for dev in ("cuda", "cpu"):
+            t0, st = time.perf_counter(), {}
+            percept = VGGPerceptor(arch="vgg16", params=vgg, device=dev)
+            p = N.train_nca(style_img, n_steps=NCA_PARITY_STEPS, params=init, perceptor=percept, stats=st,
+                            draws=lambda i: (draws[i][0], draws[i][1], draws[i][2].to(dev)), device=dev,
+                            verbose=False)
+            parity[dev] = np.concatenate([v.cpu().numpy().ravel() for v in p.values()])
+            if dev == "cuda":
+                trained_here = p
+            runs[dev] = {"losses": st["losses"], "state_peaks": st["state_peaks"], "clipped": st["clipped"],
+                         "seconds": time.perf_counter() - t0}
+    psnr = psnr_db(parity["cuda"], parity["cpu"], float(np.abs(parity["cpu"]).max()))
+    finite = all(math.isfinite(v) for r in runs.values() for v in r["losses"])
+    if not (psnr >= ZOO_PSNR_BAR and finite):
+        raise AssertionError(f"nca card vs CPU: {psnr} dB, losses {runs}")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(runs["cuda"]["losses"], runs["cpu"]["losses"]))
+    # the render timed again from the card's finite parity params (the command's may have overflowed)
+    del finite_frames[:]
+    with swapped(V, "VideoWriter", Writer):
+        t0 = time.perf_counter()
+        N.generate_video(trained_here, os.path.join(out_dir, "finite.mp4"), num_frames=NCA_FRAMES, device="cuda")
+        render_seconds = time.perf_counter() - t0
+    if sum(finite_frames) != NCA_FRAMES:
+        raise AssertionError(f"nca: {sum(finite_frames)} of {NCA_FRAMES} frames finite from finite params")
+    return {"train_seconds": timed["train_nca"], "seconds_per_step": timed["train_nca"] / NCA_STEPS,
+            "losses": losses, "state_peaks": peaks, "clipped": stats["clipped"], "first_overflow_step": overflow,
+            "params_finite": params_finite, "render_seconds": render_seconds,
+            "render_fps": NCA_FRAMES / render_seconds, "command_render_seconds": timed["generate_video"],
+            "frames_read_back": int(frames.shape[0]), "video_fps": fps, "card_vs_cpu_params_psnr_db": psnr,
+            "card_vs_cpu_loss_max_rel_diff": loss_rel, "card_vs_cpu_runs": runs,
+            "card_seconds_per_finite_step": runs["cuda"]["seconds"] / NCA_PARITY_STEPS}
+
+
+def run_optimizers():
+    """Every registry name (104) for OPT_STEPS steps on an (8, 6) and a (6,) parameter under an
+    elementwise nonquadratic loss, on the card and on the CPU (TF32 off; noisysgd with the same normals handed to
+    both), each parameter within OPT_TOL of its largest magnitude; the L-BFGS names step with a closure. Beside
+    each name's error, its sensitivity: how far a second CPU run moves when every gradient is put one ulp off,
+    each element a random way. The two shampoo names are held to OPT_TOL_SHAMPOO, on this problem and on
+    SHAMPOO_PROBLEMS further draws of it."""
+    import numpy as np
+    import torch
+
+    from maua_tpu_torch import optimizers as O
+
+    def problem(seed):
+        rs = np.random.RandomState(seed)
+        w0, b0 = rs.randn(8, 6).astype(np.float32), rs.randn(6).astype(np.float32)
+        a, t = (rs.rand(8, 6) + 0.5).astype(np.float32), rs.randn(8, 6).astype(np.float32)
+        noise = [[rs.randn(8, 6).astype(np.float32), rs.randn(6).astype(np.float32)] for _ in range(OPT_STEPS)]
+        return w0, b0, a, t, noise
+
+    def run(name, device, prob, ulp=None):
+        w0, b0, a, t, noise = prob
+        w = torch.tensor(w0, device=device, requires_grad=True)
+        b = torch.tensor(b0, device=device, requires_grad=True)
+        at, tt = torch.from_numpy(a).to(device), torch.from_numpy(t).to(device)
+        kw = {"draws": iter(noise)} if name.endswith("noisysgd") else None
+        opt = O.load_optimizer(name, 0.01, kw)[0]([w, b])
+
+        def closure():
+            opt.zero_grad()
+            # every term elementwise, so both devices compute the same gradient bit for bit and the check reads
+            # the optimizers' own arithmetic (a reduction in the loss, e.g. w @ b, differs in its last bits between
+            # the devices, and pid's derivative term magnifies that tenfold)
+            loss = (at * (w - tt) ** 2).sum() + (w**4).sum() * 0.05 + ((b - 0.5) ** 4).sum() * 0.1
+            loss.backward()
+            if ulp is not None:
+                for p in (w, b):
+                    way = torch.from_numpy(np.where(ulp.rand(*p.shape) < 0.5, np.inf, -np.inf).astype(np.float32))
+                    p.grad = torch.nextafter(p.grad, way)
+            return loss
+
+        for _ in range(OPT_STEPS):
+            if getattr(opt, "closure_step", False):
+                opt.step(closure)
+            else:
+                closure()
+                opt.step()
+        return [w.detach().cpu().numpy(), b.detach().cpu().numpy()]
+
+    def rel(xs, ys):
+        return max(float(np.abs(x - y).max() / max(np.abs(y).max(), 1e-30)) for x, y in zip(xs, ys))
+
+    prob = problem(10)
+    errs, sens, still, t0 = {}, {}, [], time.perf_counter()
+    with tf32_off():
+        for name in O.optimizer_choices:
+            card, cpu = run(name, "cuda", prob), run(name, "cpu", prob)
+            errs[name] = rel(card, cpu)
+            sens[name] = rel(run(name, "cpu", prob, np.random.RandomState(1)), cpu)
+            if all(np.abs(h - p).max() < 1e-6 for h, p in zip(cpu, prob[:2])):
+                still.append(name)
+        shampoo = [n for n in errs if n.endswith("shampoo")]
+        more = {}
+        for seed in range(11, 11 + SHAMPOO_PROBLEMS):
+            p = problem(seed)
+            for name in shampoo:
+                cpu = run(name, "cpu", p)
+                more[f"{name}/{seed}"] = (rel(run(name, "cuda", p), cpu),
+                                          rel(run(name, "cpu", p, np.random.RandomState(1)), cpu))
+    more.update({n: (errs[n], sens[n]) for n in shampoo})
+    bad = {n: e for n, e in errs.items() if n not in shampoo and not e <= OPT_TOL}
+    bad.update({n: e for n, (e, _) in more.items() if not e <= OPT_TOL_SHAMPOO})
+    if bad or still:
+        raise AssertionError(f"optimizers: card vs CPU beyond the bar {bad}; parameters unmoved {still}")
+    rest = {n: e for n, e in errs.items() if n not in shampoo}
+    return {"names": len(errs), "max_rel_err": max(rest.values()), "worst": max(rest, key=rest.get),
+            "max_one_ulp_sensitivity": max(v for n, v in sens.items() if n not in shampoo),
+            "shampoo_rel_err_and_one_ulp_sensitivity": more,
+            "seconds": time.perf_counter() - t0}
+
+
 def main() -> int:
     try:
         import torch
@@ -4579,7 +5199,7 @@ def main() -> int:
               "profile,sg3_profile,reference,sg3_reference,sd_e2e,sd_steps,sd_profile,sd_reference,super,"
               "super_reference,sd_multires,sg3_resize,realtime,ss_mir,ss_e2e,ss_reference,interactive,"
               "av_correlation,sd_guided,sd_paths,sd_glide,sd_animation,sd_video,flow_neural,style,style_video,"
-              "delivery]",
+              "epilogue_grad,gan_langevin,style_zoo,nca,video_vit,optimizers,delivery]",
               file=sys.stderr)
         return 2
 
@@ -4601,8 +5221,8 @@ def main() -> int:
 
     phase("build", build_all)
     results = {}
-    for name, fn in (("kernel", check_epilogue), ("flrelu", check_flrelu), ("attn", check_attention),
-                     ("mel", check_mel), ("kconv", check_kconv)):
+    for name, fn in (("kernel", check_epilogue), ("epilogue_grad", run_epilogue_grad), ("flrelu", check_flrelu),
+                     ("attn", check_attention), ("mel", check_mel), ("kconv", check_kconv)):
         if want(name):
             results[name] = phase(name, fn)
             torch.cuda.empty_cache()
@@ -4623,7 +5243,9 @@ def main() -> int:
                          ("sd_guided", lambda: run_sd_guided(tmp)), ("sd_paths", lambda: run_sd_paths(tmp)),
                          ("sd_glide", lambda: run_sd_glide(tmp)), ("sd_animation", lambda: run_sd_animation(tmp)),
                          ("sd_video", lambda: run_sd_video(tmp)), ("flow_neural", lambda: run_flow_neural(tmp)),
-                         ("style", lambda: run_style(tmp)), ("style_video", lambda: run_style_video(tmp))):
+                         ("style", lambda: run_style(tmp)), ("style_video", lambda: run_style_video(tmp)),
+                         ("gan_langevin", lambda: run_gan_langevin(tmp)), ("style_zoo", lambda: run_style_zoo(tmp)),
+                         ("nca", lambda: run_nca(tmp))):
             if want(name):
                 results[name] = phase(name, fn)
                 torch.cuda.empty_cache()
@@ -4631,7 +5253,8 @@ def main() -> int:
                      ("reference", card_vs_cpu), ("sg3_reference", sg3_card_vs_cpu), ("sd_e2e", run_sd_e2e),
                      ("sd_steps", run_sd_steps), ("sd_profile", profile_sd_step), ("sd_reference", sd_card_vs_cpu),
                      ("super", run_super), ("super_reference", super_card_vs_cpu), ("sd_multires", run_sd_multires),
-                     ("sg3_resize", run_sg3_resize), ("realtime", run_realtime), ("delivery", run_delivery)):
+                     ("sg3_resize", run_sg3_resize), ("realtime", run_realtime), ("video_vit", run_video_vit),
+                     ("optimizers", run_optimizers), ("delivery", run_delivery)):
         if want(name):
             results[name] = phase(name, fn)
             torch.cuda.empty_cache()
@@ -4642,6 +5265,11 @@ def main() -> int:
     mel_launches, mel_cases = results["ar_e2e"]["spectrogram_launches"], results["ar_e2e"]["mel_cases"]
     mel_main = mel["cases"][max(mel_cases, key=lambda c: mel_cases[c] * mel["cases"][c]["bound_ms"])]
     song_cases = results["ar_features"]["warm"]["mel_cases"]
+    grad_rows = [r for rows in (results["gan_langevin"]["gradient_cases"],
+                                results["style_zoo"]["stylegan_adam"]["gradient_cases"]) for r in rows]
+    grad_errs = dict(results["epilogue_grad"]["grad_max_rel_err"])  # dtype -> the largest relative error
+    for r in grad_rows:
+        grad_errs[r["dtype"]] = max(grad_errs.get(r["dtype"], 0.0), *r["grad_rel_err"].values())
     ss_cases = results["ss_mir"]["song"]["warm"]["mel_cases"]
     record = {"kernels": [{
         "name": "modconv_epilogue",
@@ -4665,6 +5293,15 @@ def main() -> int:
         "library_ms": None,
         **{f"plain_route_{k}": kernel[f"frame_batch_{k}"] for k in ("ms", "plain_ms", "bound_ms")},
         "plain_route_launches": results["e2e"]["plain_1920x1080"]["launches"],
+        "stylegan_param_launches": results["style_zoo"]["stylegan_adam"]["launches"],
+        "langevin_launches": results["gan_langevin"]["launches"],
+        "autograd_launches": {"style_zoo": results["style_zoo"]["stylegan_adam"]["launches_under_autograd"],
+                              "gan_langevin": results["gan_langevin"]["launches_under_autograd"]},
+        "autograd_cases": len(grad_rows) + results["epilogue_grad"]["cases"],
+        "autograd_grad_max_rel_err": grad_errs,
+        **{f"bwd_{route}_{k}": results["epilogue_grad"][route][k]
+           for route in ("plain_route_float32", "plain_route_bfloat16") for k in ("bwd_ms", "plain_bwd_ms",
+                                                                                  "bwd_bound_ms")},
         "scope": f"the 17 launches of one 1024^2 StyleGAN2 frame batch of {BATCH} on the facade's route: b4..b256 "
                  f"plain, b512 and b1024 on space-to-depth grids (4 launches a batch at 256 and 128 channels, 4 "
                  f"noise groups; s2d_launches counts them in e2e); plain_route_*: the same batch with every block "
@@ -4674,7 +5311,15 @@ def main() -> int:
                  f"self-supervised clip (ss_e2e, s2d route; selfsupervised_s2d_launches on cells); "
                  f"interactive_launches: the interactive 8 s render to 512^2 (plain route); "
                  f"selfsupervised_max_abs_err, interactive_max_abs_err: the kernel against its plain version at "
-                 f"every case those two renders launched",
+                 f"every case those two renders launched; stylegan_param_launches: the 512^2 stylegan-"
+                 f"parameterization style transfer ({ZOO_ITERS} Adam iterations, 15 launches a decode, style_zoo); "
+                 f"langevin_launches: `gan generate --sampling langevin` with CLIP at 1024^2 (gan_langevin); "
+                 f"autograd_launches: those of the two under autograd (`ModconvEpilogue`: the kernel forward, a "
+                 f"recomputed f32 backward); autograd_cases: every case met under autograd there and every layer "
+                 f"shape of a 1024^2 batch of 8 in f32 and bf16 (epilogue_grad), each's five gradients held "
+                 f"against autograd of the plain version (autograd_grad_max_rel_err, of each gradient's largest "
+                 f"magnitude); bwd_plain_route_*: the backward of one such batch on the plain route, its plain "
+                 f"version's autograd and its bound",
     }, {
         "name": "filtered_lrelu",
         "route": "cuda",

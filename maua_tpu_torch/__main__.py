@@ -1,7 +1,7 @@
 """`python -m maua_tpu_torch <command> <subcommand> [options]`: audiovisual
 generate, audiovisual interactive, audiovisual selfsupervised, diffusion
 image, diffusion video, diffusion interpolate, diffusion klmc2, diffusion
-outpaint, diffusion loop, gan generate, style image, style video, super image,
+outpaint, diffusion loop, gan generate, nca run, style image, style video, super image,
 super video."""
 
 import importlib
@@ -18,6 +18,7 @@ COMMANDS = {
     ("diffusion", "outpaint"): "maua_tpu_torch.diffusion.outpaint",
     ("diffusion", "loop"): "maua_tpu_torch.diffusion.loop_direct",
     ("gan", "generate"): "maua_tpu_torch.gan.cli",
+    ("nca", "run"): "maua_tpu_torch.nca.nca",
     ("style", "image"): "maua_tpu_torch.style.cli",
     ("style", "video"): "maua_tpu_torch.style.video",
     ("super", "image"): "maua_tpu_torch.super.image",

@@ -183,3 +183,29 @@ def flow_params_to_torch(name: str, jax_params, device: Optional[torch.device | 
         return leaf(tree)
 
     return walk(jax_params)
+
+
+def pgg_params_to_torch(jax_params, device: Optional[torch.device | str] = None):
+    """A JAX caffe-zoo list (`maua_tpu.perceptors.pgg`: VGG16/19, pruned VGG16 or NIN) -> the
+    port's (`perceptors/pgg.py`): conv weights HWIO -> OIHW, biases unchanged."""
+    return guidance_params_to_torch(jax_params, device)
+
+
+def nima_params_to_torch(jax_params: Dict, device: Optional[torch.device | str] = None) -> Dict:
+    """A JAX NIMA tree (`maua_tpu.perceptors.nima`) -> the port's: the VGG16 convs HWIO -> OIHW,
+    the head's (25088, 10) -> (10, 25088)."""
+    return diffusion_params_to_torch(jax_params, device)
+
+
+def video_vit_params_to_torch(jax_params: Dict, device: Optional[torch.device | str] = None) -> Dict:
+    """A JAX video ViT tree (`maua_tpu.style.video_vit`) -> the port's: linear weights (in, out) ->
+    (out, in); `pos_space`, `pos_time`, biases and layer norms unchanged."""
+    return diffusion_params_to_torch(jax_params, device)
+
+
+def nca_params_to_torch(jax_params: Dict, device: Optional[torch.device | str] = None) -> Dict:
+    """A JAX texture-NCA tree (`maua_tpu.nca`) -> the port's: the 1x1 convs `w1`, `w2` HWIO -> OIHW,
+    `b1` unchanged."""
+    return {k: torch.from_numpy(np.array(np.asarray(v, np.float32).transpose(3, 2, 0, 1) if v.ndim == 4
+                                         else np.asarray(v, np.float32), order="C")).to(device)
+            for k, v in ((k, np.asarray(v)) for k, v in jax_params.items())}

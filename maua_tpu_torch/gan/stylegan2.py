@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..kernels.epilogue import modconv_epilogue
+from ..utility import resolve_device
 from . import ops
 
 
@@ -287,3 +288,33 @@ def generator(
 ) -> torch.Tensor:
     ws = mapping(params, z, cfg, c, truncation_psi, truncation_cutoff)
     return synthesis(params, ws, cfg, noise_mode=noise_mode, noises=noises, gen=gen)
+
+
+class Generator:
+    """The object facade over the functions (maua_tpu's `Generator`): `cfg`, `params`,
+    `num_ws`, `mapping`, `synthesis` and the whole forward. Without `params` it draws them
+    from `gen` (seed 0 on `device`, cuda unless told otherwise); bridged maua_tpu params
+    (`bridge.params_to_torch`) or a loaded checkpoint's are taken as they are."""
+
+    def __init__(self, cfg: SG2Config, params: Optional[Dict] = None, gen: Optional[torch.Generator] = None,
+                 device=None):
+        self.cfg = cfg
+        if params is None:
+            gen = gen if gen is not None else torch.Generator(device=resolve_device(device)).manual_seed(0)
+            params = init_params(cfg, gen)
+        self.params = params
+
+    @property
+    def num_ws(self) -> int:
+        return self.cfg.num_ws
+
+    def mapping(self, z, c=None, truncation_psi: float = 1.0, truncation_cutoff: Optional[int] = None):
+        return mapping(self.params, z, self.cfg, c, truncation_psi, truncation_cutoff)
+
+    def synthesis(self, ws, **kw):
+        """ws (B, num_ws, w_dim) -> image (B, C, H, W) in [-1, 1]."""
+        return synthesis(self.params, ws, self.cfg, **kw)
+
+    def __call__(self, z, c=None, truncation_psi: float = 1.0, truncation_cutoff: Optional[int] = None,
+                 noise_mode: str = "const", gen: Optional[torch.Generator] = None):
+        return generator(self.params, z, self.cfg, c, truncation_psi, truncation_cutoff, noise_mode, gen=gen)

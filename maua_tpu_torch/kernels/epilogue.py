@@ -15,7 +15,10 @@ The CUDA source is `maua_tpu_torch/csrc/epilogue.cu`: one pass over z,
 bound by memory bytes (read z, write y). `modconv_epilogue` launches it
 for CUDA tensors and raises on what it does not take; CPU tensors take
 the plain PyTorch version, `modconv_epilogue_plain`, which is also what
-the kernel is held against on the card.
+the kernel is held against on the card. Where autograd records, the call
+goes through `ModconvEpilogue`: the same forward (the launch writes an
+output with no `grad_fn`) and the plain version's autograd as its
+backward, recomputed in f32 from the saved inputs.
 """
 
 from __future__ import annotations
@@ -65,10 +68,16 @@ def modconv_epilogue_plain(z, post, noise, bias, alpha=0.2, gain=_SQRT2, clamp=2
     y = y + bias.float()[None, :, None, None]
     y = torch.where(y >= 0, y, y * alpha) * gain
     if clamp is not None and clamp >= 0:
-        y = y.clamp(-clamp, clamp)
+        y = _clip(y, clamp)
     if pre_next is not None:
         y = y * pre_next.float()[:, :, None, None]
     return y.to(z.dtype)
+
+
+def _clip(y, clamp: float):
+    """y clipped to +-clamp as jnp.clip is, min(max(y, -c), c): autograd halves the gradient
+    at a bound (torch.maximum / minimum split it at ties, as JAX's do; torch.clamp passes it)."""
+    return torch.minimum(torch.maximum(y, y.new_tensor(-clamp)), y.new_tensor(clamp))
 
 
 def _check(z, post, noise, bias, pre_next):
@@ -88,6 +97,37 @@ def _check(z, post, noise, bias, pre_next):
             raise ValueError(f"noise groups {noise.shape[1]} must divide channels {c}")
 
 
+class ModconvEpilogue(torch.autograd.Function):
+    """`modconv_epilogue`'s forward (the kernel on the card, its plain version
+    under no_grad on the CPU) with the plain version's autograd as its
+    backward, recomputed in f32 from the saved inputs. The clamp takes
+    maua_tpu's rule (`_xla_epilogue`'s jnp.clip, whose min / max split a tie):
+    the gradient passes inside, halves at exactly +-clamp and stops outside."""
+
+    @staticmethod
+    def forward(z, post, noise, bias, pre_next, alpha, gain, clamp):
+        if z.device.type == "cpu":
+            return modconv_epilogue_plain(z, post, noise, bias, alpha, gain, clamp, pre_next)
+        return _launch(z, post, noise, bias, alpha, gain, clamp, pre_next)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        z, post, noise, bias, pre_next, alpha, gain, clamp = inputs
+        ctx.save_for_backward(z, post, noise, bias, pre_next)
+        ctx.alpha, ctx.gain, ctx.clamp = alpha, gain, clamp
+
+    @staticmethod
+    def backward(ctx, g):
+        inputs = [None if t is None else t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        wanted = [t for t in inputs if t is not None and t.requires_grad]
+        with torch.enable_grad():
+            z, post, noise, bias, pre_next = inputs
+            y = modconv_epilogue_plain(z, post, noise, bias, ctx.alpha, ctx.gain, ctx.clamp, pre_next)
+            grads = iter(torch.autograd.grad(y, wanted, g))
+        return (*(next(grads) if t is not None and t.requires_grad else None for t in inputs), None, None, None)
+
+
 def modconv_epilogue(
     z: torch.Tensor,  # (B, C, H, W) conv output, f32 or bf16
     post: torch.Tensor,  # (B, C) demodulation scale
@@ -98,10 +138,19 @@ def modconv_epilogue(
     clamp: Optional[float] = 256.0,
     pre_next: Optional[torch.Tensor] = None,  # (B, C) next layer's input scale
 ) -> torch.Tensor:
-    """demod * z + grouped noise + bias -> lrelu * gain -> clamp [-> * pre_next]."""
+    """demod * z + grouped noise + bias -> lrelu * gain -> clamp [-> * pre_next]; through
+    `ModconvEpilogue` where autograd records (grad enabled and an input that requires grad)."""
     _check(z, post, noise, bias, pre_next)
+    inputs = [t for t in (z, post, noise, bias, pre_next) if t is not None]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        return ModconvEpilogue.apply(z, post, noise, bias, pre_next, alpha, gain, clamp)
     if z.device.type == "cpu":
         return modconv_epilogue_plain(z, post, noise, bias, alpha, gain, clamp, pre_next)
+    return _launch(z, post, noise, bias, alpha, gain, clamp, pre_next)
+
+
+def _launch(z, post, noise, bias, alpha, gain, clamp, pre_next):
+    """The kernel's launch into a new tensor, for a CUDA z."""
     if z.device.type != "cuda":
         raise ValueError(f"modconv_epilogue runs on cuda or cpu tensors, got {z.device}")
     if z.dtype not in _DTYPES:

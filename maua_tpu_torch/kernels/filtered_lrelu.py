@@ -37,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from ..gan import ops
+from . import refuse_autograd
 
 _SQRT2 = math.sqrt(2.0)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -136,6 +137,7 @@ def filtered_lrelu(
         return filtered_lrelu_plain(x, up_f, down_f, up, down, pre_scale, pre_add, post_scale, crop)
     if x.device.type != "cuda":
         raise ValueError(f"filtered_lrelu runs on cuda or cpu tensors, got {x.device}")
+    refuse_autograd("filtered_lrelu", x, pre_scale, pre_add, post_scale)
     if x.dtype not in _DTYPES:
         raise TypeError(f"filtered_lrelu takes float32 or bfloat16, got {x.dtype}")
     if not x.is_contiguous():

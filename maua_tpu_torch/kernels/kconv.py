@@ -32,6 +32,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from . import refuse_autograd
+
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # launches of the CUDA kernel since the last reset (the plain path does not count)
@@ -122,6 +124,7 @@ def kconv3x3(
         return kconv3x3_plain(x, w, bias, style, demod, alpha, gain)
     if x.device.type != "cuda":
         raise ValueError(f"kconv3x3 runs on cuda or cpu tensors, got {x.device}")
+    refuse_autograd("kconv3x3", x, w, bias, style, demod)
     if x.dtype not in _DTYPES:
         raise TypeError(f"kconv3x3 takes float32 or bfloat16, got {x.dtype}")
     if not x.is_contiguous():

@@ -30,6 +30,7 @@ import torch
 
 from ..audio.convert import mel_filterbank
 from ..ops.warp import _reflect_index
+from . import refuse_autograd
 
 # launches of the CUDA kernel since the last reset (the plain path does not count)
 launches = 0
@@ -133,6 +134,7 @@ def melspectrogram(y: torch.Tensor, sr: float, n_fft: int = 2048, hop_length: in
         return melspectrogram_plain(y, basis, n_fft, hop_length, power)
     if y.device.type != "cuda":
         raise ValueError(f"melspectrogram runs on cuda or cpu tensors, got {y.device}")
+    refuse_autograd("melspectrogram", y)
     if y.dtype != torch.float32:
         raise TypeError(f"melspectrogram takes float32 signals, got {y.dtype}")
     if not y.is_contiguous():

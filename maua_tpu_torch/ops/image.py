@@ -1,14 +1,17 @@
 """Image tensor ops: tiling with blended seams, resampling, sharpening and
 colour matching.
 
-Port of `maua_tpu/ops/image.py` (smoothstep, blend_weight1d, destitch,
-restitch, scaled_height_width, resample, sharpen, match_histogram). Images
+Port of `maua_tpu/ops/image.py`: smoothstep, blend_weight1d, destitch,
+restitch, scaled_height_width, resample, sharpen, match_histogram, the
+colour spaces (luminance, rgb_to_ycbcr, ycbcr_to_rgb, original_colors),
+local statistics (local_std, immerkaer), blurs and sharpening
+(gaussian_blur, unsharp_mask), color_balance, normalize_minmax, positive,
+wrapping_slice and the blur maps (blurriness_lbp, blurriness_svd). Images
 are NHWC tensors, as in maua_tpu, in [-1, 1] unless noted; the
 convolutions and resizes run NCHW inside. `resample` is lanczos3 with
 antialias (`jax.image.resize`'s weights, `ops/warp.resize`).
 `match_histogram` draws its 1e-3 jitter from a torch.Generator, or takes
-the draws from `noise`. The rest of the module (colour spaces,
-`original_colors`, local statistics, unsharp masks) is not ported yet.
+the draws from `noise`.
 """
 
 from __future__ import annotations
@@ -181,3 +184,163 @@ def match_histogram(target: torch.Tensor, source, mode: str = "avg", gen: Option
             idx = int(torch.randint(0, src.shape[0], (), generator=gen, device=gen.device))
             out = out + _match_histogram_one(target, src[idx : idx + 1], draw, False) / len(sources)
     return torch.clamp(out, lo, hi)
+
+
+def luminance(x: torch.Tensor) -> torch.Tensor:
+    """Rec.709 luma of an NHWC image."""
+    return 0.2126 * x[..., 0] + 0.7152 * x[..., 1] + 0.0722 * x[..., 2]
+
+
+_RGB2YCBCR = np.array([[0.299, 0.587, 0.114], [-0.168736, -0.331264, 0.5], [0.5, -0.418688, -0.081312]], np.float32)
+_YCBCR2RGB = np.linalg.inv(_RGB2YCBCR.astype(np.float64)).astype(np.float32)
+_CHROMA_OFFSET = (0.0, 0.5, 0.5)
+
+
+def rgb_to_ycbcr(x: torch.Tensor) -> torch.Tensor:
+    m = torch.as_tensor(_RGB2YCBCR, dtype=x.dtype, device=x.device)
+    return x @ m.T + torch.tensor(_CHROMA_OFFSET, dtype=x.dtype, device=x.device)
+
+
+def ycbcr_to_rgb(x: torch.Tensor) -> torch.Tensor:
+    m = torch.as_tensor(_YCBCR2RGB, dtype=x.dtype, device=x.device)
+    return (x - torch.tensor(_CHROMA_OFFSET, dtype=x.dtype, device=x.device)) @ m.T
+
+
+def original_colors(content: torch.Tensor, generated: torch.Tensor) -> torch.Tensor:
+    """The generated image's luma with the content's chroma, both NHWC in [0, 1] (the content
+    resampled to the generated image's size first)."""
+    if content.shape != generated.shape:
+        content = resample(content, generated.shape[1:3])
+    merged = torch.cat([rgb_to_ycbcr(generated)[..., :1], rgb_to_ycbcr(content)[..., 1:]], dim=-1)
+    return ycbcr_to_rgb(merged).clamp(0.0, 1.0)
+
+
+def local_std(im: torch.Tensor, ks: int = 9) -> torch.Tensor:
+    """Windowed standard deviation of an NHWC image over a ks x ks window and all channels,
+    reflect-padded: (B, H, W, 1). (maua_tpu's grouped conv takes only one channel: its kernel
+    has C input features where C groups need 1; ROADMAP C8.)"""
+    r = ks // 2
+    x = F.pad(im.permute(0, 3, 1, 2), (r, r, r, r), mode="reflect")
+    c = x.shape[1]
+    ones = torch.ones(c, 1, ks, ks, dtype=x.dtype, device=x.device)
+
+    def box(v):
+        return F.conv2d(v, ones, groups=c).sum(1, keepdim=True)
+
+    s, s2, ns = box(x), box(x * x), box(torch.ones_like(x))
+    return torch.sqrt(((s2 - s**2 / ns) / ns).clamp_min(0.0)).permute(0, 2, 3, 1)
+
+
+def wrapping_slice(tensor: torch.Tensor, start: int, length: int) -> torch.Tensor:
+    """A circular slice along axis 0."""
+    if tensor.shape[0] == 1:
+        return tensor[torch.zeros(1, dtype=torch.long, device=tensor.device)]
+    return tensor[(torch.arange(length, device=tensor.device) + start) % tensor.shape[0]]
+
+
+def immerkaer(image_batch: torch.Tensor) -> torch.Tensor:
+    """Immerkaer's fast noise-variance estimate per image of (B, H, W, C): sqrt(pi / 2) /
+    (6 (W - 2)(H - 2)) sum |I * L|, L the 3x3 noise-sensitive Laplacian, on the luma (C = 3) or
+    the first channel."""
+    x = luminance(image_batch) if image_batch.shape[-1] == 3 else image_batch[..., 0]
+    lap = torch.tensor([[1.0, -2.0, 1.0], [-2.0, 4.0, -2.0], [1.0, -2.0, 1.0]], dtype=x.dtype, device=x.device)
+    conv = F.conv2d(x[:, None], lap[None, None])[:, 0]
+    h, w = x.shape[1], x.shape[2]
+    return math.sqrt(math.pi / 2.0) * conv.abs().sum((1, 2)) / (6.0 * (w - 2) * (h - 2))
+
+
+def _gaussian_kernel1d(ks: int, sigma: float, device=None) -> torch.Tensor:
+    x = torch.arange(ks, dtype=torch.float32, device=device) - (ks - 1) / 2.0
+    k = torch.exp(-0.5 * (x / sigma) ** 2)
+    return k / k.sum()
+
+
+def gaussian_blur(img: torch.Tensor, ks=(7, 7), sigma: float = 1.0) -> torch.Tensor:
+    """Separable gaussian blur of (B, H, W, C), reflect-padded."""
+    kh = _gaussian_kernel1d(ks[0], sigma, img.device).to(img.dtype)
+    kw = _gaussian_kernel1d(ks[1], sigma, img.device).to(img.dtype)
+    b, h, w, c = img.shape
+    x = img.permute(0, 3, 1, 2).reshape(b * c, 1, h, w)
+    rh, rw = ks[0] // 2, ks[1] // 2
+    x = F.pad(x, (rw, rw, rh, rh), mode="reflect")
+    x = F.conv2d(x, kh[None, None, :, None])
+    x = F.conv2d(x, kw[None, None, None, :])
+    return x.reshape(b, c, h, w).permute(0, 2, 3, 1)
+
+
+def unsharp_mask(img: torch.Tensor, ks=(7, 7), sigma: float = 1.0, amount: float = 1.0,
+                 thresh: float = 0.25) -> torch.Tensor:
+    """Unsharp masking with a low-contrast mask: (B, H, W, C) in the uint8 range [0, 255] in,
+    the same range out, rounded, with pixels whose |img - blur| < thresh left as they were."""
+    img = torch.as_tensor(img).float()
+    blurred = gaussian_blur(img, ks, sigma)
+    sharpened = torch.round(((amount + 1.0) * img - amount * blurred).clamp(0.0, 255.0))
+    if thresh > 0:
+        sharpened = torch.where((img - blurred).abs() < thresh, img, sharpened)
+    return sharpened
+
+
+def color_balance(img: torch.Tensor, percent: float) -> torch.Tensor:
+    """Simplest colour balance of an (H, W, 3) uint8-range image: each channel clipped at its
+    percent / 2 low and high quantiles (linear interpolation, as jnp.quantile) and rescaled to
+    [0, 255], rounded."""
+    img = torch.as_tensor(img).float()
+    flat = img.reshape(-1, img.shape[-1])
+    q = torch.tensor([percent / 200.0, 1.0 - percent / 200.0], dtype=torch.float32, device=img.device)
+    lo, hi = torch.quantile(flat, q, dim=0)
+    out = (img - lo) / torch.clamp_min(hi - lo, 1e-8) * 255.0
+    return torch.round(out.clamp(0.0, 255.0))
+
+
+def positive(x: torch.Tensor) -> torch.Tensor:
+    return (x > 0).float()
+
+
+def normalize_minmax(img: torch.Tensor) -> torch.Tensor:
+    """Min-max normalisation to [0, 1]."""
+    img = torch.as_tensor(img).float()
+    return (img - img.min()) / torch.clamp_min(img.max() - img.min(), 1e-12)
+
+
+def _box_sum(x: torch.Tensor, ks: int) -> torch.Tensor:
+    """maua_tpu's integral-image window sum of (H, W): edge padding of radius (ks - 1) // 2, then a
+    (ks - 1) x (ks - 1) window sum offset one short of centred."""
+    n, r = ks - 1, (ks - 1) // 2
+    p = F.pad(x[None, None], (r, n - 1 - r, r, n - 1 - r), mode="replicate")
+    return F.conv2d(p, torch.ones(1, 1, n, n, dtype=x.dtype, device=x.device))[0, 0]
+
+
+def blurriness_lbp(im_gray: torch.Tensor, ks: int, thresh: float) -> torch.Tensor:
+    """Local-binary-pattern sharpness map of (H, W): 8-neighbour LBP codes (diagonals bilinearly
+    interpolated at radius sqrt(2) / 2), non-uniform patterns (U > 2) mapped to 9, sharpness the
+    windowed density of codes 6-9."""
+    I = normalize_minmax(im_gray)
+    pt = F.pad(I[None, None], (1, 1, 1, 1), mode="replicate")[0, 0]
+    right, left = pt[1:-1, 2:], pt[1:-1, :-2]
+    above, below = pt[:-2, 1:-1], pt[2:, 1:-1]
+    above_right, above_left = pt[:-2, 2:], pt[:-2, :-2]
+    below_right, below_left = pt[2:, 2:], pt[2:, :-2]
+
+    q = math.sqrt(2) / 2
+    interp1 = (1 - q) * ((1 - q) * I + q * right) + q * ((1 - q) * above + q * above_right)
+    interp3 = (1 - q) * ((1 - q) * I + q * left) + q * ((1 - q) * above + q * above_left)
+    interp5 = (1 - q) * ((1 - q) * I + q * left) + q * ((1 - q) * below + q * below_left)
+    interp7 = (1 - q) * ((1 - q) * I + q * right) + q * ((1 - q) * below + q * below_right)
+
+    s = [positive(nb - I - thresh) for nb in (right, interp1, above, interp3, left, interp5, below, interp7)]
+    U = sum((s[(i + 1) % 8] - s[i]).abs() for i in range(8))
+    lbpmap = torch.where(U > 2, 9.0, sum(s))
+    return _box_sum((lbpmap >= 6).float(), ks) / float(ks) ** 2
+
+
+def blurriness_svd(img: torch.Tensor, kr: int = 10, sv_num: int = 3) -> torch.Tensor:
+    """Windowed-SVD blur map of (H, W): each pixel's 2kr x 2kr reflect-padded patch, the share of
+    its top sv_num singular values, min-max inverted to [0, 1]."""
+    h, w = img.shape
+    x = F.pad(torch.as_tensor(img).float()[None, None], (kr, kr, kr, kr), mode="reflect")[0, 0]
+    ks = kr * 2
+    patches = torch.stack([x[y:y + h, xx:xx + w] for y in range(ks) for xx in range(ks)], dim=-1)
+    sv = torch.linalg.svdvals(patches.reshape(h * w, ks, ks))
+    degrees = sv[:, :sv_num].sum(1) / torch.clamp_min(sv.sum(1), 1e-12)
+    max_sv, min_sv = degrees.min(), degrees.max()  # the names as maua_tpu has them: the map is inverted
+    return ((degrees - min_sv) / (max_sv - min_sv)).reshape(h, w)

@@ -1,10 +1,16 @@
-"""Optimizers for the style paths: L-BFGS with a zoom linesearch and Adam.
+"""The optimizer registry: L-BFGS with a zoom linesearch, Adam, optax's
+other families, maua_tpu's own transforms and Lookahead.
 
-Port of `maua_tpu/optimizers.py` for the names the style paths use:
-"lbfgs", "lbfgs-20" and "adam" (optax's update order, `Adam`). `load_optimizer` returns (factory,
-n_iters), where factory(params) builds a `torch.optim.Optimizer` over a
-list of tensors; every other name of maua_tpu's registry raises
-NotImplementedError.
+Port of `maua_tpu/optimizers.py`: every name of its registry (104 with the
+"lookahead-" prefix), `optimizer_choices`, `load_optimizer`'s name rules
+and `adahessian_optimizer`. `load_optimizer` returns (factory, n_iters),
+where factory(params) builds the optimizer over a list of tensors: "adam"
+is `Adam` (optax's update order), "lbfgs" and "lbfgs-20" `LBFGS`, the
+other families `transforms.TransformOptimizer` over optax's formula or
+maua_tpu's (`transforms.py`), and the lookahead and ranger names a
+`Lookahead` over one of those. maua_tpu wraps them in optax.lookahead,
+which needs `optax.LookaheadParams` its style paths do not pass, so they
+raise there; the port keeps the slow weights in the optimizer.
 
 `LBFGS` is optax 0.2.6's `lbfgs(learning_rate)`, not `torch.optim.LBFGS`
 (the two take different steps): the two-loop L-BFGS direction P g
@@ -28,6 +34,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from . import transforms as T
 
 f32 = np.float32
 # optax.lbfgs's default linesearch: scale_by_zoom_linesearch(max_linesearch_steps=20, initial_guess_strategy="one")
@@ -87,6 +95,8 @@ class LBFGS(torch.optim.Optimizer):
         self.grad: Optional[torch.Tensor] = None
         self.evaluations = 0
         self.info: Dict[str, Any] = {}
+
+    closure_step = True  # step(closure) evaluates the loss itself
 
     # ---------------------------------------------------------------- flat views
     def _flat(self) -> torch.Tensor:
@@ -250,68 +260,185 @@ class LBFGS(torch.optim.Optimizer):
         return torch.tensor(float(value))
 
 
-class Adam(torch.optim.Optimizer):
+class Adam(T.TransformOptimizer):
     """optax.adam(lr, b1, b2, eps, eps_root) in optax's order of operations: mu = (1 - b1) g + b1 mu,
     nu = (1 - b2) g^2 + b2 nu, p += -lr (mu / (1 - b1^t)) / (sqrt(nu / (1 - b2^t) + eps_root) + eps).
     (torch.optim.Adam computes the same update in another order, which drifts a few f32 ulps a step.)"""
 
     def __init__(self, params, lr: float = 1e-3, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                  eps_root: float = 0.0):
-        super().__init__(params, {"lr": lr, "b1": b1, "b2": b2, "eps": eps, "eps_root": eps_root})
+        super().__init__(params, T.adam(lr, b1, b2, eps, eps_root))
+
+
+class Lookahead:
+    """Lookahead over an inner optimizer (optax.lookahead(sync_period, slow_step_size) on plain
+    parameters): the fast weights are the parameters the loss sees, the slow weights live here.
+    Every `sync_period` inner steps, slow += slow_step_size (fast - slow) and fast = slow. Nested
+    (lookahead-ranger), the outer sync also sets the inner slow weights, as optax's nested
+    LookaheadParams move together. An inner L-BFGS re-evaluates after a sync, where the
+    parameters jumped. `step(closure)` takes a closure when the inner optimizer does."""
+
+    def __init__(self, inner, sync_period: int = 6, slow_step_size: float = 0.5):
+        if sync_period < 1:
+            raise ValueError("Synchronization period must be >= 1.")
+        self.inner = inner
+        self.sync_period, self.slow_step_size = sync_period, slow_step_size
+        self.params: List[torch.Tensor] = [p for g in inner.param_groups for p in g["params"]]
+        self.slow = [p.detach().clone() for p in self.params]
+        self.steps_since_sync = 0
+
+    @property
+    def param_groups(self):
+        return self.inner.param_groups
+
+    @property
+    def closure_step(self) -> bool:
+        return getattr(self.inner, "closure_step", False)
+
+    @property
+    def evaluations(self) -> int:
+        return getattr(self.inner, "evaluations", 0)
+
+    def zero_grad(self, set_to_none: bool = True):
+        self.inner.zero_grad(set_to_none)
 
     @torch.no_grad()
     def step(self, closure: Optional[Callable] = None):
-        loss = None
-        if closure is not None:
-            with torch.enable_grad():
-                loss = closure()
-        for group in self.param_groups:
-            b1, b2 = group["b1"], group["b2"]
-            for p in group["params"]:
-                if p.grad is None:
-                    continue
-                st = self.state[p]
-                if not st:
-                    st["count"], st["mu"], st["nu"] = 0, torch.zeros_like(p), torch.zeros_like(p)
-                g = p.grad
-                st["count"] += 1
-                st["mu"] = (1 - b1) * g + b1 * st["mu"]
-                st["nu"] = (1 - b2) * g.square() + b2 * st["nu"]
-                mu_hat = st["mu"] / float(1 - f32(b1) ** st["count"])
-                nu_hat = st["nu"] / float(1 - f32(b2) ** st["count"])
-                p.add_(-group["lr"] * (mu_hat / ((nu_hat + group["eps_root"]).sqrt() + group["eps"])))
+        loss = self.inner.step(closure) if (closure is not None or self.closure_step) else self.inner.step()
+        self.steps_since_sync = (self.steps_since_sync + 1) % self.sync_period
+        if self.steps_since_sync == 0:
+            for p, s in zip(self.params, self.slow):
+                s.add_(self.slow_step_size * (p - s))
+                p.copy_(s)
+            if isinstance(self.inner, Lookahead):
+                self.inner.slow = [s.clone() for s in self.slow]
+            if isinstance(self.inner, LBFGS):
+                self.inner.value = None
         return loss
+
+
+def adahessian_optimizer(loss_fn: Callable, lr: float = 0.1, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-4,
+                         gen: Optional[torch.Generator] = None, draws=None):
+    """AdaHessian (maua_tpu's `adahessian_optimizer`): (init(params), step(params, state, *args) ->
+    (params, state)) over a dict (or list) of tensors, the Hutchinson diagonal |z * (H z)| from a
+    jvp of the gradient (`torch.func`), z Rademacher from `draws` (one tree per step) where given,
+    else from `gen` (seed 0 on the parameters' device)."""
+    draws = iter(draws) if draws is not None else None
+
+    def _map(fn, *trees):
+        if isinstance(trees[0], dict):
+            return {k: fn(*(t[k] for t in trees)) for k in trees[0]}
+        return [fn(*xs) for xs in zip(*trees)]
+
+    def init(params):
+        zeros = _map(torch.zeros_like, params)
+        return {"m": zeros, "v": _map(torch.zeros_like, params), "count": 0, "gen": gen}
+
+    def step(params, state, *args):
+        grad_fn = torch.func.grad(lambda p: loss_fn(p, *args))
+        grads = grad_fn(params)
+        g_ = state["gen"]
+        if draws is not None:
+            z = _map(lambda p, d: torch.as_tensor(d, dtype=p.dtype, device=p.device), params, next(draws))
+        else:
+            if g_ is None:
+                leaf = next(iter(params.values())) if isinstance(params, dict) else params[0]
+                g_ = torch.Generator(device=leaf.device).manual_seed(0)
+            z = _map(lambda p: torch.randint(0, 2, p.shape, generator=g_, device=p.device).to(p.dtype) * 2 - 1,
+                     params)
+        _, hz = torch.func.jvp(grad_fn, (params,), (z,))
+        hdiag = _map(lambda a, b: (a * b).abs(), z, hz)
+        count = state["count"] + 1
+        c1, c2 = float(f32(1) - f32(b1) ** f32(count)), float(f32(1) - f32(b2) ** f32(count))
+        m = _map(lambda m_, g: b1 * m_ + (1 - b1) * g, state["m"], grads)
+        v = _map(lambda v_, h: b2 * v_ + (1 - b2) * h * h, state["v"], hdiag)
+        new = _map(lambda p, m_, v_: p - lr * (m_ / c1) / (torch.sqrt(v_ / c2) + eps), params, m, v)
+        return new, {"m": m, "v": v, "count": count, "gen": g_}
+
+    return init, step
+
+
+def _tx(build):
+    """A registry factory over a gradient transformation: (lr, **kw) -> params -> optimizer."""
+    return lambda lr, **kw: lambda params: T.TransformOptimizer(params, build(lr, **kw))
+
+
+def _lookahead(inner):
+    return lambda lr, **kw: lambda params: Lookahead(inner(lr, **kw)(params), sync_period=6, slow_step_size=0.5)
 
 
 _REGISTRY: Dict[str, Callable] = {
     "adam": lambda lr, **kw: lambda params: Adam(params, lr, **kw),
+    "adamw": _tx(T.adamw),
+    "adamax": _tx(T.adamax),
+    "adamaxw": _tx(T.adamaxw),
+    "amsgrad": _tx(T.amsgrad),
+    "adagrad": _tx(T.adagrad),
+    "adadelta": _tx(T.adadelta),
+    "adabelief": _tx(T.adabelief),
+    "adafactor": _tx(T.adafactor),
+    "adan": _tx(T.adan),
+    "sgd": _tx(T.sgd),
+    "sgdw": _tx(lambda lr, **kw: T.sgd(lr, momentum=0.9, nesterov=True, **kw)),
+    "rmsprop": _tx(T.rmsprop),
+    "rmsproptf": _tx(lambda lr, **kw: T.rmsprop(lr, decay=0.9, eps=1e-3, **kw)),
+    "lamb": _tx(T.lamb),
+    "lars": _tx(T.lars),
+    "lion": _tx(T.lion),
+    "radam": _tx(T.radam),
+    "nadam": _tx(T.nadam),
+    "nadamw": _tx(T.nadamw),
+    "novograd": _tx(T.novograd),
+    "yogi": _tx(T.yogi),
+    "fromage": _tx(T.fromage),
+    "sm3": _tx(T.sm3),
+    "noisysgd": _tx(T.noisy_sgd),
+    "optimisticgd": _tx(T.optimistic_gradient_descent),
+    "polyaksgd": _tx(T.sgd),
+    "rprop": _tx(T.rprop),
+    "sign_sgd": _tx(T.sgd),
     "lbfgs": lambda lr, **kw: lambda params: LBFGS(params, lr, **kw),
     "lbfgs-20": lambda lr, **kw: lambda params: LBFGS(params, lr, memory_size=20, **kw),
+    # maua_tpu's own transforms
+    "accsgd": _tx(T.accsgd),
+    "adabound": _tx(T.adabound),
+    "adamod": _tx(T.adamod),
+    "adamp": _tx(T.adamp),
+    "sgdp": _tx(T.sgdp),
+    "aggmo": _tx(T.aggmo),
+    "diffgrad": _tx(T.diffgrad),
+    "pid": _tx(T.pid),
+    "qhadam": _tx(T.qhadam),
+    "qhm": _tx(T.qhm),
+    "swats": _tx(T.swats),
+    "shampoo": _tx(T.shampoo),
+    # the ranger family: lookahead composites
+    "ranger": _lookahead(_tx(T.radam)),
+    "rangerqh": _lookahead(_tx(T.qhadam)),
+    "rangerva": _lookahead(_tx(T.radam)),
+    "ranger21": _lookahead(_tx(lambda lr, **kw: T.chain(T.centralize(), T.adamw(lr, **kw)))),
+    # torch's "Fused*" variants are speed clones of the base rule
+    "fusedsgd": _tx(lambda lr, **kw: T.sgd(lr, momentum=0.9, **kw)),
+    "fusedadam": _tx(T.adam),
+    "fusedlamb": _tx(T.lamb),
+    "fusednovograd": _tx(T.novograd),
+    "nvnovograd": _tx(T.novograd),
 }
+for _name in list(_REGISTRY):
+    _REGISTRY[f"lookahead-{_name}"] = _lookahead(_REGISTRY[_name])
 
-# maua_tpu's other registry names (maua_tpu/optimizers.py): not ported yet
-_NOT_PORTED = (
-    "accsgd", "adabelief", "adabound", "adadelta", "adafactor", "adagrad", "adamax", "adamaxw", "adamod", "adamp",
-    "adamw", "adan", "aggmo", "amsgrad", "diffgrad", "fromage", "fusedadam", "fusedlamb", "fusednovograd", "fusedsgd",
-    "lamb", "lars", "lion", "nadam", "nadamw", "noisysgd", "novograd", "nvnovograd", "optimisticgd", "pid",
-    "polyaksgd", "qhadam", "qhm", "radam", "ranger", "ranger21", "rangerqh", "rangerva", "rmsprop", "rmsproptf",
-    "rprop", "sgd", "sgdp", "sgdw", "shampoo", "sign_sgd", "sm3", "swats", "yogi",
-)
 optimizer_choices = sorted(_REGISTRY)
 
 
 def load_optimizer(name: str, lr: float = 0.1, optimizer_kwargs: Optional[Dict[str, Any]] = None,
-                   n_iters: int = 512) -> Tuple[Callable[[List[torch.Tensor]], torch.optim.Optimizer], int]:
-    """(factory, n_iters) for a registry name, as maua_tpu resolves it (case folded, "_" dropped,
-    "-n" read as "-20"): factory(params) builds the optimizer. The names maua_tpu has and the
-    port does not yet (the lookahead-* prefix, the custom transforms, shampoo, adahessian, optax's
-    other families) raise NotImplementedError."""
+                   n_iters: int = 512) -> Tuple[Callable[[List[torch.Tensor]], Any], int]:
+    """(factory, n_iters) for a registry name, as maua_tpu resolves it (case folded, "_" dropped and
+    "-n" read as "-20", else the case-folded name as given): factory(params) builds the optimizer.
+    L-BFGS (and a Lookahead over it) steps with a closure (`closure_step`)."""
     key = name.lower().replace("_", "").replace("-n", "-20")
-    if key not in _REGISTRY and name.lower() in _REGISTRY:
-        key = name.lower()
-    if key in _REGISTRY:
-        return _REGISTRY[key](lr, **(optimizer_kwargs or {})), n_iters
-    if key.startswith("lookahead-") or key in _NOT_PORTED or name.lower() in _NOT_PORTED or key == "adahessian":
-        raise NotImplementedError(f"optimizer {name!r} is not ported yet (maua_tpu/optimizers.py); "
-                                  f"ported: {optimizer_choices}")
-    raise ValueError(f"unknown optimizer {name}; options: {optimizer_choices}")
+    if key not in _REGISTRY:
+        key2 = name.lower()
+        if key2 not in _REGISTRY:
+            raise ValueError(f"unknown optimizer {name}; options: {optimizer_choices}")
+        key = key2
+    return _REGISTRY[key](lr, **(optimizer_kwargs or {})), n_iters

@@ -82,8 +82,7 @@ class Parameterization:
 
 
 def load_parameterization(which: str):
-    """The class for a name: rgb, fourier, pixel or vqgan ("stylegan" waits for the StyleGAN2
-    Generator class)."""
+    """The class for a name: rgb, fourier, pixel, vqgan or stylegan."""
     which = which.lower()
     if which == "rgb":
         from .rgb import RGB
@@ -102,6 +101,7 @@ def load_parameterization(which: str):
 
         return VQGAN
     if which == "stylegan":
-        raise NotImplementedError("the stylegan parameterization is not ported yet (maua_tpu/parameterizations/"
-                                  "stylegan.py): it needs maua_tpu/gan/stylegan2.py's Generator class")
+        from .stylegan import StyleGANLatent
+
+        return StyleGANLatent
     raise ValueError(f"Parameterization {which} not recognized!")

@@ -1,9 +1,9 @@
 """Perceptors: feature extractors that drive style transfer and guidance.
 
 Port of `maua_tpu/perceptors/__init__.py` (Perceptor, load_perceptor).
-Features are lists of NHWC maps returned by functional extractors. The
-CLIP, LPIPS and VGG perceptors are ported; the caffe model zoo
-(`perceptors/pgg.py`) is not yet and raises.
+Features are lists of NHWC maps returned by functional extractors: CLIP,
+LPIPS, VGG and the caffe model zoo (`perceptors/pgg.py`); NIMA scores
+images (`perceptors/nima.py`).
 """
 
 from __future__ import annotations
@@ -54,7 +54,10 @@ def load_perceptor(name: str):
 
         return CLIPPerceptor
     if name.startswith("pgg") or name in ("nin", "sod", "fcn32s", "nyud", "prune", "pruned"):
-        raise NotImplementedError("the caffe model-zoo perceptors are not ported yet (maua_tpu's perceptors/pgg.py)")
+        from .pgg import PGGPerceptor
+
+        model = name[4:] if name.startswith("pgg-") else (name if name != "pgg" else "vgg19")
+        return partial(PGGPerceptor, model_name=model)
     if name.startswith("lpips"):
         from .lpips import LPIPSPerceptor
 

@@ -19,7 +19,7 @@ import torch
 from ..loss import gram_matrix, scaled_mse_loss, tv_loss
 from ..ops.image import match_histogram, resample
 from ..ops.io import load_images
-from ..optimizers import LBFGS, load_optimizer
+from ..optimizers import load_optimizer
 from ..parameterizations import load_parameterization
 from ..perceptors import load_perceptor
 from ..utility import resolve_device
@@ -90,8 +90,8 @@ def transfer(
         init_tensor = content
     else:
         init_tensor = None
-    if init_tensor is not None and parameterization.lower() in ("vqgan", "fourier"):
-        # maua_tpu hands the image to these as their latent / spectrum and fails on its shape
+    if init_tensor is not None and parameterization.lower() in ("vqgan", "fourier", "stylegan"):
+        # maua_tpu hands the image to these as their latent / spectrum / w+ and fails on its shape
         raise ValueError(f"the {parameterization} parameterization starts from its own latent, not an image: "
                          f"use init_type='random'")
 
@@ -121,9 +121,10 @@ def transfer(
         return loss
 
     evaluations = 0
+    closure_step = getattr(opt, "closure_step", False)  # L-BFGS, or a Lookahead over it
     t0 = time.perf_counter()
     for it in range(niter):
-        if isinstance(opt, LBFGS):
+        if closure_step:
             value = opt.step(closure)
         else:
             value = closure()
@@ -135,7 +136,7 @@ def transfer(
     if stats is not None:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
-        stats.update(iterations=niter, evaluations=opt.evaluations if isinstance(opt, LBFGS) else evaluations,
+        stats.update(iterations=niter, evaluations=opt.evaluations if closure_step else evaluations,
                      loop_seconds=time.perf_counter() - t0)
     with torch.no_grad():
         return pastiche.decode_average()

@@ -25,7 +25,7 @@ from ..loss import gram_matrix, scaled_mse_loss, tv_loss
 from ..ops.image import match_histogram, resample
 from ..ops.io import load_images
 from ..ops.warp import grid_sample, resize
-from ..optimizers import LBFGS, load_optimizer
+from ..optimizers import load_optimizer
 from ..parameterizations import load_parameterization
 from ..utility import resolve_device
 from .image import build_perceptor, style_targets, to_image
@@ -116,7 +116,7 @@ def transfer(
             return loss
 
         for _ in range(niter):
-            if isinstance(opt, LBFGS):
+            if getattr(opt, "closure_step", False):
                 opt.step(closure)
             else:
                 closure()

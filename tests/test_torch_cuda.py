@@ -35,7 +35,10 @@ on stems of peak ~0.8; the realtime walk's uint8 frames within one level
 of the CPU's on the same draws. A self-supervised patch's latents and
 noise windows on the card against the CPU on the same draws: 1e-4
 absolute (a Loop window's phase magnifies the card's and the CPU's
-cos roundings up to 50-fold).
+cos roundings up to 50-fold). The epilogue's gradient through its kernel
+route (`ModconvEpilogue`) against autograd of the plain version: 1e-4 of
+each gradient's largest magnitude in f32 (the same sums in other orders),
+and one bf16 ulp of that magnitude on top in bf16.
 """
 
 import pytest
@@ -83,6 +86,66 @@ def test_epilogue_kernel_matches_plain(cuda_device, dtype, shape, noise_shape, u
     ref = E.modconv_epilogue_plain(z, post, noise, bias, clamp=clamp, pre_next=pre)
     rtol = 2.0**-7 if dtype == torch.bfloat16 else 1e-5
     torch.testing.assert_close(out.float(), ref.float(), rtol=rtol, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,noise_shape,use_pre,clamp", [
+    ((8, 512, 16, 16), (1, 1, 16, 16), False, 256.0),  # a 1024^2 batch of 8 on the plain route: b16
+    ((8, 64, 512, 512), (1, 1, 512, 512), False, 256.0),  # b512
+    ((8, 32, 1024, 1024), (8, 1, 1024, 1024), False, 0.5),  # b1024, per-sample noise, a clamp that bites
+    ((8, 256, 256, 256), (1, 4, 256, 256), True, 256.0),  # the s2d route's b512 cells, with pre_next
+    ((8, 128, 512, 512), (1, 4, 512, 512), True, None),  # its b1024 cells
+])
+def test_epilogue_kernel_route_carries_the_gradient(cuda_device, dtype, shape, noise_shape, use_pre, clamp):
+    """dz, dpost, dnoise, dbias and dpre_next through the kernel route under autograd against the
+    plain version's autograd on the card: the ctypes launch alone writes an output with no grad_fn."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    b, c = shape[:2]
+    leaves = {"z": (torch.randn(*shape, generator=gen, device=cuda_device) * 2).to(dtype),
+              "post": torch.rand(b, c, generator=gen, device=cuda_device) + 0.5,
+              "noise": torch.randn(*noise_shape, generator=gen, device=cuda_device),
+              "bias": torch.randn(c, generator=gen, device=cuda_device) * 0.1,
+              "pre_next": torch.rand(b, c, generator=gen, device=cuda_device) + 0.5 if use_pre else None}
+    g = torch.randn(*shape, generator=gen, device=cuda_device).to(dtype)
+    grads = {}
+    for route, fn in (("kernel", E.modconv_epilogue), ("plain", E.modconv_epilogue_plain)):
+        ts = {k: None if v is None else v.detach().clone().requires_grad_(True) for k, v in leaves.items()}
+        E.reset_launches()
+        y = fn(ts["z"], ts["post"], ts["noise"], ts["bias"], clamp=clamp, pre_next=ts["pre_next"])
+        y.backward(g)
+        torch.cuda.synchronize()
+        if route == "kernel":
+            assert E.launches == 1 and type(y.grad_fn).__name__ == "ModconvEpilogueBackward"
+        grads[route] = {k: t.grad for k, t in ts.items() if t is not None}
+    for k, ref in grads["plain"].items():
+        got = grads["kernel"][k]
+        assert got is not None and got.dtype == ref.dtype and got.shape == ref.shape, k
+        scale = float(ref.float().abs().max())
+        bar = 1e-4 * scale + (2.0**-8 * scale if dtype == torch.bfloat16 else 0.0)
+        assert float((got.float() - ref.float()).abs().max()) <= bar, k
+
+
+@pytest.mark.cuda
+def test_kernels_without_a_backward_refuse_autograd(cuda_device):
+    """filtered_lrelu, melspectrogram and kconv3x3 raise where autograd records instead of handing
+    back an output with no grad_fn; without autograd they launch as before."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn(2, 4, 36, 36, generator=gen, device=cuda_device)
+    up_f, down_f = _lowpass(12, 100.0, 80.0, 1024.0), _lowpass(12, 100.0, 80.0, 1024.0)
+    y = _signal((22050,), gen, cuda_device)
+    xk = torch.randn(1, 16, 16, 8, generator=gen, device=cuda_device)
+    wk = torch.randn(3, 3, 8, 8, generator=gen, device=cuda_device)
+    calls = (lambda t: FL.filtered_lrelu(t, up_f, down_f, 2, 2), lambda t: M.melspectrogram(t, 22050),
+             lambda t: K.kconv3x3(t, wk))
+    for call, t, name in zip(calls, (x, y, xk), ("filtered_lrelu", "melspectrogram", "kconv3x3")):
+        with pytest.raises(RuntimeError, match=f"{name} has no backward"):
+            call(t.clone().requires_grad_(True))
+        with torch.no_grad():
+            assert call(t.clone().requires_grad_(True)).is_cuda
+        assert call(t).is_cuda
+    with pytest.raises(RuntimeError, match="kconv3x3 has no backward"):
+        K.kconv3x3(xk, wk.clone().requires_grad_(True))
 
 
 @pytest.mark.cuda

@@ -216,8 +216,9 @@ def test_clip_random_towers_and_heads():
     score = head.score(torch.zeros(2, 32, 32, 3))
     assert score.shape == (2,) and bool(((score >= 1) & (score <= 10)).all())
     assert load_perceptor("clip-vit-b32") is TCLIP.CLIPPerceptor
-    with pytest.raises(NotImplementedError, match="perceptors/pgg.py"):
-        load_perceptor("pgg-vgg19")
+    from maua_tpu_torch.perceptors.pgg import PGGPerceptor
+
+    assert load_perceptor("pgg-vgg19").func is PGGPerceptor
 
 
 @pytest.fixture(scope="module")

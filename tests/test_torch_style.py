@@ -170,8 +170,9 @@ def test_vqgan_decode_encode_and_gradient():
     img = (np.random.RandomState(14).rand(1, 64, 64, 3) * 2 - 1).astype(np.float32)
     _close(t.encode(img).detach(), j.encode(jnp.asarray(img)), 1e-5, "encode")
     _close(t.decode().detach(), j.decode(), 1e-5, "decode of the encoded image")
-    with pytest.raises(NotImplementedError, match="stylegan2.py's Generator"):
-        load_parameterization("stylegan")
+    from maua_tpu_torch.parameterizations.stylegan import StyleGANLatent
+
+    assert load_parameterization("stylegan") is StyleGANLatent
 
 
 # ------------------------------------------------------------------ style slices
@@ -202,6 +203,14 @@ def test_image_transfer_refuses_an_image_as_a_latent(vgg):
     content, style = _content_style(21, 16)
     with pytest.raises(ValueError, match="init_type='random'"):
         TSI.transfer(content, [style], size=16, parameterization="vqgan", device="cpu", n_iters=1, verbose=False,
+                     perceptor_kwargs={"params": vgg[1]})
+
+
+def test_image_transfer_refuses_an_image_as_stylegan_latents(vgg):
+    """maua_tpu hands the content image to StyleGANLatent as its w+ tensor; the port refuses it."""
+    content, style = _content_style(21, 16)
+    with pytest.raises(ValueError, match="init_type='random'"):
+        TSI.transfer(content, [style], size=16, parameterization="stylegan", device="cpu", n_iters=1, verbose=False,
                      perceptor_kwargs={"params": vgg[1]})
 
 
