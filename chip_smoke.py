@@ -220,6 +220,26 @@ Phases, each printed as one JSON line with its elapsed seconds:
    how far one ulp of every gradient moves it on the CPU alone; the two
    shampoo names (one ulp moves them 3e-5 to 3.5e-4) within 1e-3, on nine
    draws of the problem.
+52. gan_train (after nca): `python -m maua_tpu_torch gan train` at config-f
+   1024^2, batch 4, f32 over 8 seed-made images: 8 steps at the default
+   intervals (R1 at 0, path length at 0 and 4, the initial blur on), the one
+   evaluation at the last step (64 images, the ResNet extractor), the best and
+   final checkpoints; seconds a step by stage, peak memory, the epilogue's
+   launches in all (374) and under autograd (170), one plain step profiled;
+   the checkpoint round trip, and one step from it against one from the state
+   in memory (deterministic kernels: equal).
+53. gan_langevin_d: `gan generate --sampling langevin --langevin_critic
+   discriminator` on an ADA .pkl with a D entry (config-f, seeds 0 and 1): two
+   PNGs, seconds, 850 launches under autograd.
+54. gan_train_reference (after optimizers): one train step card vs CPU at
+   64^2 on the same draws (TF32 off), D and G gradients leaf by leaf; the
+   kernel route against the plain route at 1024^2, beside it the plain route
+   again and with every epilogue output one ulp off (sound readings the bar
+   must pass; again under cuDNN's deterministic algorithms, unbarred); beside
+   each, the detached (pre-repair) backward's reading and, at 1024^2, the
+   noise input's gradient dropped, which the bar must reject. epilogue_grad
+   also holds the double backward through the Function at every plain-route
+   layer shape in f32 and bf16.
 Phases that upscale fail if an out-of-memory ladder took a rung past its
 first.
 
@@ -1540,13 +1560,24 @@ def ada_state_dict(tree, prefix: str = "") -> dict:
     return out
 
 
-def write_ada_pkl(path: str, sd: dict) -> None:
+def ada_d_state_dict(params, cfg) -> dict:
+    """The port's discriminator parameter dict under NVIDIA's ADA names (`fromrgb` lives in the top
+    block, b{res}.fromrgb)."""
+    tree = {k: v for k, v in params.items() if k != "fromrgb"}
+    top = f"b{cfg.img_resolution}"
+    tree[top] = {"fromrgb": params["fromrgb"], **tree[top]}
+    return ada_state_dict(tree)
+
+
+def write_ada_pkl(path: str, sd: dict, d_sd: dict | None = None) -> None:
     """Write a state dict as stylegan2-ada-pytorch pickles its networks:
     every nn.Module reduces through torch_utils.persistence's
     `_reconstruct_persistent_obj(meta)`, meta a dnnlib.EasyDict whose
     `state` is the module's __dict__ (tensors in `_parameters`/`_buffers`,
     submodules in `_modules`). Stand-ins for those two modules exist only
-    while pickling, so the loader has to read the file without them."""
+    while pickling, so the loader has to read the file without them.
+    `d_sd`, a discriminator's state dict (ada_d_state_dict), fills the `D`
+    entry, which is None otherwise."""
     import pickle
     import types
 
@@ -1555,18 +1586,23 @@ def write_ada_pkl(path: str, sd: dict) -> None:
     class Node(torch.nn.Module):
         pass
 
-    root = Node()
-    for key, val in sd.items():
-        *parents, leaf = key.split(".")
-        node = root
-        for p in parents:
-            if p not in node._modules:
-                node.add_module(p, Node())
-            node = node._modules[p]
-        if leaf in ("noise_const", "w_avg"):  # ADA's buffers; the rest are parameters
-            node.register_buffer(leaf, val.detach().clone())
-        else:
-            setattr(node, leaf, torch.nn.Parameter(val.detach().clone(), requires_grad=False))
+    def modules(state_dict):
+        root = Node()
+        for key, val in state_dict.items():
+            *parents, leaf = key.split(".")
+            node = root
+            for p in parents:
+                if p not in node._modules:
+                    node.add_module(p, Node())
+                node = node._modules[p]
+            if leaf in ("noise_const", "w_avg"):  # ADA's buffers; the rest are parameters
+                node.register_buffer(leaf, val.detach().clone())
+            else:
+                setattr(node, leaf, torch.nn.Parameter(val.detach().clone(), requires_grad=False))
+        return root
+
+    root = modules(sd)
+    d_root = None if d_sd is None else modules(d_sd)
 
     persistence = types.ModuleType("torch_utils.persistence")
     dnnlib = types.ModuleType("dnnlib")
@@ -1595,7 +1631,7 @@ def write_ada_pkl(path: str, sd: dict) -> None:
     sys.modules.update(stand_ins)
     try:
         with open(path, "wb") as f:
-            Pickler(f, protocol=4).dump({"G": root, "D": None, "G_ema": root, "training_set_kwargs": None,
+            Pickler(f, protocol=4).dump({"G": root, "D": d_root, "G_ema": root, "training_set_kwargs": None,
                                          "augment_pipe": None})
     finally:
         for name in stand_ins:
@@ -1998,9 +2034,9 @@ def synchronous_delivery():
         V.pipelined_frames = pipelined
 
 
-DELIVERY_FRAMES = 96  # frames per timed render: 12 batches of 8, 3 of 32
+DELIVERY_FRAMES = 64  # frames per timed render: 8 batches of 8, 2 of 32 (cut from 96)
 DELIVERY_ROUTES = (("sync", "rgb24"), ("pipelined", "rgb24"), ("pipelined", "yuv420p"), ("sync", "yuv420p"))
-DELIVERY_ROUNDS = 2  # timed renders of each route: 2 per round, in the order A B C D D C B A
+DELIVERY_ROUNDS = 1  # timed renders of each route: 2 per round, in the order A B C D D C B A (cut from 2 rounds)
 
 
 def device_busy_ms(prof) -> float:
@@ -4707,7 +4743,8 @@ def run_epilogue_grad():
     plain route's b4..b1024 with the example patch's noise, and the s2d route's cells with pre_next), in f32
     and in bf16, each against the plain version's autograd on the card (check_epilogue_gradients); the
     backward's ms per frame batch (each layer's case times its convs) beside its bound and the plain
-    version's."""
+    version's. Then the second-order gradients at the plain route's layer shapes in both dtypes
+    (check_epilogue_second_order), the detached backward's reading beside them."""
     import collections
 
     import torch
@@ -4725,6 +4762,13 @@ def run_epilogue_grad():
     rows = check_epilogue_gradients(counted, "epilogue_grad")
     out = {"cases": len(rows), "grad_max_rel_err": {d: max(max(r["grad_rel_err"].values()) for r in rows
                                                            if r["dtype"] == d) for d in ("float32", "bfloat16")}}
+    second = check_epilogue_second_order([k for k in counted if k[2][1] == 1 and not k[3]], "epilogue_grad")
+    out.update(second_order_cases=len(second), second_order_max_rel_err={
+        d: max(max(r["second_order_rel_err"].values()) for r in second if r["dtype"] == d)
+        for d in ("float32", "bfloat16")}, detached_min_rel_err=min(max(r["detached_rel_err"].values())
+                                                                     for r in second))
+    for r in second:
+        print(json.dumps({"epilogue_second_order": r}), flush=True)
     for dtype in ("float32", "bfloat16"):
         for route, groups in (("plain_route", 1), ("s2d_cells", 4)):
             sel = [r for r in rows if r["dtype"] == dtype and r["noise"][1] == groups]
@@ -5168,6 +5212,502 @@ def run_optimizers():
             "seconds": time.perf_counter() - t0}
 
 
+def detached_epilogue_backward(ctx, g):
+    """ModconvEpilogue's backward as it stood before its second-order repair: the saved inputs detached and no
+    graph taken, so a double backward loses every term through the epilogue. Only the known-wrong readings
+    (epilogue_grad, gan_train_reference) swap it in."""
+    import torch
+
+    from maua_tpu_torch.kernels import epilogue as E
+
+    inputs = [None if t is None else t.detach().requires_grad_(need)
+              for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+    wanted = [t for t in inputs if t is not None and t.requires_grad]
+    with torch.enable_grad():
+        z, post, noise, bias, pre_next = inputs
+        y = E.modconv_epilogue_plain(z, post, noise, bias, ctx.alpha, ctx.gain, ctx.clamp, pre_next)
+        grads = iter(torch.autograd.grad(y, wanted, g))
+    return (*(next(grads) if t is not None and t.requires_grad else None for t in inputs), None, None, None)
+
+
+def epilogue_rounded_once(z, post, noise, bias, alpha=0.2, gain=math.sqrt(2.0), clamp=256.0, pre_next=None):
+    """The epilogue's plain version with its output put at the f64 evaluation rounded once to z's dtype (what a
+    kernel that rounds exactly would return); its gradient stays the plain version's."""
+    import torch
+
+    from maua_tpu_torch.kernels import epilogue as E
+
+    y = E.modconv_epilogue_plain(z, post, noise, bias, alpha, gain, clamp, pre_next)
+    b, c, h, w = z.shape
+    x = z.detach().double() * post.detach().double()[:, :, None, None]
+    if noise is not None:
+        groups = noise.shape[1]
+        x = (x.view(b, groups, c // groups, h, w) + noise.detach().double()[:, :, None]).view(b, c, h, w)
+    x = x + bias.detach().double()[None, :, None, None]
+    x = torch.where(x >= 0, x, x * alpha) * gain
+    if clamp is not None and clamp >= 0:
+        x = x.clamp(-clamp, clamp)
+    if pre_next is not None:
+        x = x * pre_next.detach().double()[:, :, None, None]
+    return y + (x.to(y.dtype) - y.detach())
+
+
+def check_epilogue_second_order(cases, what: str):
+    """At each case (the keys of autograd_epilogue_cases): random card tensors of that case's shapes, and
+    s = sum_I <dI, v_I> over the first-order gradients of <y, g> (create_graph) with random directions v_I;
+    the gradient of s with respect to z, post, noise, bias, pre_next and g (every second derivative of the
+    epilogue) through the kernel route (`ModconvEpilogue`: the kernel forward, the differentiable recomputed
+    backward) against autograd of the plain version on the card, each within GRAD_BAR of its largest
+    magnitude (plus one bf16 ulp in bf16). Beside it the same through the detached backward
+    (detached_epilogue_backward, the route before the repair), whose reading the bar must reject."""
+    import torch
+
+    from maua_tpu_torch.kernels import epilogue as E
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rows = []
+    for shape, dtype, noise_shape, pre, alpha, gain, clamp in cases:
+        dt = getattr(torch, dtype)
+        b, c = shape[:2]
+
+        def rnd(*sh):
+            return torch.randn(*sh, generator=gen, device="cuda")
+
+        leaves = {"z": (rnd(*shape) * 4).to(dt), "post": rnd(b, c).abs() + 0.1,
+                  "noise": None if noise_shape is None else rnd(*noise_shape), "bias": rnd(c) * 0.1,
+                  "pre_next": rnd(b, c).abs() + 0.5 if pre else None, "g": rnd(*shape).to(dt)}
+        v = {k: torch.randn(t.shape, generator=gen, device="cuda") for k, t in leaves.items() if t is not None}
+
+        def second(fn):
+            ts = {k: None if t is None else t.clone().requires_grad_(True) for k, t in leaves.items()}
+            names = [k for k in ("z", "post", "noise", "bias", "pre_next") if ts[k] is not None]
+            y = fn(ts["z"], ts["post"], ts["noise"], ts["bias"], alpha, gain, clamp, ts["pre_next"])
+            first = torch.autograd.grad(y, [ts[k] for k in names], ts["g"], create_graph=True)
+            total = sum((d.float() * v[k]).sum() for k, d in zip(names, first))
+            wrt = [ts[k] for k in names + ["g"]]
+            out = torch.autograd.grad(total, wrt, allow_unused=True) if total.requires_grad else [None] * len(wrt)
+            return {k: torch.zeros_like(t, dtype=torch.float32) if d is None else d.float()
+                    for k, t, d in zip(names + ["g"], wrt, out)}
+
+        kernel, plain = second(E.modconv_epilogue), second(E.modconv_epilogue_plain)
+        with swapped(E.ModconvEpilogue, "backward", staticmethod(detached_epilogue_backward)):
+            detached = second(E.modconv_epilogue)
+
+        def errs(got):
+            return {f"d2{k}": float((got[k] - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
+                    for k, ref in plain.items() if float(ref.abs().max()) > 0}
+
+        bar = GRAD_BAR + (2.0**-8 if dt == torch.bfloat16 else 0.0)
+        row = {"shape": list(shape), "dtype": dtype, "noise": noise_shape and list(noise_shape), "pre_next": pre,
+               "clamp": clamp, "second_order_rel_err": errs(kernel), "detached_rel_err": errs(detached)}
+        if max(row["second_order_rel_err"].values()) > bar:
+            raise AssertionError(f"{what}: the epilogue's second-order gradient disagrees with the plain "
+                                 f"version's at {row}")
+        if max(row["detached_rel_err"].values()) <= bar:
+            raise AssertionError(f"{what}: the bar does not reject the detached backward at {row}")
+        rows.append(row)
+        del leaves, v, kernel, plain, detached
+        torch.cuda.empty_cache()
+    E.reset_launches()
+    return rows
+
+
+GAN_TRAIN_STEPS = 8  # `gan train` steps at config-f 1024^2: R1 at step 0, path length at steps 0 and 4
+GAN_TRAIN_IMAGES = 8  # the seed-made 1024^2 training folder: two batches an epoch
+GAN_TRAIN_BATCH = 4
+GAN_REF_SIZE = 64  # the train step held card vs CPU at 64^2 (channel_max 64)
+# card vs CPU, TF32 off, at 64^2: each D and G gradient leaf of a step with R1, path length and the initial
+# blur, over the larger of its largest magnitude and GAN_LEAF_FLOOR of its network's largest gradient: a scalar
+# noise strength's gradient is a sum over every pixel that cancels to ~1e-2 of its siblings', and read alone it
+# carries the roundoff of its terms (1.58e-2 at b16.conv0, H100 80GB HBM3, 700.00 W; every other leaf <= 6.2e-4);
+# floored, G read 1.87e-4 and D 2.64e-6, and the detached (pre-repair) backward 1.08 in G
+GAN_REF_BAR = 1e-3
+GAN_LEAF_FLOOR = 1e-2
+# the kernel route against the plain route on the card at 1024^2, TF32 off, floored as GAN_REF_BAR. The sound
+# readings under cuDNN's default algorithms: the kernel route 4.2e-4 to 7.9e-3 over nine runs, the plain route
+# against itself 3.9e-4 to 8.2e-4, every epilogue output one ulp off 4.3e-4 to 7.4e-3 (the spikes are b512's
+# noise strengths, sums over every pixel that take cuDNN's atomics). Wrong routes: the detached backward
+# 0.70-0.71, the noise input's gradient dropped 1.0 (at b1024's noise strengths: the floor does not hide them).
+# H100 80GB HBM3, 700.00 W. Under cuDNN's deterministic algorithms no bar can tell the routes apart: any
+# ulp-level change of the epilogue output moves the D step's fakes by 0.03 (6e-5 under the defaults), so the
+# kernel route (0.10 in D, 0.14 in G) and the sound witnesses (one ulp off and the f64 epilogue rounded once:
+# 0.009-0.058 in D, 0.016-0.041 in G) read of one order; recorded unbarred
+GAN_ROUTE_BAR = 3e-2
+# one step resumed from the checkpoint against one from the state in memory, of each parameter leaf's largest
+# magnitude: the inputs are equal bit for bit (checked) and the kernels deterministic, so it reads 0
+GAN_RESUME_BAR = 1e-5
+
+
+@contextlib.contextmanager
+def deterministic_kernels():
+    """cuDNN's deterministic algorithms, and PyTorch's deterministic kernels (a warning names any op that has
+    none), within the block."""
+    import torch
+
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True):
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            yield
+        finally:
+            torch.use_deterministic_algorithms(False)
+
+
+def leaf_names(tree, prefix: str = "") -> list:
+    """The dotted names of a tree's tensors in tree_leaves' order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in leaf_names(tree[k], f"{prefix}{k}.")]
+    return [prefix[:-1]]
+
+
+def worst_leaf(errs: list, tree) -> str:
+    return leaf_names(tree)[max(range(len(errs)), key=errs.__getitem__)]
+
+
+def leaf_rel_errs(got, want, floor: float = 0.0) -> list:
+    """|got - want| of each gradient leaf over the larger of its largest magnitude and `floor` times the
+    tree's (an all-zero leaf over the tree's)."""
+    scale = max(float(w.abs().max()) for w in want)
+    return [float((g.float().cpu() - w.float().cpu()).abs().max()) / (max(float(w.abs().max()), floor * scale)
+                                                                     or scale) for g, w in zip(got, want)]
+
+
+def gan_grads(state, real, g_cfg, d_cfg, t_cfg, draws):
+    """One train step's D and G gradients (and metrics) from copies of `state`'s tensors: with beta1 = 0, the
+    new Adam first moments are the last D step's and the G step's gradients."""
+    from maua_tpu_torch.gan import training as TT
+    from maua_tpu_torch.utility import to_device
+
+    if t_cfg.beta1 != 0.0:
+        raise ValueError("gan_grads reads the gradients from Adam's first moment: beta1 must be 0")
+    state = {k: to_device(v, real.device) if k != "step" else v for k, v in state.items()}
+    new, metrics = TT.train_step(state, real, g_cfg, d_cfg, t_cfg, draws=draws)
+    return {n: new[f"{n}_opt"][0]["mu"] for n in ("d", "g")}, {k: float(v) for k, v in metrics.items()}
+
+
+def gan_draws(g_cfg, t_cfg, batch: int, gen):
+    """A train step's draws (latents, per-layer noise maps, the path-length noise) from gen, on its device."""
+    import torch
+
+    def noises():
+        return {f"b{r}.conv{j}": torch.randn(batch, 1, r, r, generator=gen, device=gen.device)
+                for r in g_cfg.block_resolutions for j in ((1,) if r == 4 else (0, 1))}
+
+    n = max(t_cfg.n_d_steps, 1)
+    res = g_cfg.img_resolution
+    return {"z_d": [torch.randn(batch, g_cfg.z_dim, generator=gen, device=gen.device) for _ in range(n)],
+            "noise_d": [noises() for _ in range(n)],
+            "z_g": torch.randn(batch, g_cfg.z_dim, generator=gen, device=gen.device), "noise_g": noises(),
+            "pl_noise": torch.randn(max(batch // t_cfg.pl_batch_shrink, 1), 3, res, res, generator=gen,
+                                    device=gen.device)}
+
+
+def run_gan_train(tmp: str):
+    """`python -m maua_tpu_torch gan train` (the command's main, in this process) at config-f 1024^2, batch 4,
+    f32, on a folder of GAN_TRAIN_IMAGES seed-made images: GAN_TRAIN_STEPS steps at the default intervals (R1
+    at step 0, path length at 0 and 4, the initial blur on), the one evaluation at the last step (64 images,
+    the ResNet extractor) and the best and final checkpoints. Seconds a step by stage (D step, G step, EMA),
+    peak memory, the epilogue's launches in all and under autograd (each counted one: a D step generates
+    under no_grad, the G step and path length under autograd, the evaluation under no_grad); one plain and
+    one regularized step profiled (idle share); the checkpoint round trip; one step from the loaded checkpoint
+    against one from the state in memory, cuDNN deterministic: equal."""
+    import io
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from maua_tpu_torch import __main__ as command
+    from maua_tpu_torch.gan import training as TT
+    from maua_tpu_torch.gan import train_loop as TL
+    from maua_tpu_torch.gan.data import ImageDataset, build_cache
+    from maua_tpu_torch.kernels import epilogue as E
+
+    stage, mark = {}, [time.perf_counter()]
+
+    def lap(name):  # stage seconds, also to stderr as they pass
+        now = time.perf_counter()
+        stage[name] = now - mark[0]
+        mark[0] = now
+        print(json.dumps({"gan_train_stage": name, "seconds": stage[name]}), file=sys.stderr, flush=True)
+
+    folder, out_dir = os.path.join(tmp, "gan_train_images"), os.path.join(tmp, "gan_train")
+    os.makedirs(folder, exist_ok=True)
+    for i in range(GAN_TRAIN_IMAGES):
+        write_frame(os.path.join(folder, f"{i:03d}.png"), 1024, seed=100 + i)
+    lap("images")
+    steps, cfgs = [], {}
+    real_step = TT.train_step
+
+    def timed_step(state, real, g_cfg, d_cfg, t_cfg, **kw):
+        cfgs.update(g=g_cfg, d=d_cfg, t=t_cfg)
+        times = {}
+        t0 = time.perf_counter()
+        result = real_step(state, real, g_cfg, d_cfg, t_cfg, times=times, **kw)
+        times["step"] = time.perf_counter() - t0
+        steps.append(times)
+        return result
+
+    E.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with swapped(TT, "train_step", timed_step), autograd_epilogue_cases() as cases, contextlib.redirect_stdout(log):
+        state = command.main(["gan", "train", "--input_dir", folder, "--cache_dir", os.path.join(tmp, "gan_cache"),
+                              "--resolution", "1024", "--batch_size", str(GAN_TRAIN_BATCH), "--total_steps",
+                              str(GAN_TRAIN_STEPS), "--out_dir", out_dir])
+    command_seconds = time.perf_counter() - t0
+    lap("command")
+    launches, autograd_launches = E.launches, sum(cases.values())
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    g_cfg, d_cfg, t_cfg = cfgs["g"], cfgs["d"], cfgs["t"]
+    layers = sum(g_cfg.block_num_conv(r) for r in g_cfg.block_resolutions)
+    regularized = [i for i in range(GAN_TRAIN_STEPS) if i % t_cfg.pl_interval == 0]
+    want_autograd = layers * (GAN_TRAIN_STEPS + len(regularized))
+    want_all = want_autograd + layers * GAN_TRAIN_STEPS + layers * 64 // 16
+    if (g_cfg.img_resolution, g_cfg.channel_max, g_cfg.dtype, d_cfg.img_resolution) != (1024, 512, "float32", 1024):
+        raise AssertionError(f"gan_train: not config-f f32 at 1024^2: {g_cfg} {d_cfg}")
+    if state["step"] != GAN_TRAIN_STEPS or (launches, autograd_launches) != (want_all, want_autograd):
+        raise AssertionError(f"gan_train: step {state['step']}, epilogue launches {launches} (want {want_all}), "
+                             f"under autograd {autograd_launches} (want {want_autograd})")
+    eval_line = [line for line in log.getvalue().splitlines() if line.startswith("eval @")]
+    scores = {kv.split("=")[0]: float(kv.split("=")[1]) for kv in eval_line[-1].split(": ")[1].split()}
+    files = sorted(os.listdir(out_dir))
+    grid = np.asarray(Image.open(os.path.join(out_dir, f"grid_{GAN_TRAIN_STEPS:07d}.png")))
+    finite = all(bool(torch.isfinite(t).all()) for k in ("g_params", "d_params", "g_ema")
+                 for t in TT.tree_leaves(state[k]))
+    if not finite or not all(np.isfinite(v) for v in scores.values()) or grid.min() == grid.max() or \
+            not {"ckpt_best.pt", "ckpt_final.pt"} <= set(files):
+        raise AssertionError(f"gan_train: finite {finite}, scores {scores}, files {files}")
+
+    # the checkpoint round trip, and one step from it against one from the state in memory
+    lap("checks")
+    t0 = time.perf_counter()
+    TL.save_checkpoint(os.path.join(tmp, "gan_ckpt_copy.pt"), state)
+    save_seconds = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = TL.load_checkpoint(os.path.join(out_dir, "ckpt_final.pt"), device="cuda")
+    load_seconds = time.perf_counter() - t0
+    tensors = assert_trees_equal({k: loaded[k] for k in ("g_params", "d_params", "g_ema")},
+                                 {k: state[k] for k in ("g_params", "d_params", "g_ema")}, "gan checkpoint")
+    for k in ("g_opt", "d_opt"):
+        if loaded[k][0]["count"] != state[k][0]["count"] or not all(
+                torch.equal(a, b) for m in ("mu", "nu") for a, b in zip(loaded[k][0][m], state[k][0][m])):
+            raise AssertionError(f"gan checkpoint: {k} differs")
+    if loaded["step"] != state["step"] or not torch.equal(loaded["pl_mean"], state["pl_mean"]):
+        raise AssertionError("gan checkpoint: step or pl_mean differs")
+    lap("checkpoint")
+    real = next(iter(ImageDataset(build_cache(folder, 1024, cache_dir=os.path.join(tmp, "gan_cache")),
+                                  GAN_TRAIN_BATCH, seed=3, prefetch=0)))
+    # deterministic kernels (under PyTorch's defaults one reduction of the G step is not, and the two differed
+    # in G): one step from the file, one from memory
+    with deterministic_kernels():
+        resumed, uninterrupted = (
+            TT.train_step(st, real, g_cfg, d_cfg, t_cfg, gen=torch.Generator("cuda").manual_seed(7))[0]
+            for st in (loaded, state))
+    resume_diff = max(max(leaf_rel_errs(TT.tree_leaves(resumed[k]), TT.tree_leaves(uninterrupted[k])))
+                      for k in ("g_params", "d_params", "g_ema"))
+    if resume_diff > GAN_RESUME_BAR or resumed["step"] != uninterrupted["step"]:
+        raise AssertionError(f"gan_train: the resumed step differs from the uninterrupted one by {resume_diff}")
+    del resumed, uninterrupted, loaded
+    lap("resume")
+
+    def one_step(at):
+        st = dict(state, step=at)
+        return lambda: TT.train_step(st, real, g_cfg, d_cfg, t_cfg, gen=torch.Generator("cuda").manual_seed(1))
+
+    profile = profile_batch(one_step(GAN_TRAIN_STEPS + 1), "epilogue")
+    profile["top"] = profile.get("top", [])[:6]
+    lap("profiles")
+    by_kind = {"r1_pl": [0], "pl": [i for i in regularized if i % t_cfg.r1_interval], "plain": [
+        i for i in range(GAN_TRAIN_STEPS) if i % t_cfg.pl_interval and i % t_cfg.r1_interval]}
+    seconds = {kind: {k: float(np.mean([steps[i][k] for i in idx])) for k in ("step", "d_steps", "g_step", "ema")}
+               for kind, idx in by_kind.items()}
+    torch.cuda.empty_cache()
+    return {"command_seconds": command_seconds, "steps": GAN_TRAIN_STEPS, "batch": GAN_TRAIN_BATCH,
+            "seconds_per_step": seconds, "step_seconds": [round(t["step"], 4) for t in steps],
+            "peak_memory_gib": peak_gib, "launches": launches, "launches_under_autograd": autograd_launches,
+            "eval": scores, "files": files, "checkpoint_tensors": tensors, "checkpoint_save_seconds": save_seconds,
+            "checkpoint_load_seconds": load_seconds, "resume_max_rel_diff": resume_diff,
+            "plain_step_profile": profile, "stage_seconds": stage}
+
+
+def run_gan_train_reference():
+    """One train step (R1, path length and the initial blur on) card vs CPU at GAN_REF_SIZE^2 on the same
+    state and draws, TF32 off: D and G gradients leaf by leaf within GAN_REF_BAR (each over the larger of its
+    largest magnitude and GAN_LEAF_FLOOR of its network's largest gradient); beside it the card with the
+    detached (pre-repair) backward, whose reading the bar must reject. Then config-f 1024^2, batch 4, on the
+    card, TF32 off, against the plain route's gradients (the epilogue's plain version through autograd): the
+    kernel route, the plain route run again (cuDNN's atomics) and the plain route with every epilogue output
+    one ulp off (forward rounding alone), each within GAN_ROUTE_BAR; the detached backward and the backward with
+    the noise input's gradient dropped beyond it. Beside them the D step's fakes (each epilogue output against
+    the f64 evaluation rounded once, and each route's images). Under cuDNN's deterministic algorithms the kernel
+    route, the one-ulp witness and the f64 epilogue rounded once are read again, unbarred."""
+    import torch
+
+    from maua_tpu_torch.gan import discriminator as D
+    from maua_tpu_torch.gan import stylegan2 as S2
+    from maua_tpu_torch.gan import training as TT
+    from maua_tpu_torch.kernels import epilogue as E
+    from maua_tpu_torch.utility import to_device
+
+    out = {}
+    t_cfg = TT.TrainConfig(blur_init_sigma=10.0)
+    with tf32_off():
+        g_cfg = S2.SG2Config(img_resolution=GAN_REF_SIZE, channel_max=64, num_fp16_res=0)
+        d_cfg = D.D2Config(img_resolution=GAN_REF_SIZE, channel_max=64)
+        state = TT.init_train_state(g_cfg, d_cfg, t_cfg, torch.Generator().manual_seed(0))
+        gen = torch.Generator().manual_seed(1)
+        draws = gan_draws(g_cfg, t_cfg, GAN_TRAIN_BATCH, gen)
+        real = torch.tanh(torch.randn(GAN_TRAIN_BATCH, 3, GAN_REF_SIZE, GAN_REF_SIZE, generator=gen))
+        on = {dev: gan_grads(state, real.to(dev), g_cfg, d_cfg, t_cfg, to_device(draws, dev))
+              for dev in ("cpu", "cuda")}
+        with swapped(E.ModconvEpilogue, "backward", staticmethod(detached_epilogue_backward)):
+            wrong, _ = gan_grads(state, real.cuda(), g_cfg, d_cfg, t_cfg, to_device(draws, "cuda"))
+    ref = on["cpu"][0]
+    small = {f"{n}_max_rel_err": max(leaf_rel_errs(on["cuda"][0][n], ref[n], GAN_LEAF_FLOOR)) for n in ("d", "g")}
+    small["g_worst_leaf"] = worst_leaf(leaf_rel_errs(on["cuda"][0]["g"], ref["g"], GAN_LEAF_FLOOR), state["g_params"])
+    small["g_leaf_max_rel_err_unfloored"] = max(leaf_rel_errs(on["cuda"][0]["g"], ref["g"]))
+    small["detached_g_max_rel_err"] = max(leaf_rel_errs(wrong["g"], ref["g"], GAN_LEAF_FLOOR))
+    small["metrics"] = {dev: m for dev, (_, m) in on.items()}
+    if max(small["d_max_rel_err"], small["g_max_rel_err"]) > GAN_REF_BAR or \
+            small["detached_g_max_rel_err"] <= GAN_REF_BAR:
+        raise AssertionError(f"gan_train_reference: card vs CPU at {GAN_REF_SIZE}^2: {small}")
+    out[f"card_vs_cpu_{GAN_REF_SIZE}"] = small
+    del on, wrong, state
+
+    g_cfg, d_cfg = S2.SG2Config(num_fp16_res=0), D.D2Config(img_resolution=1024)
+    gen = torch.Generator("cuda").manual_seed(0)
+    state = TT.init_train_state(g_cfg, d_cfg, t_cfg, gen)
+    draws = gan_draws(g_cfg, t_cfg, GAN_TRAIN_BATCH, gen)
+    real = torch.tanh(torch.randn(GAN_TRAIN_BATCH, 3, 1024, 1024, generator=gen, device="cuda"))
+    ulp_gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def one_ulp_off(*a, **k):  # the plain version's output moved one ulp, each element a random way
+        y = E.modconv_epilogue_plain(*a, **k)
+        yd, up = y.detach(), torch.rand(y.shape, generator=ulp_gen, device=y.device) < 0.5
+        return y + (torch.nextafter(yd, torch.where(up, math.inf, -math.inf).to(yd)) - yd)
+
+    real_backward = E.ModconvEpilogue.backward
+
+    def without_dnoise(ctx, g):  # a wrong route: the noise input's gradient dropped
+        grads = list(real_backward(ctx, g))
+        grads[2] = None if grads[2] is None else torch.zeros_like(grads[2])
+        return tuple(grads)
+
+    def plain_as(fn):
+        return lambda: swapped(S2, "modconv_epilogue", fn)
+
+    routes = {"kernel": contextlib.nullcontext, "plain": plain_as(E.modconv_epilogue_plain),
+              "plain_one_ulp_off": plain_as(one_ulp_off), "plain_rounded_once": plain_as(epilogue_rounded_once),
+              "detached": lambda: swapped(E.ModconvEpilogue, "backward", staticmethod(detached_epilogue_backward)),
+              "without_dnoise": lambda: swapped(E.ModconvEpilogue, "backward", staticmethod(without_dnoise))}
+    routes["plain_again"] = routes["plain"]
+
+    def readings(names):
+        """Each route's D and G gradients against the plain route's under the flags in force: the largest
+        floored leaf error of each network, its leaf, G's largest unfloored one and the route's launches."""
+        grads, launches = {}, {}
+        for name in ["plain", *names]:
+            E.reset_launches()
+            with routes[name]():
+                grads[name], _ = gan_grads(state, real, g_cfg, d_cfg, t_cfg, draws)
+            launches[name] = E.launches
+        ref, rows = grads.pop("plain"), {}
+        for name, got in grads.items():
+            errs = {n: leaf_rel_errs(got[n], ref[n], GAN_LEAF_FLOOR) for n in ("d", "g")}
+            rows[name] = {"d": max(errs["d"]), "g": max(errs["g"]),
+                          "d_worst_leaf": worst_leaf(errs["d"], state["d_params"]),
+                          "g_worst_leaf": worst_leaf(errs["g"], state["g_params"]),
+                          "g_unfloored": max(leaf_rel_errs(got["g"], ref["g"])), "launches": launches[name]}
+        return rows
+
+    def forward_reading():
+        """The D step's fakes under no_grad: each epilogue output of the kernel and of the plain version against
+        the f64 evaluation rounded once (the largest difference over the layer's largest magnitude, and the mean
+        difference in ulps of each element, absolute and signed); then the images of each route against the
+        plain route's, largest difference."""
+        ulps = {r: {"max_of_layer_peak": 0.0, "mean_abs_ulps": [], "mean_signed_ulps": []} for r in ("kernel", "plain")}
+
+        def spy(z, post, noise, bias, alpha=0.2, gain=math.sqrt(2.0), clamp=256.0, pre_next=None):
+            args = (z, post, noise, bias, alpha, gain, clamp, pre_next)
+            k, p, x = E._launch(*args), E.modconv_epilogue_plain(*args), epilogue_rounded_once(*args)
+            ulp = torch.nextafter(x.abs(), x.new_full((), math.inf)) - x.abs()
+            for r, y in (("kernel", k), ("plain", p)):
+                ulps[r]["max_of_layer_peak"] = max(ulps[r]["max_of_layer_peak"],
+                                                   float((y - x).abs().max() / x.abs().max()))
+                ulps[r]["mean_abs_ulps"].append(float(((y - x).abs() / ulp).mean()))
+                ulps[r]["mean_signed_ulps"].append(float(((y - x) / ulp).mean()))
+            return k
+
+        with torch.no_grad():
+            def fakes():
+                return TT.generate(state["g_params"], draws["z_d"][0], g_cfg, noises=draws["noise_d"][0])
+
+            with swapped(S2, "modconv_epilogue", spy):
+                fakes()
+            imgs = {}
+            for name in ("plain", "kernel", "plain_one_ulp_off", "plain_rounded_once"):
+                with routes[name]():
+                    imgs[name] = fakes()
+        for r in ulps.values():
+            r["mean_abs_ulps"], r["mean_signed_ulps"] = max(r["mean_abs_ulps"]), max(r["mean_signed_ulps"], key=abs)
+        return {"epilogue_vs_rounded_once": ulps,
+                "image_max_abs_vs_plain": {k: float((v - imgs["plain"]).abs().max()) for k, v in imgs.items()}}
+
+    with tf32_off():
+        default = readings(["kernel", "plain_again", "plain_one_ulp_off", "detached", "without_dnoise"])
+        default["forward"] = forward_reading()
+        with deterministic_kernels():
+            deterministic = readings(["kernel", "plain_one_ulp_off", "plain_rounded_once"])
+            deterministic["forward"] = forward_reading()
+    big = {"default_flags": default, "deterministic": deterministic}
+    sound = [max(default[k]["d"], default[k]["g"]) for k in ("kernel", "plain_again", "plain_one_ulp_off")]
+    wrong = [default[k]["g"] for k in ("detached", "without_dnoise")]
+    if max(sound) > GAN_ROUTE_BAR or min(wrong) <= GAN_ROUTE_BAR or default["kernel"]["launches"] == 0:
+        raise AssertionError(f"gan_train_reference: kernel vs plain route at 1024^2 (bar {GAN_ROUTE_BAR}): {big}")
+    out["kernel_vs_plain_1024"] = big
+    E.reset_launches()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_gan_langevin_d(tmp: str):
+    """`python -m maua_tpu_torch gan generate --sampling langevin --langevin_critic discriminator --seeds 0-2` on
+    an ADA .pkl written as gan_load writes it (config-f G from seed 0) with a `D` entry (a config-f 1024^2
+    discriminator from seed 1): the command's 50 Langevin steps with E(z) = -D(G(z)), two PNGs, seconds, the
+    epilogue's launches in all and under autograd (17 a step)."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from maua_tpu_torch import __main__ as command
+    from maua_tpu_torch.gan import discriminator as D
+    from maua_tpu_torch.gan import stylegan2 as S2
+    from maua_tpu_torch.kernels import epilogue as E
+
+    g_cfg, d_cfg = S2.SG2Config(), D.D2Config(img_resolution=1024)
+    cpu = lambda t: t.cpu()  # noqa: E731
+    g = tree_map(cpu, S2.init_params(g_cfg, torch.Generator("cuda").manual_seed(0)))
+    d = tree_map(cpu, D.init_params(d_cfg, torch.Generator("cuda").manual_seed(1)))
+    path, out_dir = os.path.join(tmp, "sg2_ada_with_d.pkl"), os.path.join(tmp, "gan_langevin_d")
+    write_ada_pkl(path, ada_state_dict(g), ada_d_state_dict(d, d_cfg))
+    E.reset_launches()
+    t0 = time.perf_counter()
+    with autograd_epilogue_cases() as cases:
+        command.main(["gan", "generate", "--model_file", path, "--sampling", "langevin", "--langevin_critic",
+                      "discriminator", "--seeds", LANGEVIN_SEEDS, "--out_dir", out_dir])
+    seconds = time.perf_counter() - t0
+    imgs = [np.asarray(Image.open(os.path.join(out_dir, f))) for f in sorted(os.listdir(out_dir))]
+    if len(imgs) != 2 or any(im.shape != (1024, 1024, 3) or im.min() == im.max() for im in imgs) or \
+            imgs[0].tobytes() == imgs[1].tobytes():
+        raise AssertionError(f"gan_langevin_d: {[im.shape for im in imgs]}")
+    under = sum(cases.values())
+    if under != 17 * 50:
+        raise AssertionError(f"gan_langevin_d: {under} epilogue launches under autograd, want {17 * 50}")
+    return {"command_seconds": seconds, "pngs": len(imgs), "launches": E.launches, "launches_under_autograd": under,
+            "cases_under_autograd": len(cases)}
+
+
 def main() -> int:
     try:
         import torch
@@ -5199,7 +5739,8 @@ def main() -> int:
               "profile,sg3_profile,reference,sg3_reference,sd_e2e,sd_steps,sd_profile,sd_reference,super,"
               "super_reference,sd_multires,sg3_resize,realtime,ss_mir,ss_e2e,ss_reference,interactive,"
               "av_correlation,sd_guided,sd_paths,sd_glide,sd_animation,sd_video,flow_neural,style,style_video,"
-              "epilogue_grad,gan_langevin,style_zoo,nca,video_vit,optimizers,delivery]",
+              "epilogue_grad,gan_langevin,style_zoo,nca,video_vit,optimizers,gan_train,gan_langevin_d,"
+              "gan_train_reference,delivery]",
               file=sys.stderr)
         return 2
 
@@ -5245,7 +5786,8 @@ def main() -> int:
                          ("sd_video", lambda: run_sd_video(tmp)), ("flow_neural", lambda: run_flow_neural(tmp)),
                          ("style", lambda: run_style(tmp)), ("style_video", lambda: run_style_video(tmp)),
                          ("gan_langevin", lambda: run_gan_langevin(tmp)), ("style_zoo", lambda: run_style_zoo(tmp)),
-                         ("nca", lambda: run_nca(tmp))):
+                         ("nca", lambda: run_nca(tmp)), ("gan_train", lambda: run_gan_train(tmp)),
+                         ("gan_langevin_d", lambda: run_gan_langevin_d(tmp))):
             if want(name):
                 results[name] = phase(name, fn)
                 torch.cuda.empty_cache()
@@ -5254,7 +5796,8 @@ def main() -> int:
                      ("sd_steps", run_sd_steps), ("sd_profile", profile_sd_step), ("sd_reference", sd_card_vs_cpu),
                      ("super", run_super), ("super_reference", super_card_vs_cpu), ("sd_multires", run_sd_multires),
                      ("sg3_resize", run_sg3_resize), ("realtime", run_realtime), ("video_vit", run_video_vit),
-                     ("optimizers", run_optimizers), ("delivery", run_delivery)):
+                     ("optimizers", run_optimizers), ("gan_train_reference", run_gan_train_reference),
+                     ("delivery", run_delivery)):
         if want(name):
             results[name] = phase(name, fn)
             torch.cuda.empty_cache()
@@ -5296,7 +5839,14 @@ def main() -> int:
         "stylegan_param_launches": results["style_zoo"]["stylegan_adam"]["launches"],
         "langevin_launches": results["gan_langevin"]["launches"],
         "autograd_launches": {"style_zoo": results["style_zoo"]["stylegan_adam"]["launches_under_autograd"],
-                              "gan_langevin": results["gan_langevin"]["launches_under_autograd"]},
+                              "gan_langevin": results["gan_langevin"]["launches_under_autograd"],
+                              "gan_train": results["gan_train"]["launches_under_autograd"],
+                              "gan_langevin_d": results["gan_langevin_d"]["launches_under_autograd"]},
+        "train_launches": results["gan_train"]["launches"],
+        "langevin_d_launches": results["gan_langevin_d"]["launches"],
+        "second_order_cases": results["epilogue_grad"]["second_order_cases"],
+        "second_order_max_rel_err": results["epilogue_grad"]["second_order_max_rel_err"],
+        "second_order_detached_min_rel_err": results["epilogue_grad"]["detached_min_rel_err"],
         "autograd_cases": len(grad_rows) + results["epilogue_grad"]["cases"],
         "autograd_grad_max_rel_err": grad_errs,
         **{f"bwd_{route}_{k}": results["epilogue_grad"][route][k]
@@ -5319,7 +5869,13 @@ def main() -> int:
                  f"shape of a 1024^2 batch of 8 in f32 and bf16 (epilogue_grad), each's five gradients held "
                  f"against autograd of the plain version (autograd_grad_max_rel_err, of each gradient's largest "
                  f"magnitude); bwd_plain_route_*: the backward of one such batch on the plain route, its plain "
-                 f"version's autograd and its bound",
+                 f"version's autograd and its bound; train_launches: `gan train` at config-f 1024^2, batch "
+                 f"{GAN_TRAIN_BATCH}, {GAN_TRAIN_STEPS} steps and its evaluation (gan_train; under autograd: the G "
+                 f"steps and the path-length passes, whose double backward runs the plain ops); "
+                 f"langevin_d_launches: `gan generate --sampling langevin --langevin_critic discriminator` on an ADA "
+                 f".pkl with a D (gan_langevin_d); second_order_*: the double backward through the Function at the "
+                 f"plain route's layer shapes in f32 and bf16 against the plain version's (epilogue_grad), and the "
+                 f"smallest reading of the detached backward that the bar rejects",
     }, {
         "name": "filtered_lrelu",
         "route": "cuda",

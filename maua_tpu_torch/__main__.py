@@ -1,8 +1,8 @@
 """`python -m maua_tpu_torch <command> <subcommand> [options]`: audiovisual
 generate, audiovisual interactive, audiovisual selfsupervised, diffusion
 image, diffusion video, diffusion interpolate, diffusion klmc2, diffusion
-outpaint, diffusion loop, gan generate, nca run, style image, style video, super image,
-super video."""
+outpaint, diffusion loop, gan generate, gan train, nca run, style image, style video,
+super image, super video."""
 
 import importlib
 import sys
@@ -18,6 +18,7 @@ COMMANDS = {
     ("diffusion", "outpaint"): "maua_tpu_torch.diffusion.outpaint",
     ("diffusion", "loop"): "maua_tpu_torch.diffusion.loop_direct",
     ("gan", "generate"): "maua_tpu_torch.gan.cli",
+    ("gan", "train"): "maua_tpu_torch.gan.train_cli",
     ("nca", "run"): "maua_tpu_torch.nca.nca",
     ("style", "image"): "maua_tpu_torch.style.cli",
     ("style", "video"): "maua_tpu_torch.style.video",
@@ -31,7 +32,7 @@ def main(argv=None):
     module = COMMANDS.get(tuple(argv[:2]))
     if module is None:
         sys.exit("usage: python -m maua_tpu_torch {" + " | ".join(" ".join(c) for c in COMMANDS) + "} [options]")
-    importlib.import_module(module).main(argv[2:])
+    return importlib.import_module(module).main(argv[2:])
 
 
 if __name__ == "__main__":

@@ -209,3 +209,106 @@ def nca_params_to_torch(jax_params: Dict, device: Optional[torch.device | str] =
     return {k: torch.from_numpy(np.array(np.asarray(v, np.float32).transpose(3, 2, 0, 1) if v.ndim == 4
                                          else np.asarray(v, np.float32), order="C")).to(device)
             for k, v in ((k, np.asarray(v)) for k, v in jax_params.items())}
+
+
+def _d_fc_hwc_to_chw(w: np.ndarray) -> np.ndarray:
+    """The b4 FC's (out, 16 * C) weight from the (H, W, C) flatten order to (C, H, W)."""
+    co, n = w.shape
+    return w.reshape(co, 4, 4, n // 16).transpose(0, 3, 1, 2).reshape(co, n)
+
+
+def _d_fc_chw_to_hwc(w: np.ndarray) -> np.ndarray:
+    co, n = w.shape
+    return w.reshape(co, n // 16, 4, 4).transpose(0, 2, 3, 1).reshape(co, n)
+
+
+def d_params_to_torch(jax_params: Dict, device: Optional[torch.device | str] = None) -> Dict:
+    """A JAX StyleGAN2 discriminator tree (`maua_tpu.gan.discriminator`) -> the port's: conv weights
+    HWIO -> OIHW, fc weights (in, out) -> (out, in), and the b4 FC's input re-permuted from the JAX
+    package's (H, W, C) flatten to the port's (C, H, W) one, which is an ADA checkpoint's."""
+    out = params_to_torch(jax_params)
+    fc = out["b4"]["fc"]
+    fc["w"] = torch.from_numpy(np.array(_d_fc_hwc_to_chw(fc["w"].numpy()), order="C"))
+    return _walk(out, lambda name, v: v.to(device))
+
+
+def d_params_to_jax(torch_params: Dict) -> Dict:
+    """The port's discriminator tree -> the JAX package's layout (numpy arrays)."""
+    out = params_to_jax(torch_params)
+    out["b4"]["fc"]["w"] = np.array(_d_fc_chw_to_hwc(out["b4"]["fc"]["w"].T).T, order="C")
+    return out
+
+
+# The experimental families' conv kernels: HWIO -> OIHW, and the steerable group kernels
+# (K, K, 8, Ci, Co) -> (8, Co, Ci, K, K)
+_EXPERIMENTAL_TO_TORCH = {4: (3, 2, 0, 1), 5: (2, 4, 3, 0, 1)}
+
+
+def experimental_params_to_torch(jax_params: Dict, device: Optional[torch.device | str] = None) -> Dict:
+    """A JAX tree of an experimental family (`maua_tpu.gan.models_experimental`: dcgan, hypermixer,
+    involution, steerable; G or D) -> the port's: every 4-D conv kernel HWIO -> OIHW, every 5-D group
+    kernel (K, K, 8, Ci, Co) -> (8, Co, Ci, K, K), linear weights `w` (in, out) -> (out, in); the
+    hypermixer's `seed` tokens, biases and norms unchanged."""
+
+    def conv(name, v):
+        a = np.asarray(v, dtype=np.float32)
+        if a.ndim in _EXPERIMENTAL_TO_TORCH:
+            a = a.transpose(_EXPERIMENTAL_TO_TORCH[a.ndim])
+        elif a.ndim == 2 and name == "w":
+            a = a.T
+        return torch.from_numpy(np.array(a, order="C")).to(device)
+
+    return _walk(jax_params, conv)
+
+
+def experimental_params_to_jax(torch_params: Dict) -> Dict:
+    """The port's tree of an experimental family -> the JAX package's layout (numpy arrays)."""
+
+    def conv(name, v):
+        a = v.detach().float().cpu().numpy()
+        if a.ndim in _EXPERIMENTAL_TO_TORCH:
+            a = a.transpose(np.argsort(_EXPERIMENTAL_TO_TORCH[a.ndim]))
+        elif a.ndim == 2 and name == "w":
+            a = a.T
+        return np.array(a, order="C")
+
+    return _walk(torch_params, conv)
+
+
+def _tree_leaves(tree) -> list:
+    """The leaves in JAX's order (dict keys sorted), which is also the port's train state's."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _tree_leaves(v)]
+    return [tree]
+
+
+def train_state_to_torch(jax_state: Dict, g_convert, d_convert, device: Optional[torch.device | str] = None) -> Dict:
+    """A JAX GAN train state (`maua_tpu.gan.training.init_train_state`, after any steps) -> the port's
+    (`maua_tpu_torch.gan.training`): both networks and the EMA through their converters (`params_to_torch`,
+    `d_params_to_torch` or `experimental_params_to_torch`), each optax Adam state's moments through the
+    same converter and flattened in the port's parameter order, `pl_mean` a tensor and `step` an int."""
+
+    def opt(state, convert):
+        adam = state[0]
+        moments = {k: [t.to(device) for t in _tree_leaves(convert(getattr(adam, k)))] for k in ("mu", "nu")}
+        return [{"count": int(np.asarray(adam.count)), **moments}, ()]
+
+    return {
+        "g_params": g_convert(jax_state["g_params"], device),
+        "d_params": d_convert(jax_state["d_params"], device),
+        "g_ema": g_convert(jax_state["g_ema"], device),
+        "g_opt": opt(jax_state["g_opt"], lambda t: g_convert(t)),
+        "d_opt": opt(jax_state["d_opt"], lambda t: d_convert(t)),
+        "pl_mean": torch.tensor(float(np.asarray(jax_state["pl_mean"])), device=device),
+        "step": int(np.asarray(jax_state["step"])),
+    }
+
+
+def resnet_extractor_params_to_torch(jax_params: Dict, device: Optional[torch.device | str] = None) -> Dict:
+    """The params of maua_tpu's metric stand-in (`maua_tpu.gan.metrics.ResNetExtractor`) -> the port's
+    (`gan/metrics.ResNetExtractor(params=...)`): convs HWIO -> OIHW, the head (ch, feat) -> (feat, ch);
+    a block's `stride` and a missing `skip` (None) kept."""
+    return _walk(jax_params, lambda name, v: v if v is None or isinstance(v, int)
+                 else experimental_params_to_torch({name: v}, device)[name])

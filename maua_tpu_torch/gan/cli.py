@@ -25,7 +25,8 @@ def main(args=None):
                         choices=["random", "standard", "langevin", "polarity", "jacnorm", "jacobian"],
                         help="'standard'/'jacobian' are the reference spellings of 'random'/'jacnorm'")
     parser.add_argument("--langevin_critic", default="discriminator", type=str,
-                        help="'discriminator' for DDLS, or a text prompt for CLIP-guided langevin")
+                        help="'discriminator' for DDLS with the D of --model_file's checkpoint, or a text prompt for "
+                             "CLIP-guided langevin")
     parser.add_argument("--translation", default=None, type=str, help="x,y latent-space translation (stylegan3)")
     parser.add_argument("--rotation", default=None, type=float, help="latent-space rotation (stylegan3)")
     parser.add_argument("--grid", action="store_true")

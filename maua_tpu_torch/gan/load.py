@@ -429,3 +429,70 @@ def sg3_params_from_state_dict(sd: Dict[str, np.ndarray], cfg: Optional[SG3Confi
             "magnitude_ema": _tensor(np.asarray(sd.get(f"{p}.magnitude_ema", np.ones((), np.float32))).reshape(())),
         })
     return {"mapping": mapping, "input": input_p, "layers": layers}
+
+
+# --------------------------------------------------------- discriminator
+def infer_d_config(sd: Dict[str, np.ndarray], dtype: str = "float32"):
+    """A D2Config from an ADA-style discriminator state dict (shapes only)."""
+    from .discriminator import D2Config
+
+    res_list = sorted({int(m.group(1)) for k in sd for m in [re.match(r"b(\d+)\.conv0\.weight$", k)] if m})
+    if not res_list:
+        raise ValueError("state dict has no b{res}.conv0 keys - not an ADA discriminator")
+    top = max(res_list)
+    ch_in = {res: sd[f"b{res}.conv0.weight"].shape[1] for res in res_list}  # OIHW in-channels
+    c4 = sd["b4.fc.weight"].shape[0]
+    cmax = max(max(ch_in.values()), c4)
+    uncapped = [ch_in[r] * r for r in res_list if ch_in[r] < cmax]
+    channel_base = max(uncapped) if uncapped else cmax * top
+    mbstd_num = int(sd["b4.conv.weight"].shape[1] - c4)
+    img_channels = int(sd[f"b{top}.fromrgb.weight"].shape[1]) if f"b{top}.fromrgb.weight" in sd else 3
+    return D2Config(img_resolution=top, img_channels=img_channels, channel_base=int(channel_base),
+                    channel_max=int(cmax), mbstd_num_channels=mbstd_num, dtype=dtype)
+
+
+def d_params_from_state_dict(sd: Dict[str, np.ndarray], cfg=None) -> Dict:
+    """ADA discriminator state dict -> the port's parameter dict. The layouts are the port's own
+    (conv OIHW, fc (out, in), the b4 FC over the (C, H, W) flatten), so the tensors pass unchanged;
+    both sides apply the equalized-lr gains at run time."""
+    cfg = cfg or infer_d_config(sd)
+    top = cfg.img_resolution
+    params = {"fromrgb": {"weight": _tensor(sd[f"b{top}.fromrgb.weight"]),
+                          "bias": _tensor(sd[f"b{top}.fromrgb.bias"])}}
+    for res in cfg.block_resolutions:
+        params[f"b{res}"] = {
+            **{c: {"weight": _tensor(sd[f"b{res}.{c}.weight"]), "bias": _tensor(sd[f"b{res}.{c}.bias"])}
+               for c in ("conv0", "conv1")},
+            "skip": {"weight": _tensor(sd[f"b{res}.skip.weight"])},
+        }
+    params["b4"] = {"conv": {"weight": _tensor(sd["b4.conv.weight"]), "bias": _tensor(sd["b4.conv.bias"])},
+                    "fc": _fc(sd, "b4.fc"), "out": _fc(sd, "b4.out")}
+    return params
+
+
+def load_discriminator(path: str, dtype: str = "float32"):
+    """The discriminator of a StyleGAN training checkpoint: an NVIDIA .pkl's `D`, a .pt dict's
+    `D` / `d` / `discriminator` / `D_ema` entry, or a bare ADA D state dict. Returns (params, D2Config),
+    f32 CPU tensors."""
+    if str(path).endswith(".pkl"):
+        sd = _load_nvidia_pickle(path, key="D")
+    else:
+        obj = torch.load(path, map_location="cpu", weights_only=False)
+        sd = None
+        if isinstance(obj, dict):
+            for key in ("D", "d", "discriminator", "D_ema"):
+                if key in obj:
+                    inner = obj[key]
+                    sd = inner.state_dict() if hasattr(inner, "state_dict") else dict(inner)
+                    break
+            if sd is None:
+                sd = obj  # maybe a bare D state dict
+        elif hasattr(obj, "state_dict"):
+            sd = obj.state_dict()
+        else:
+            raise ValueError(f"no discriminator found in {path}")
+    sd = {k: _to_numpy(v) for k, v in sd.items() if _is_tensorlike(v)}
+    if not any(k.startswith("b4.out") for k in sd):
+        raise ValueError(f"no ADA-style discriminator state dict found in {path}")
+    cfg = infer_d_config(sd, dtype=dtype)
+    return d_params_from_state_dict(sd, cfg), cfg

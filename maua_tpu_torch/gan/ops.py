@@ -102,6 +102,61 @@ def _zero_insert(x: torch.Tensor, up_h: int, up_w: int) -> torch.Tensor:
     return out.reshape(b, c, h * up_h, w * up_w)
 
 
+class _FIR(torch.autograd.Function):
+    """The depthwise FIR y = conv2d(x, w, stride, groups=C) with a filter that takes no gradient. Its
+    backward is _FIRTranspose and that one's is _FIR, so every order of differentiation (R1 and path
+    length take two) runs depthwise convs forward; PyTorch's own double backward of a grouped conv
+    loops over the groups, a conv each (seconds per layer at 512 channels)."""
+
+    @staticmethod
+    def forward(x, w, stride):
+        return F.conv2d(x, w, stride=stride, groups=w.shape[0])
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, w, stride = inputs
+        ctx.save_for_backward(w)
+        ctx.stride, ctx.in_size = stride, x.shape[2:]
+
+    @staticmethod
+    def backward(ctx, gy):
+        (w,) = ctx.saved_tensors
+        (sh, sw), (kh, kw) = ctx.stride, w.shape[2:]
+        pad = (ctx.in_size[0] - (gy.shape[2] - 1) * sh - kh, ctx.in_size[1] - (gy.shape[3] - 1) * sw - kw)
+        return _fir_transpose(gy, w, ctx.stride, pad), None, None
+
+
+class _FIRTranspose(torch.autograd.Function):
+    """conv_transpose2d(g, w, stride, output_padding, groups=C), _FIR's backward; its backward is _FIR."""
+
+    @staticmethod
+    def forward(g, w, stride, output_padding):
+        return F.conv_transpose2d(g, w, stride=stride, output_padding=output_padding, groups=w.shape[0])
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[1])
+        ctx.stride = inputs[2]
+
+    @staticmethod
+    def backward(ctx, gx):
+        (w,) = ctx.saved_tensors
+        return _fir(gx, w, ctx.stride), None, None, None
+
+
+def _fir(x: torch.Tensor, w: torch.Tensor, stride) -> torch.Tensor:
+    stride = (stride, stride) if isinstance(stride, int) else tuple(stride)
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _FIR.apply(x, w, stride)
+    return F.conv2d(x, w, stride=stride, groups=w.shape[0])
+
+
+def _fir_transpose(g, w, stride, output_padding):
+    if torch.is_grad_enabled() and g.requires_grad:
+        return _FIRTranspose.apply(g, w, stride, output_padding)
+    return F.conv_transpose2d(g, w, stride=stride, output_padding=output_padding, groups=w.shape[0])
+
+
 def upfirdn2d(
     x: torch.Tensor,
     f: Optional[np.ndarray],
@@ -122,12 +177,12 @@ def upfirdn2d(
     if f.ndim == 1:
         f1 = torch.as_tensor((f * (gain ** 0.5)).astype(np.float32), dtype=x.dtype, device=x.device)
         y = F.pad(_zero_insert(x, up, 1), [0, 0, pady0, pady1])
-        y = F.conv2d(y, f1.view(1, 1, -1, 1).repeat(c, 1, 1, 1), stride=(down, 1), groups=c)
+        y = _fir(y, f1.view(1, 1, -1, 1).repeat(c, 1, 1, 1), (down, 1))
         y = F.pad(_zero_insert(y, 1, up), [padx0, padx1, 0, 0])
-        return F.conv2d(y, f1.view(1, 1, 1, -1).repeat(c, 1, 1, 1), stride=(1, down), groups=c)
+        return _fir(y, f1.view(1, 1, 1, -1).repeat(c, 1, 1, 1), (1, down))
     fg = torch.as_tensor((f * (gain ** (f.ndim / 2))).astype(np.float32), dtype=x.dtype, device=x.device)
     y = F.pad(_zero_insert(x, up, up), [padx0, padx1, pady0, pady1])
-    return F.conv2d(y, fg[None, None].repeat(c, 1, 1, 1), stride=down, groups=c)
+    return _fir(y, fg[None, None].repeat(c, 1, 1, 1), down)
 
 
 def _filter_size(f: Optional[np.ndarray]) -> Tuple[int, int]:

@@ -5,8 +5,8 @@ Port of `maua_tpu/gan/sampling.py`. A torch.Generator takes the place of
 the JAX key; each function also takes its random draws as arguments (z,
 the uniform draws of a choice, a tangent, the Langevin noise) so that
 both packages can be fed the same numbers. Langevin sampling runs with
-an energy function or with CLIP's (`clip_energy`); the energy from a
-checkpoint's discriminator waits for `gan/discriminator.py`.
+an energy function, with CLIP's (`clip_energy`) or with the energy of the
+discriminator in the generator's checkpoint (`discriminator_energy`).
 """
 
 from __future__ import annotations
@@ -86,9 +86,21 @@ def jacnorm_sample(gen: Optional[torch.Generator], n: int, params, cfg: sg2.SG2C
 
 
 def discriminator_energy(generator, d_params, d_cfg) -> Callable:
-    """E(z) = -D(G(z)) from a checkpoint's discriminator: not ported."""
-    raise NotImplementedError("discriminator-driven Langevin sampling waits for gan/discriminator.py "
-                              "(the discriminator and its loaders)")
+    """DDLS energy from a trained discriminator: E(z) = -D(G(z)) for a generator with
+    `params` and `cfg` (langevin_sample adds the N(0, I) prior itself). An image of
+    another size than D's is resized to it bilinearly, as jax.image.resize does."""
+    from ..ops.warp import resize
+    from .discriminator import discriminator
+
+    g_params, g_cfg = generator.params, generator.cfg
+
+    def energy(z):
+        img = sg2.synthesis(g_params, sg2.mapping(g_params, z, g_cfg), g_cfg)
+        if img.shape[-2] != d_cfg.img_resolution:
+            img = resize(img, (d_cfg.img_resolution, d_cfg.img_resolution), "bilinear")
+        return -discriminator(d_params, img, d_cfg)[:, 0]
+
+    return energy
 
 
 def clip_energy(generator, text: str, perceptor=None) -> Callable:
@@ -113,10 +125,22 @@ def clip_energy(generator, text: str, perceptor=None) -> Callable:
 
 
 def make_langevin_energy(generator, critic: str = "discriminator") -> Callable:
-    """maua_tpu's `--langevin_critic`: "discriminator" for the checkpoint's D
-    (not ported yet), any other string a CLIP text prompt."""
+    """maua_tpu's `--langevin_critic`: "discriminator" for the D of the generator's
+    checkpoint (`generator.model_file`), moved to the generator's device; any other
+    string a CLIP text prompt."""
     if critic == "discriminator":
-        return discriminator_energy(generator, None, None)
+        from ..utility import to_device
+        from .load import load_discriminator
+
+        model_file = getattr(generator, "model_file", None)
+        if not model_file:
+            raise ValueError(
+                "langevin_critic='discriminator' needs the generator's checkpoint file "
+                "(with a D entry); pass a text prompt critic instead, or an explicit energy_fn"
+            )
+        d_params, d_cfg = load_discriminator(model_file)
+        device = generator.params["mapping"]["w_avg"].device
+        return discriminator_energy(generator, to_device(d_params, device), d_cfg)
     return clip_energy(generator, critic)
 
 
@@ -129,6 +153,8 @@ def sample_latents(strategy: str, gen: Optional[torch.Generator], n: int, params
         return random_latents(gen, n, kwargs.get("z_dim", cfg.z_dim if cfg else 512))
     if strategy == "langevin":
         if "energy_fn" not in kwargs:
+            if generator is None:
+                raise ValueError("langevin sampling needs an energy_fn or a generator to build one from")
             kwargs["energy_fn"] = make_langevin_energy(generator, critic)
         kwargs.setdefault("z_dim", cfg.z_dim if cfg else 512)
         return langevin_sample(gen, n, **kwargs)

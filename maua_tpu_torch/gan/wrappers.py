@@ -268,7 +268,8 @@ class StyleGAN2:
         seed: int = 0,
     ):
         self.device = resolve_device(device)
-        if model_file not in (None, "None"):
+        self.model_file = model_file if model_file not in (None, "None") else None
+        if self.model_file is not None:
             from .load import load_network
 
             params, self.cfg = load_network(model_file, dtype=dtype)

@@ -18,7 +18,9 @@ the plain PyTorch version, `modconv_epilogue_plain`, which is also what
 the kernel is held against on the card. Where autograd records, the call
 goes through `ModconvEpilogue`: the same forward (the launch writes an
 output with no `grad_fn`) and the plain version's autograd as its
-backward, recomputed in f32 from the saved inputs.
+backward, recomputed in f32 from the saved inputs; under create_graph that
+backward records its own graph, so a double backward (R1, path length) is
+the plain version's.
 """
 
 from __future__ import annotations
@@ -77,7 +79,7 @@ def modconv_epilogue_plain(z, post, noise, bias, alpha=0.2, gain=_SQRT2, clamp=2
 def _clip(y, clamp: float):
     """y clipped to +-clamp as jnp.clip is, min(max(y, -c), c): autograd halves the gradient
     at a bound (torch.maximum / minimum split it at ties, as JAX's do; torch.clamp passes it)."""
-    return torch.minimum(torch.maximum(y, y.new_tensor(-clamp)), y.new_tensor(clamp))
+    return torch.minimum(torch.maximum(y, y.new_full((), -clamp)), y.new_full((), clamp))  # filled on y's device
 
 
 def _check(z, post, noise, bias, pre_next):
@@ -102,7 +104,9 @@ class ModconvEpilogue(torch.autograd.Function):
     under no_grad on the CPU) with the plain version's autograd as its
     backward, recomputed in f32 from the saved inputs. The clamp takes
     maua_tpu's rule (`_xla_epilogue`'s jnp.clip, whose min / max split a tie):
-    the gradient passes inside, halves at exactly +-clamp and stops outside."""
+    the gradient passes inside, halves at exactly +-clamp and stops outside.
+    Under create_graph the backward is itself differentiable (the plain ops on
+    the saved tensors), so a gradient penalty's second-order terms pass through."""
 
     @staticmethod
     def forward(z, post, noise, bias, pre_next, alpha, gain, clamp):
@@ -118,14 +122,16 @@ class ModconvEpilogue(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        inputs = [None if t is None else t.detach().requires_grad_(need)
-                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
-        wanted = [t for t in inputs if t is not None and t.requires_grad]
+        # Grad is enabled here only when the caller asked for create_graph: the gradients then carry a graph
+        # back to the saved tensors and to g (a gradient penalty differentiates them once more).
+        create_graph = torch.is_grad_enabled()
+        saved, need = ctx.saved_tensors, ctx.needs_input_grad[:5]
+        wanted = [t for t, n in zip(saved, need) if t is not None and n]
         with torch.enable_grad():
-            z, post, noise, bias, pre_next = inputs
+            z, post, noise, bias, pre_next = saved
             y = modconv_epilogue_plain(z, post, noise, bias, ctx.alpha, ctx.gain, ctx.clamp, pre_next)
-            grads = iter(torch.autograd.grad(y, wanted, g))
-        return (*(next(grads) if t is not None and t.requires_grad else None for t in inputs), None, None, None)
+            grads = iter(torch.autograd.grad(y, wanted, g, create_graph=create_graph))
+        return (*(next(grads) if t is not None and n else None for t, n in zip(saved, need)), None, None, None)
 
 
 def modconv_epilogue(

@@ -38,7 +38,9 @@ absolute (a Loop window's phase magnifies the card's and the CPU's
 cos roundings up to 50-fold). The epilogue's gradient through its kernel
 route (`ModconvEpilogue`) against autograd of the plain version: 1e-4 of
 each gradient's largest magnitude in f32 (the same sums in other orders),
-and one bf16 ulp of that magnitude on top in bf16.
+and one bf16 ulp of that magnitude on top in bf16; its second-order gradients
+(create_graph) the same. A GAN train step card vs CPU: 1e-3 of each gradient
+leaf's largest magnitude, floored at 1e-2 of its network's largest.
 """
 
 import pytest
@@ -124,6 +126,88 @@ def test_epilogue_kernel_route_carries_the_gradient(cuda_device, dtype, shape, n
         scale = float(ref.float().abs().max())
         bar = 1e-4 * scale + (2.0**-8 * scale if dtype == torch.bfloat16 else 0.0)
         assert float((got.float() - ref.float()).abs().max()) <= bar, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,noise_shape,use_pre,clamp", [
+    ((4, 64, 128, 128), (4, 1, 128, 128), False, 256.0),
+    ((2, 128, 64, 64), (1, 4, 64, 64), True, 0.5),
+])
+def test_epilogue_kernel_route_carries_the_second_order_gradient(cuda_device, dtype, shape, noise_shape, use_pre,
+                                                                   clamp):
+    """The gradient of sum_I <dI, v_I> (the first-order gradients taken with create_graph) with respect to z,
+    post, noise, bias, pre_next and the cotangent g, through the kernel forward and the Function's
+    differentiable backward, against the plain version's autograd on the card."""
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    b, c = shape[:2]
+    leaves = {"z": (torch.randn(*shape, generator=gen, device=cuda_device) * 2).to(dtype),
+              "post": torch.rand(b, c, generator=gen, device=cuda_device) + 0.5,
+              "noise": torch.randn(*noise_shape, generator=gen, device=cuda_device),
+              "bias": torch.randn(c, generator=gen, device=cuda_device) * 0.1,
+              "pre_next": torch.rand(b, c, generator=gen, device=cuda_device) + 0.5 if use_pre else None,
+              "g": torch.randn(*shape, generator=gen, device=cuda_device).to(dtype)}
+    v = {k: torch.randn(t.shape, generator=gen, device=cuda_device) for k, t in leaves.items() if t is not None}
+    out = {}
+    for route, fn in (("kernel", E.modconv_epilogue), ("plain", E.modconv_epilogue_plain)):
+        ts = {k: None if t is None else t.detach().clone().requires_grad_(True) for k, t in leaves.items()}
+        names = [k for k in ("z", "post", "noise", "bias", "pre_next") if ts[k] is not None]
+        E.reset_launches()
+        y = fn(ts["z"], ts["post"], ts["noise"], ts["bias"], clamp=clamp, pre_next=ts["pre_next"])
+        first = torch.autograd.grad(y, [ts[k] for k in names], ts["g"], create_graph=True)
+        total = sum((d.float() * v[k]).sum() for k, d in zip(names, first))
+        second = torch.autograd.grad(total, [ts[k] for k in names + ["g"]], allow_unused=True)
+        if route == "kernel":
+            assert E.launches == 1 and type(y.grad_fn).__name__ == "ModconvEpilogueBackward"
+        out[route] = {k: d for k, d in zip(names + ["g"], second)}
+    assert any(d is not None and float(d.abs().max()) > 0 for d in out["plain"].values())
+    for k, ref in out["plain"].items():
+        got = out["kernel"][k]
+        assert (got is None) == (ref is None), k
+        if ref is not None:
+            scale = float(ref.float().abs().max())
+            bar = 1e-4 * scale + (2.0**-8 * scale if dtype == torch.bfloat16 else 0.0)
+            assert float((got.float() - ref.float()).abs().max()) <= bar, k
+
+
+@pytest.mark.cuda
+def test_gan_train_step_card_matches_the_cpu(cuda_device):
+    """One train step at 32^2 (R1, path length and the initial blur on) from the same state and draws on
+    the card (TF32 off) and on the CPU: every D and G gradient leaf within 1e-3 of the larger of its
+    largest magnitude and 1e-2 of its network's largest gradient (a scalar noise strength's gradient is a
+    sum that cancels; chip_smoke's gan_train_reference reads the same at 64^2)."""
+    from maua_tpu_torch.gan import discriminator as D
+    from maua_tpu_torch.gan import stylegan2 as S2
+    from maua_tpu_torch.gan import training as TT
+    from maua_tpu_torch.utility import to_device
+
+    g_cfg = S2.SG2Config(img_resolution=32, channel_max=32, z_dim=64, w_dim=64, num_fp16_res=0)
+    d_cfg, t_cfg = D.D2Config(img_resolution=32, channel_max=32), TT.TrainConfig(blur_init_sigma=2.0)
+    assert t_cfg.beta1 == 0.0
+    state = TT.init_train_state(g_cfg, d_cfg, t_cfg, torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    noises = lambda: {f"b{r}.conv{j}": torch.randn(4, 1, r, r, generator=gen)  # noqa: E731
+                      for r in g_cfg.block_resolutions for j in ((1,) if r == 4 else (0, 1))}
+    draws = {"z_d": [torch.randn(4, 64, generator=gen)], "noise_d": [noises()],
+             "z_g": torch.randn(4, 64, generator=gen), "noise_g": noises(),
+             "pl_noise": torch.randn(2, 3, 32, 32, generator=gen)}
+    real = torch.tanh(torch.randn(4, 3, 32, 32, generator=gen))
+    grads = {}
+    flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        for dev in ("cpu", cuda_device):
+            st = {k: to_device(v, dev) if k != "step" else v for k, v in state.items()}
+            new = TT.train_step(st, real.to(dev), g_cfg, d_cfg, t_cfg, draws=to_device(draws, dev))[0]
+            grads[str(dev)] = {net: new[f"{net}_opt"][0]["mu"] for net in ("d", "g")}  # beta1 = 0: the gradients
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    card = grads[str(cuda_device)]
+    for net in ("d", "g"):
+        scale = max(float(w.abs().max()) for w in grads["cpu"][net])
+        for got, want in zip(card[net], grads["cpu"][net]):
+            bar = 1e-3 * max(float(want.abs().max()), 1e-2 * scale)
+            assert float((got.cpu() - want).abs().max()) <= bar, net
 
 
 @pytest.mark.cuda

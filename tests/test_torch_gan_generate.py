@@ -80,9 +80,10 @@ def test_langevin_sample_with_an_energy_and_the_draws_handed_in():
 
 
 def test_langevin_energies_wait_for_the_discriminator_and_clip(net):
-    """The discriminator's energy still waits for gan/discriminator.py; CLIP's now runs: energy
-    and its gradient against maua_tpu's on the same tiny CLIP (tests/test_torch_guidance.py's),
-    1e-4 of their largest magnitude."""
+    """The discriminator's energy needs a generator with its checkpoint (tests/test_torch_gan_discriminator.py
+    runs it on one): without a generator both packages raise ValueError. CLIP's runs: energy and its
+    gradient against maua_tpu's on the same tiny CLIP (tests/test_torch_guidance.py's), 1e-4 of their
+    largest magnitude."""
     from types import SimpleNamespace
 
     from test_torch_diffusion import TINY_TEXT, random_params
@@ -93,8 +94,10 @@ def test_langevin_energies_wait_for_the_discriminator_and_clip(net):
 
     cfg, tcfg, params, tparams = net
     gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="gan/discriminator.py"):
+    with pytest.raises(ValueError, match="generator"):
         TS.sample_latents("langevin", gen, 2, tparams, tcfg)
+    with pytest.raises(ValueError, match="generator"):
+        JS.sample_latents("langevin", jax.random.PRNGKey(0), 2, params, cfg)
     clip = (random_params(lambda k: JCLIP.init_vision_params(k, TINY_VISION), 20),
             random_params(lambda k: JT.init_params(k, TINY_TEXT), 21),
             np.random.RandomState(22).randn(TINY_TEXT.width, TINY_VISION.embed_dim).astype(np.float32) / 8)
