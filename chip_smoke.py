@@ -104,11 +104,11 @@ Phases, each printed as one JSON line with its elapsed seconds:
    reset just before and read just after (507).
 27. umx (after super_video): the openunmix-style separator at the full
    UMXConfig, random-init, over the 180 s song on the card (cold, warm),
-   the stems' sum against the mixture's bins, card vs CPU stems over 10 s
+   the stems' sum against the mixture's bins, card vs CPU stems over 5 s
    with TF32 off.
 28. noise_patch: the noise-parameterization example patch over the 3 s
    wav at 1024^2, as e2e renders (its noise reaches the s2d tail).
-29. gan_generate: `python -m maua_tpu_torch gan generate` at 1024^2, eight
+29. gan_generate: `python -m maua_tpu_torch gan generate` at 1024^2, two
    PNGs by random, polarity and jacnorm sampling, and two StyleGAN3 frames
    resized to 1920 x 1080.
 30. fast (before profile): the s2d route at config-f 1024^2: plan seconds
@@ -141,14 +141,15 @@ Phases, each printed as one JSON line with its elapsed seconds:
    input and a manual layout whose last section is twice its patch, at
    config-f 1024^2 to 512^2 (the plain route): 192 frames read back, 24
    batches, 408 epilogue launches, none on cells.
-37. av_correlation: the video descriptors of the ss_e2e clip as read back
-   against the wav's audio features, every metric of the battery; its
-   first 12 frames on the card and on the CPU, metric by metric.
+37. av_correlation: the video descriptors of the ss_e2e clip's first 24
+   frames as read back against the wav's audio features of that second,
+   every metric of the battery; its first 6 frames on the card and on the
+   CPU, metric by metric.
 38. sd_guided (after av_correlation): image_sample at 512^2 with CLIP (16
-   cutouts, ViT-B/32 from seed 0) and colour-match guidance, cfg 5, 10 LMS
+   cutouts, ViT-B/32 from seed 0) and colour-match guidance, cfg 5, 5 LMS
    steps (cut from 50), f32: stage seconds, seconds per guided step, peak
-   memory, 111 attention launches (10 UNet + 1 guidance decode a step, the
-   final decode), 110 of them under autograd, each such case's dq, dk, dv
+   memory, 56 attention launches (10 UNet + 1 guidance decode a step, the
+   final decode), 55 of them under autograd, each such case's dq, dk, dv
    against the plain version's; one guided evaluation at 256^2 card vs CPU
    (output and gradient PSNR).
 39. sd_paths: the image-conditioned SD at 512^2 (5 steps), GuidedDiffusion
@@ -159,32 +160,32 @@ Phases, each printed as one JSON line with its elapsed seconds:
    met there held against the plain version, forward and (under
    autograd) dq, dk, dv.
 40. sd_glide (after sd_paths): GLIDE at its published sizes (64^2 base with
-   cfg 3, 256^2 upsampler, 10 DDIM steps a stage) and GLID3XL (SD 1.x UNet
-   and VAE with a 768-wide BERT, 256^2, 10 PLMS steps) through
-   image_sample: stage seconds, 240 and 56 attention launches; each GLIDE
+   cfg 3, 256^2 upsampler, 5 DDIM steps a stage) and GLID3XL (SD 1.x UNet
+   and VAE with a 768-wide BERT, 256^2, 5 PLMS steps) through
+   image_sample: stage seconds, 120 and 31 attention launches; each GLIDE
    UNet once card vs CPU (PSNR); BERTEmbedder at 1280 x 32 layers over 77
    tokens, seconds and card vs CPU.
 41. sd_animation: interpolate_latents (8 frames, renoised), klmc2_animation
    (8 frames, forward-mode Hessian-vector products through the kernel
    route), outpaint (512^2 onto 640^2) and loop_video (8 frames) through SD
-   1.x at 512^2, 10 timesteps: seconds and launches of each; every case
+   1.x at 512^2, 5 timesteps: seconds and launches of each; every case
    held against the plain version, forward-mode tangents included.
-42. sd_video: video_sample on Farneback flow over a synthetic 8-frame 512^2
-   clip (20 LMS timesteps, skip 0.7, first_skip 0.4) and loop_direct_sample
+42. sd_video: video_sample on Farneback flow over a synthetic 4-frame 512^2
+   clip (10 LMS timesteps, skip 0.7, first_skip 0.4) and loop_direct_sample
    over it (blend_every 0.1: 6 passes): flow seconds, seconds per frame,
    frames read back, launches; Horn-Schunck flow and a warp-and-blend card
    vs CPU.
 43. flow_neural: spynet, pwc, liteflownet, unflow, raft and gma from
-   synthetic checkpoints in their published layouts over an 8-frame 512^2
+   synthetic checkpoints in their published layouts over a 4-frame 512^2
    pan: seconds per pair, mean flow, card vs CPU at 256^2; then
-   video_sample on RAFT flow (20 LMS timesteps): seconds, attention
+   video_sample on RAFT flow (10 LMS timesteps): seconds, attention
    launches, every case held against the plain version.
-44. style: style transfer at 512^2, rgb + VGG19 + L-BFGS (20 iterations:
-   seconds and loss evaluations per iteration) and VQGAN + Adam (10
+44. style: style transfer at 512^2, rgb + VGG19 + L-BFGS (10 iterations:
+   seconds and loss evaluations per iteration) and VQGAN + Adam (5
    iterations: the decoder's (1, 1, 16384, 128) attention under autograd,
    dq, dk, dv); one loss gradient at 128^2 card vs CPU; peak memory.
 45. style_video: the flow-consistent video style transfer at its defaults
-   (256^2, 4 passes, 64 iterations a frame) over the 8-frame pan with RAFT
+   (256^2, 4 passes, 64 iterations a frame) over the 4-frame pan with RAFT
    flow: seconds per frame, flow seconds, the video read back.
 46. epilogue_grad (after kernel): the epilogue's autograd route
    (`ModconvEpilogue`: the kernel forward, a recomputed f32 backward) at
@@ -200,7 +201,7 @@ Phases, each printed as one JSON line with its elapsed seconds:
    Function's backward on the plain forward (the backward alone), with every
    epilogue output one ulp off (forward rounding alone), and two wrong
    gradients the bar must catch (a launch with no grad_fn, dpost dropped).
-48. style_zoo: style transfer at 512^2, 10 iterations each: the stylegan
+48. style_zoo: style transfer at 512^2, 5 iterations each: the stylegan
    parameterization with adam (15 launches a decode under autograd), the
    caffe zoo's pgg-vgg19 with lbfgs and nin with avg pooling, nima_score of
    a result, ranger (a Lookahead over RAdam); the stylegan loss's gradient
@@ -209,23 +210,23 @@ Phases, each printed as one JSON line with its elapsed seconds:
    rollouts of 32-63 steps) for 20 steps and renders 120 frames at 256^2,
    read back: seconds per step, each step's loss and state peak (maua_tpu's
    recipe lets the states grow until they overflow; a loss may go
-   non-finite only where the states did); 6 steps at 128^2 card vs CPU on
+   non-finite only where the states did); 2 steps at 128^2 card vs CPU on
    the same draws; 120 frames rendered from those params, all finite:
    render fps.
 50. video_vit (after realtime): the video ViT's gram style transfer at
    width 128, 4 layers, 4 heads, patch 8, tubelet 2 over an 8-frame 256^2
-   clip, 20 Adam iterations: seconds per iteration, peak memory.
-51. optimizers: every one of the 104 registry names 10 steps on an (8, 6)
+   clip, 10 Adam iterations: seconds per iteration, peak memory.
+51. optimizers: every one of the 104 registry names 5 steps on an (8, 6)
    and a (6,) parameter, card vs CPU (TF32 off) within 1e-5; beside each,
    how far one ulp of every gradient moves it on the CPU alone; the two
    shampoo names (one ulp moves them 3e-5 to 3.5e-4) within 1e-3, on nine
    draws of the problem.
 52. gan_train (after nca): `python -m maua_tpu_torch gan train` at config-f
-   1024^2, batch 4, f32 over 8 seed-made images: 8 steps at the default
+   1024^2, batch 4, f32 over 8 seed-made images: 5 steps at the default
    intervals (R1 at 0, path length at 0 and 4, the initial blur on), the one
    evaluation at the last step (64 images, the ResNet extractor), the best and
    final checkpoints; seconds a step by stage, peak memory, the epilogue's
-   launches in all (374) and under autograd (170), one plain step profiled;
+   launches in all (272) and under autograd (119), one plain step profiled;
    the checkpoint round trip, and one step from it against one from the state
    in memory (deterministic kernels: equal).
 53. gan_langevin_d: `gan generate --sampling langevin --langevin_critic
@@ -240,6 +241,32 @@ Phases, each printed as one JSON line with its elapsed seconds:
    noise input's gradient dropped, which the bar must reject. epilogue_grad
    also holds the double backward through the Function at every plain-route
    layer shape in f32 and bf16.
+55. autoreg (after sd_finetune): text to image at ruDALL-E
+   Malevich's transformer widths (1.31 B parameters, f32, TF32 off):
+   prefill 127 text tokens, sample 1024 tokens for 4 images with the KV
+   cache at top-k 64, decode them to 256^2 through the VQ decoder (its
+   (4, 1, 1024, 512) mid attention on the kernel route, the case held
+   against the plain version) and CLIP-rerank them to 2; stage seconds,
+   tokens/s against the step's bytes bound, launches a step and the idle
+   share of 8 profiled steps, peak memory. (The `ar_*` phases are the
+   audio-reactive ones.)
+56. autoreg_reference: the KV-cached and recompute samplers' tokens equal on
+   the same draws (full width, 2 layers, a 16 x 16 grid); one oversampled
+   decode to 1.5x the native columns; one RQ encode and decode at depth 4;
+   transformer logits card vs CPU.
+57. autoreg_video (after gan_train_reference): `python -m maua_tpu_torch
+   autoregressive video` (3 keyframes, 1 interpolation round, guidance
+   alpha 1.5), then both stages' cached and recompute fills, equal.
+58. autoreg_finetune: `autoregressive finetune` at the CLI's config with
+   and without --adam8bit; 4 int8-Adam finetune steps at full width.
+59. gan_icgan: IC-GAN's BigGAN at 256^2 from a synthetic BigGAN-PyTorch
+   state dict, batch 8, card vs CPU; the StyleGAN2 backbone's `generate`
+   and 20 `icgan_clip` steps, the epilogue under autograd.
+60. sd_finetune: SD 1.x finetuning at 512^2, batch 1: 3 steps with the EMA
+   and a 5-step validation sample; a resume from the saved state equal to
+   the uninterrupted run; the attention kernel under autograd, 10 a step.
+61. transport (after autoreg_reference): sliced histogram transport over a
+   1024^2 image and every hist_match mode, card vs CPU.
 Phases that upscale fail if an out-of-memory ladder took a rung past its
 first.
 
@@ -327,10 +354,38 @@ class MelPatch(StyleGAN2Patch):
 """
 
 
+def in_temp_dir(fn):
+    """A phase that writes files, run in a temporary directory of its own."""
+
+    def run():
+        with tempfile.TemporaryDirectory() as tmp:
+            return fn(tmp)
+
+    return run
+
+
+def release_memory():
+    """Between phases: collect cyclic garbage (a facade's closures over itself keep its tensors alive) and
+    return the cached blocks, so that every phase starts with the card's memory free."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def phase(name, fn):
+    """Run one phase and print its JSON line: `phase_seconds` is the phase's wall time (a phase's own
+    `seconds`, where it reports one, stands beside it), `cuda_allocated_gib` the device memory still
+    allocated when it returns."""
+    import torch
+
     t0 = time.perf_counter()
     out = fn()
-    print(json.dumps({"phase": name, "seconds": round(time.perf_counter() - t0, 3), **(out or {})}), flush=True)
+    elapsed = round(time.perf_counter() - t0, 3)
+    print(json.dumps({"phase": name, "seconds": elapsed, **(out or {}), "phase_seconds": elapsed,
+                      "cuda_allocated_gib": round(torch.cuda.memory_allocated() / 2**30, 3)}), flush=True)
     return out
 
 
@@ -1696,6 +1751,110 @@ def sg3_source_params(cfg, seed: int = 0, device: str = "cuda"):
     return src, sd
 
 
+def vae_state_dict(vae, prefix: str = "") -> dict:
+    """The port's AutoencoderKL parameters under CompVis / taming names (`{prefix}encoder.conv_in.weight`,
+    ...; the inverse of diffusion/load.vae_params_from_compvis)."""
+    sd = {}
+
+    def put(name, p):  # conv {w, b}, norms {scale, bias}
+        for k, n in (("w", "weight"), ("b", "bias"), ("scale", "weight"), ("bias", "bias")):
+            if k in p:
+                sd[f"{name}.{n}"] = p[k]
+
+    def vres(name, p):
+        for k in ("norm1", "conv1", "norm2", "conv2"):
+            put(f"{name}.{k}", p[k])
+        if "skip" in p:
+            put(f"{name}.nin_shortcut", p["skip"])
+
+    def vmid(name, p):
+        vres(f"{name}.block_1", p["res1"])
+        put(f"{name}.attn_1.norm", p["attn"]["norm"])
+        for k in ("q", "k", "v"):
+            put(f"{name}.attn_1.{k}", p["attn"][k])
+        put(f"{name}.attn_1.proj_out", p["attn"]["proj"])
+        vres(f"{name}.block_2", p["res2"])
+
+    v, enc, dec = prefix, vae["encoder"], vae["decoder"]
+    put(f"{v}encoder.conv_in", enc["conv_in"])
+    level, b = 0, 0
+    for blk in enc["blocks"]:
+        if "down" in blk:
+            put(f"{v}encoder.down.{level}.downsample.conv", blk["down"])
+            level, b = level + 1, 0
+        else:
+            vres(f"{v}encoder.down.{level}.block.{b}", blk["res"])
+            b += 1
+    vmid(f"{v}encoder.mid", enc["mid"])
+    put(f"{v}encoder.norm_out", enc["norm_out"])
+    put(f"{v}encoder.conv_out", enc["conv_out"])
+    put(f"{v}quant_conv", enc["quant_conv"])
+    put(f"{v}post_quant_conv", dec["post_quant_conv"])
+    put(f"{v}decoder.conv_in", dec["conv_in"])
+    vmid(f"{v}decoder.mid", dec["mid"])
+    b = 0  # the decoder starts at the encoder's last level
+    for blk in dec["blocks"]:
+        if "up" in blk:
+            put(f"{v}decoder.up.{level}.upsample.conv", blk["up"])
+            level, b = level - 1, 0
+        else:
+            vres(f"{v}decoder.up.{level}.block.{b}", blk["res"])
+            b += 1
+    put(f"{v}decoder.norm_out", dec["norm_out"])
+    put(f"{v}decoder.conv_out", dec["conv_out"])
+    return sd
+
+
+def taming_state_dict(vq_params) -> dict:
+    """A taming VQGAN state dict of the port's VQ parameters (`autoregressive/vq.py`): the codebook as
+    `quantize.embedding.weight`, the autoencoder under CompVis names."""
+    return {"quantize.embedding.weight": vq_params["codebook"], **vae_state_dict(vq_params["vae"])}
+
+
+def biggan_state_dict(params, cfg, sv0: bool = True, seed: int = 0) -> dict:
+    """A BigGAN-PyTorch / ic_gan generator state dict of the port's BigGAN parameters (`gan/biggan.py`):
+    every spectral-norm layer's `weight` is the folded weight times a drawn sigma, with its `u0` and, with
+    `sv0`, that sigma (the inverse of biggan.params_from_torch); ccbn statistics as `stored_mean` /
+    `stored_var`."""
+    import numpy as np
+    import torch
+
+    rs = np.random.RandomState(seed)
+    sd = {}
+
+    def sn(name, w, b=None):
+        sigma = float(rs.uniform(0.5, 2.0))
+        sd[f"{name}.weight"] = w * sigma
+        sd[f"{name}.u0"] = torch.from_numpy(rs.randn(1, w.shape[0]).astype(np.float32))
+        if sv0:
+            sd[f"{name}.sv0"] = torch.tensor([sigma])
+        if b is not None:
+            sd[f"{name}.bias"] = b
+
+    sn("linear", params["linear"]["w"], params["linear"]["b"])
+    if "embed_features" in params:
+        sn("embed_features", params["embed_features"]["w"])
+    if "shared" in params:
+        sd["shared.weight"] = params["shared"]
+    for i, blk in enumerate(params["blocks"]):
+        pre = f"blocks.{i}.0"
+        for bn in ("bn1", "bn2"):
+            sn(f"{pre}.{bn}.gain", blk[bn]["gain"]["w"])
+            sn(f"{pre}.{bn}.bias", blk[bn]["bias"]["w"])
+            sd[f"{pre}.{bn}.stored_mean"], sd[f"{pre}.{bn}.stored_var"] = blk[bn]["mean"], blk[bn]["var"]
+        for c in ("conv1", "conv2", "conv_sc"):
+            sn(f"{pre}.{c}", blk[c]["w"], blk[c].get("b"))
+        if 4 * 2 ** (i + 1) == cfg.attention_res:
+            for k in ("theta", "phi", "g", "o"):
+                sn(f"blocks.{i}.1.{k}", params["attention"][k]["w"])
+            sd[f"blocks.{i}.1.gamma"] = params["attention"]["gamma"].reshape(1)
+    ob = params["output"]["bn"]
+    sd["output_layer.0.gain"], sd["output_layer.0.bias"] = ob["scale"], ob["bias"]
+    sd["output_layer.0.stored_mean"], sd["output_layer.0.stored_var"] = ob["mean"], ob["var"]
+    sn("output_layer.2", params["output"]["conv"]["w"], params["output"]["conv"]["b"])
+    return {k: v.detach().float().cpu().clone() for k, v in sd.items()}
+
+
 def compvis_state_dict(unet, vae, text) -> dict:
     """The port's SD 1.x UNet, VAE and CLIP-text parameters under the names
     of a CompVis checkpoint (the inverse of diffusion/load.py's converters)."""
@@ -1754,47 +1913,7 @@ def compvis_state_dict(unet, vae, text) -> dict:
     put(f"{u}.out.0", unet["norm_out"])
     put(f"{u}.out.2", unet["conv_out"])
 
-    def vres(name, p):
-        for k in ("norm1", "conv1", "norm2", "conv2"):
-            put(f"{name}.{k}", p[k])
-        if "skip" in p:
-            put(f"{name}.nin_shortcut", p["skip"])
-
-    def vmid(name, p):
-        vres(f"{name}.block_1", p["res1"])
-        put(f"{name}.attn_1.norm", p["attn"]["norm"])
-        for k in ("q", "k", "v"):
-            put(f"{name}.attn_1.{k}", p["attn"][k])
-        put(f"{name}.attn_1.proj_out", p["attn"]["proj"])
-        vres(f"{name}.block_2", p["res2"])
-
-    v, enc, dec = "first_stage_model", vae["encoder"], vae["decoder"]
-    put(f"{v}.encoder.conv_in", enc["conv_in"])
-    level, b = 0, 0
-    for blk in enc["blocks"]:
-        if "down" in blk:
-            put(f"{v}.encoder.down.{level}.downsample.conv", blk["down"])
-            level, b = level + 1, 0
-        else:
-            vres(f"{v}.encoder.down.{level}.block.{b}", blk["res"])
-            b += 1
-    vmid(f"{v}.encoder.mid", enc["mid"])
-    put(f"{v}.encoder.norm_out", enc["norm_out"])
-    put(f"{v}.encoder.conv_out", enc["conv_out"])
-    put(f"{v}.quant_conv", enc["quant_conv"])
-    put(f"{v}.post_quant_conv", dec["post_quant_conv"])
-    put(f"{v}.decoder.conv_in", dec["conv_in"])
-    vmid(f"{v}.decoder.mid", dec["mid"])
-    b = 0  # the decoder starts at the encoder's last level
-    for blk in dec["blocks"]:
-        if "up" in blk:
-            put(f"{v}.decoder.up.{level}.upsample.conv", blk["up"])
-            level, b = level - 1, 0
-        else:
-            vres(f"{v}.decoder.up.{level}.block.{b}", blk["res"])
-            b += 1
-    put(f"{v}.decoder.norm_out", dec["norm_out"])
-    put(f"{v}.decoder.conv_out", dec["conv_out"])
+    sd.update(vae_state_dict(vae, "first_stage_model."))
 
     t = "cond_stage_model.transformer.text_model"
     sd[f"{t}.embeddings.token_embedding.weight"] = text["token_embedding"]
@@ -1948,7 +2067,7 @@ def _leaves(tree):
     return [tree]
 
 
-SD_LOAD_STEPS = 10  # LMS steps of the sd_load images
+SD_LOAD_STEPS = 5  # LMS steps of the sd_load images (cut from 10 for time)
 
 
 def run_sd_load(tmp: str):
@@ -2034,7 +2153,7 @@ def synchronous_delivery():
         V.pipelined_frames = pipelined
 
 
-DELIVERY_FRAMES = 64  # frames per timed render: 8 batches of 8, 2 of 32 (cut from 96)
+DELIVERY_FRAMES = 32  # frames per timed render: 4 batches of 8, 1 of 32 (cut from 96 to 64, then 32, for time)
 DELIVERY_ROUTES = (("sync", "rgb24"), ("pipelined", "rgb24"), ("pipelined", "yuv420p"), ("sync", "yuv420p"))
 DELIVERY_ROUNDS = 1  # timed renders of each route: 2 per round, in the order A B C D D C B A (cut from 2 rounds)
 
@@ -2170,8 +2289,8 @@ def run_delivery():
 
 # ------------------------------------------------------------ super-resolution
 SUPER_BATCH, SUPER_SIZE = 8, 256  # BASELINE config #4 as bench_super.py defines it: 8 frames, 256^2 -> 1024^2
-SUPER_TIMED = 7  # batches timed after two warm-ups; the median is reported
-SUPER_FORM_BATCHES = 5  # batches of each turn of the dense-block forms' A/B
+SUPER_TIMED = 3  # batches timed after two warm-ups; the median is reported (cut from 7 for time)
+SUPER_FORM_BATCHES = 3  # batches of each turn of the dense-block forms' A/B (cut from 5 for time)
 # one model of each registry kind but latent-diffusion, on a small input (SwinIR's odd: its window padding)
 SUPER_KINDS = (("RealESRGAN-xsx4-animevideo", (64, 64)), ("SwinIR-M-DFO-GAN", (61, 75)),
                ("SwinIR-L-DFOWMFC-GAN", (61, 75)), ("waifu2x-photo-noise1", (64, 64)), ("CARN", (64, 64)))
@@ -2404,7 +2523,7 @@ def run_super_load(tmp: str):
     return out
 
 
-SUPER_VIDEO_FRAMES = 24
+SUPER_VIDEO_FRAMES = 12  # cut from 24 for time
 
 
 def run_super_video(tmp: str):
@@ -2552,7 +2671,7 @@ def run_sd_multires():
             "attention_max_abs_err": max(r["max_abs_err"] for r in attention_cases), **tf32}
 
 
-SD_GUIDED_STEPS = 10  # LMS steps of the sd_guided image (cut from the entry point's 50)
+SD_GUIDED_STEPS = 5  # LMS steps of the sd_guided image (cut from the entry point's 50 to 10, then 5)
 SD_GUIDED_CUTOUTS = 16
 GRAD_BAR = 1e-4  # dq, dk, dv through the Function against autograd of the plain version: of their largest magnitude
 
@@ -2777,7 +2896,7 @@ def run_sd_guided(tmp: str):
     torch.cuda.empty_cache()
     gradient_cases = check_attention_gradients(grad_cases, "sd_guided")
     forward_cases = check_attention_cases(cases, "sd_guided")
-    return {"image": [1, 512, 512, 3], "steps": SD_GUIDED_STEPS, "reduced": "50 -> 10 LMS steps",
+    return {"image": [1, 512, 512, 3], "steps": SD_GUIDED_STEPS, "reduced": f"50 -> {SD_GUIDED_STEPS} LMS steps",
             "launches": launches, "launches_per_step": (launches - 1) / SD_GUIDED_STEPS,
             "launches_under_autograd": sum(grad_cases.values()), "stage_seconds": stages, "wall_seconds": wall,
             "cold_seconds": cold,
@@ -2870,9 +2989,9 @@ def run_sd_paths(tmp: str):
             "attention_max_abs_err": max(r["max_abs_err"] for r in forward_cases), **tf32}
 
 
-SLICE_STEPS = 10  # steps of every sd_glide and sd_animation run (cut from the processors' 50)
-VIDEO_STEPS = 20  # LMS timesteps of the sd_video runs (cut from the loop CLI's 100; the video CLI's 25)
-VIDEO_FRAMES = 8
+SLICE_STEPS = 5  # steps of every sd_glide and sd_animation run (cut from the processors' 50 to 10, then 5)
+VIDEO_STEPS = 10  # LMS timesteps of the sd_video runs (cut from the loop CLI's 100, the video CLI's 25, to 20, then 10)
+VIDEO_FRAMES = 4  # frames of the flow-warped clips (cut from 8 for time)
 TANGENT_BAR = 1e-4  # the forward-mode tangent against torch.func.jvp of the plain version: of its largest magnitude
 BERT_TOL = 1e-4  # BERT card vs CPU, of the output's largest magnitude
 # Horn-Schunck card vs CPU, in pixels: 160 clipped fixed-point iterations over 4 levels, each a 3x3 smoothing,
@@ -3455,8 +3574,8 @@ def run_sd_video(tmp: str):
 
 
 FLOW_TOL = 1e-2  # neural flows card vs CPU at 256^2, TF32 off: px
-STYLE_LBFGS_ITERS = 20  # L-BFGS iterations of the style phase's rgb transfer (cut from the CLI's 512)
-STYLE_VQGAN_ITERS = 10  # Adam iterations of its vqgan transfer
+STYLE_LBFGS_ITERS = 10  # L-BFGS iterations of the style phase's rgb transfer (cut from the CLI's 512 to 20, then 10)
+STYLE_VQGAN_ITERS = 5  # Adam iterations of its vqgan transfer (cut from 10 for time)
 STYLE_PSNR_BAR = 40.0  # the style loss's gradient card vs CPU at 128^2, TF32 off: dB
 
 
@@ -3699,9 +3818,9 @@ def run_writer(repo: str, tmp: str):
             "bytes": os.path.getsize(path), "stage_seconds": stages, "epilogue_launches": E.launches}
 
 
-S2D_AB_PAIRS = 6  # s2d / plain pairs of the fast phase's A/B, in the order P N N P P N ...
+S2D_AB_PAIRS = 3  # s2d / plain pairs of the fast phase's A/B, in the order P N N P P N (cut from 6 for time)
 S2D_AB_BATCHES = 5  # timed batches per turn, after two warm-ups; the median is the turn's time
-S2D_AB_OTHER_PAIRS = 5  # pairs of the fast phase's f32, batch-1 and 512^2 A/Bs
+S2D_AB_OTHER_PAIRS = 3  # pairs of the fast phase's f32, batch-1 and 512^2 A/Bs (cut from 5 for time)
 
 
 @contextlib.contextmanager
@@ -3896,9 +4015,12 @@ def run_fast():
             "breakdown": breakdown, "other_ab": others, "f32_frame": f32}
 
 
+GAN_GENERATE_IMAGES = 2  # PNGs of each `gan generate` sampling (cut from 8 for time)
+
+
 def run_gan_generate(tmp: str):
     """`python -m maua_tpu_torch gan generate` (the command's main, in this
-    process) at 1024^2 from seed-0 weights: eight PNGs by each of random,
+    process) at 1024^2 from seed-0 weights: GAN_GENERATE_IMAGES PNGs by each of random,
     polarity and jacnorm sampling, and two StyleGAN3 frames resized to
     1920 x 1080."""
     import numpy as np
@@ -3909,7 +4031,8 @@ def run_gan_generate(tmp: str):
     from maua_tpu_torch.kernels import filtered_lrelu as FL
 
     out = {}
-    runs = [(s, ["--sampling", s, "--seeds", "0-8"], (1024, 1024), 8, E) for s in ("random", "polarity", "jacnorm")]
+    runs = [(s, ["--sampling", s, "--seeds", f"0-{GAN_GENERATE_IMAGES}"], (1024, 1024), GAN_GENERATE_IMAGES, E)
+            for s in ("random", "polarity", "jacnorm")]
     runs.append(("stylegan3", ["--architecture", "stylegan3", "--seeds", "0-2", "--out_size", "1920,1080"],
                  (1920, 1080), 2, FL))
     for name, args, size, n, kernel in runs:
@@ -3932,7 +4055,7 @@ def run_gan_generate(tmp: str):
 
 
 UMX_TOL = 1e-3  # card vs CPU stems, peak ~0.9: cuDNN's LSTM and cuFFT against the CPU's, TF32 off
-UMX_REFERENCE_SECONDS = 10.0
+UMX_REFERENCE_SECONDS = 5.0  # cut from 10 for time
 
 
 def run_umx(song: str):
@@ -3994,11 +4117,41 @@ def run_umx(song: str):
             "card_vs_cpu_max_abs": err, "cpu_seconds_10s": cpu_seconds}
 
 
-def run_sg3_resize():
+SG3_REFERENCE_THREADS = 4  # the CPU reference frame's process runs beside the card's phases on these cores
+
+
+def sg3_reference_child(path: str):
+    """The CPU side of sg3_resize's card-vs-CPU frame, in its own process: the StyleGAN3 facade at 256^2,
+    f32, seed 0 (parameters drawn on the CPU), output 480 x 270; the w of seed 7 and its frame, written to
+    `path` (.npz)."""
+    import numpy as np
+    import torch
+
+    from maua_tpu_torch.gan.stylegan3 import SG3Config, StyleGAN3
+
+    torch.set_num_threads(SG3_REFERENCE_THREADS)
+    cpu = StyleGAN3(cfg=SG3Config(img_resolution=256, dtype="float32"), device="cpu", seed=0, output_size=(480, 270))
+    w1 = cpu.mapper(cpu.get_z_latents("7"))
+    t0 = time.perf_counter()
+    frame = np.stack(list(cpu.render(w1)))
+    np.savez(path, w=w1.numpy(), frame=frame, seconds=time.perf_counter() - t0)
+
+
+def start_sg3_reference(tmp: str):
+    """Start sg3_reference_child at the start of the run, so that its ~50 s of CPU work overlaps the card's
+    phases: {"proc": the process, "path": its output}."""
+    path = os.path.join(tmp, "sg3_reference.npz")
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--sg3-reference-child", path],
+                            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    return {"proc": proc, "path": path}
+
+
+def run_sg3_resize(reference):
     """The StyleGAN3 facade (config T, 1024^2, bf16 trunk, seed 0) rendering 8
     frames to 1920 x 1080; the resize of a native frame on the card against
     the CPU; one f32 frame at 256^2 resized to 480 x 270, card vs CPU with
-    TF32 off."""
+    TF32 off (the CPU frame from sg3_reference_child's process, started with
+    the run: the same seed-0 parameters and the same w)."""
     import numpy as np
     import torch
 
@@ -4022,18 +4175,25 @@ def run_sg3_resize():
     resized_card = W.resize(native, (1080, 1920), "bilinear").cpu().numpy()
     resize_err = float(np.abs(resized_card - W.resize(native.cpu(), (1080, 1920), "bilinear").numpy()).max())
 
+    proc, path = reference["proc"], reference["path"]
+    t0 = time.perf_counter()
+    _, err = proc.communicate(timeout=600)
+    wait_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"the sg3_resize reference process failed:\n{err[-4000:]}")
+    ref = np.load(path)
     with tf32_off():
         cfg256 = SG3Config(img_resolution=256, dtype="float32")
-        card = StyleGAN3(cfg=cfg256, device="cuda", seed=0, output_size=(480, 270))
-        cpu = StyleGAN3(cfg=cfg256, params=card.params, device="cpu", output_size=(480, 270))
-        w1 = card.mapper(card.get_z_latents("7"))
-        a = np.stack(list(card.render(w1)))
-        b = np.stack(list(cpu.render(w1.cpu())))
+        params = StyleGAN3(cfg=cfg256, device="cpu", seed=0).params
+        card = StyleGAN3(cfg=cfg256, params=params, device="cuda", output_size=(480, 270))
+        a = np.stack(list(card.render(torch.from_numpy(ref["w"]).cuda())))
+    b = ref["frame"]
     frame_psnr = psnr_db(a, b, 255.0)
     if a.shape != (1, 270, 480, 3) or frame_psnr < 40.0 or resize_err > 1e-4:
         raise AssertionError(f"sg3_resize: {a.shape}, PSNR {frame_psnr:.2f} dB, resize err {resize_err}")
     return {"frames": list(frames.shape), "render_seconds": seconds, "fps": BATCH / seconds, "launches": launches,
-            "resize_card_vs_cpu_max_abs": resize_err, "f32_256_to_480x270_psnr_db": frame_psnr}
+            "resize_card_vs_cpu_max_abs": resize_err, "f32_256_to_480x270_psnr_db": frame_psnr,
+            "cpu_reference_seconds": float(ref["seconds"]), "cpu_reference_wait_seconds": wait_s}
 
 
 def run_noise_patch(wav: str, repo: str):
@@ -4077,7 +4237,9 @@ SS_TOL = 1e-4
 INTERACTIVE_SECONDS = 8.0
 INTERACTIVE_LAYOUT = {0.0: 0, 2.0: 1, 4.0: 0}  # the second 0 lasts 4 s, its patch (the first 0's) 2 s
 INTERACTIVE_SCRIPT = ("1,3,5,7", "next", "2,9", "next")
-AV_REFERENCE_FRAMES = 12  # frames of the ss_e2e clip whose features the CPU also computes (Farneback is ~0.4 s a pair)
+AV_FRAMES = 24  # frames of the ss_e2e clip (1 s of its 72) whose descriptors av_correlation computes (cut for time)
+# frames of the ss_e2e clip whose features the CPU also computes (Farneback is ~0.4 s a pair; cut from 12 for time)
+AV_REFERENCE_FRAMES = 6
 
 
 def ss_mir_child(song: str):
@@ -4586,13 +4748,13 @@ def metrics_card_vs_cpu() -> dict:
 
 
 def run_av_correlation(wav: str, tmp: str):
-    """The video descriptors of the ss_e2e clip as read back (72 frames at
-    1024^2) on the card, against the wav's self-supervised audio features
-    (hop 1024), and every metric of the battery: seconds, every metric
-    finite. Then the clip's first AV_REFERENCE_FRAMES frames on the card and
+    """The video descriptors of the first AV_FRAMES frames of the ss_e2e clip
+    as read back (1024^2) on the card, against the wav's self-supervised
+    audio features (hop 1024) over the same time, and every metric of the
+    battery: seconds, every metric finite. Then the clip's first AV_REFERENCE_FRAMES frames on the card and
     on the CPU, f32 with TF32 off, metric by metric within 1e-3 (the CPU
     tests' bar) but where the CPU's own value moves by more than that at
-    f32 roundoff (moves_at_roundoff; reported): 12 frames resampled to 64
+    f32 roundoff (moves_at_roundoff; reported): 6 frames resampled to 64
     rows against a few hundred columns leave the metrics that whiten or
     invert a covariance ill-posed. Every metric is then held card against
     CPU on the CPU tests' pairs of full rank (metrics_card_vs_cpu)."""
@@ -4610,7 +4772,8 @@ def run_av_correlation(wav: str, tmp: str):
     audio, sr, _ = load_audio(wav)
     feats, _, _ = retrieve_music_information(torch.from_numpy(audio).cuda(), sr)
     X = torch.cat(list(feats.values()), dim=1)
-    metrics, video, seconds = video_audio_correlation(frames, X, "cuda")
+    rows = round(X.shape[0] * AV_FRAMES / frames.shape[0])  # the audio frames of the same seconds
+    metrics, video, seconds = video_audio_correlation(frames[:AV_FRAMES], X[:rows], "cuda")
     if not all(np.isfinite(v) for v in metrics.values()):
         raise AssertionError(f"av_correlation: non-finite metrics {metrics}")
     with tf32_off():
@@ -4622,7 +4785,8 @@ def run_av_correlation(wav: str, tmp: str):
     if set(card) != set(host) or not all(at_roundoff.values()):
         raise AssertionError(f"av_correlation card vs CPU: {diffs}, moving at f32 roundoff: {at_roundoff}")
     pairs = metrics_card_vs_cpu()
-    return {"frames": list(frames.shape), "audio_features": list(X.shape), "video_features": int(video.shape[1]),
+    return {"frames": [AV_FRAMES, *frames.shape[1:]], "audio_features": [rows, X.shape[1]],
+            "video_features": int(video.shape[1]),
             "seconds": seconds, "metrics": metrics, "pairs_card_vs_cpu_by_metric": pairs,
             "card_vs_cpu_by_metric": diffs,
             "card_vs_cpu_max_abs_of_the_rest": max(d for k, d in diffs.items() if k not in over),
@@ -4637,12 +4801,12 @@ LANGEVIN_SEEDS = "0-2"  # two images at the command's defaults (50 Langevin step
 # does (run_gan_langevin measures both); a dropped or detached epilogue gradient moves it by over 0.1. Each
 # case's own gradients are held to GRAD_BAR (check_epilogue_gradients)
 LANGEVIN_ROUTE_BAR = 1e-3
-ZOO_ITERS = 10  # iterations of each style_zoo transfer (cut from the CLI's 512)
+ZOO_ITERS = 5  # iterations of each style_zoo transfer (cut from the CLI's 512 to 10, then 5)
 ZOO_PSNR_BAR = 40.0  # the stylegan loss gradient card vs CPU at 128^2, TF32 off: dB
-VIT_ITERS = 20  # Adam iterations of the video_vit phase (cut from 100)
+VIT_ITERS = 10  # Adam iterations of the video_vit phase (cut from 100 to 20, then 10)
 NCA_STEPS, NCA_FRAMES = 20, 120  # nca run: training steps (cut from 2000), rendered frames (cut from 600)
-NCA_PARITY_STEPS = 6  # training steps at 128^2 held card vs CPU on the same draws
-OPT_STEPS = 10  # steps of each registry name in the optimizers phase
+NCA_PARITY_STEPS = 2  # training steps at 128^2 held card vs CPU on the same draws (cut from 6 for time)
+OPT_STEPS = 5  # steps of each registry name in the optimizers phase (cut from 10 for time)
 OPT_TOL = 1e-5  # each registry name card vs CPU, TF32 off: of each parameter's largest magnitude
 # shampoo and lookahead-shampoo: on the CPU alone, gradients put one ulp off move their parameters by 3e-5 to
 # 3.5e-4 of their largest magnitude after OPT_STEPS steps (every other name: under 2e-7), so no bar under that
@@ -5312,7 +5476,7 @@ def check_epilogue_second_order(cases, what: str):
     return rows
 
 
-GAN_TRAIN_STEPS = 8  # `gan train` steps at config-f 1024^2: R1 at step 0, path length at steps 0 and 4
+GAN_TRAIN_STEPS = 5  # `gan train` steps at config-f 1024^2: R1 at step 0, path length at steps 0 and 4 (cut from 8)
 GAN_TRAIN_IMAGES = 8  # the seed-made 1024^2 training folder: two batches an epoch
 GAN_TRAIN_BATCH = 4
 GAN_REF_SIZE = 64  # the train step held card vs CPU at 64^2 (channel_max 64)
@@ -5708,6 +5872,489 @@ def run_gan_langevin_d(tmp: str):
             "cases_under_autograd": len(cases)}
 
 
+# ------------------------------------------------------------ autoregressive text-to-image and video, GAN extras
+AUTOREG_PROMPT = "a lighthouse on a cliff at dusk, oil painting"
+AUTOREG_BATCH = 4
+AUTOREG_TOP_K = 64
+AUTOREG_PROFILE_STEPS = 8
+AUTOREG_LOGIT_TOL = 1e-4  # transformer logits card vs CPU, TF32 off: of the largest magnitude
+AUTOREG_FT_STEPS = 4  # finetune_step's at ruDALL-E Malevich's widths, int8 Adam
+AUTOREG_FT_BATCH = 2
+AUTOREG_CLI_FT_STEPS = 20  # `autoregressive finetune` steps at the CLI's config (its default is 100)
+ICGAN_CLIP_STEPS = 20
+ICGAN_BATCH = 8
+SD_FT_STEPS = 3
+SD_FT_SAMPLE_STEPS = 5  # LMS steps of the validation sample
+TRANSPORT_SIZE = 1024
+TRANSPORT_ITERS = 8
+TRANSPORT_TOL = 1e-4  # covariance modes card vs CPU: of the largest magnitude
+
+
+def autoreg_configs():
+    """ruDALL-E Malevich's transformer widths (1.31 B parameters) and its VQGAN as far as VQConfig
+    expresses it (256^2 images from a 32 x 32 grid)."""
+    from maua_tpu_torch.autoregressive.transformer import ARConfig
+    from maua_tpu_torch.autoregressive.vq import VQConfig
+
+    return (ARConfig(vocab_size=8192, text_vocab_size=16384, text_length=128, image_rows=32, image_cols=32,
+                     width=2048, layers=24, heads=16),
+            VQConfig(codebook_size=8192, z_channels=256, base_channels=128, channel_mult=(1, 1, 2, 4),
+                     num_res_blocks=2))
+
+
+def cuda_kernel_count(prof) -> int:
+    """The device kernels in a profile (copies and memsets not counted)."""
+    from torch.autograd import DeviceType
+
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset", "[memory]")))
+
+
+def run_autoreg():
+    """The slice's main path at ruDALL-E Malevich's widths, f32, TF32 off, seed-0 weights: prefill 127 text
+    tokens and sample 1024 image tokens for a batch of 4 with the KV cache at top-k 64
+    (`transformer.generate_tokens`), decode them to 256^2 with the VQ decoder (its (4, 1, 1024, 512) mid
+    attention on the kernel route) and CLIP-rerank the 4 images to 2 (ViT-B/32). Seconds of each stage,
+    tokens/s against the step's bytes bound (every weight read once a step), launches a step and the
+    device's idle share over 8 profiled steps, peak memory, and the attention kernel's launches (reset
+    before, read after), each case held against the plain version."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from maua_tpu_torch.autoregressive import cli as ARC
+    from maua_tpu_torch.autoregressive import rerank as RR
+    from maua_tpu_torch.autoregressive import transformer as AT
+    from maua_tpu_torch.autoregressive import vq as VQ
+    from maua_tpu_torch.kernels import attention as A
+    from maua_tpu_torch.perceptors.clip import CLIPPerceptor
+
+    cfg, vq_cfg = autoreg_configs()
+    with tf32_off():
+        t0 = time.perf_counter()
+        params = AT.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+        vq_params = VQ.params_from_torch(taming_state_dict(VQ.init_params(
+            vq_cfg, torch.Generator(device="cuda").manual_seed(1))), vq_cfg)
+        vq_params = tree_map(lambda t: t.cuda(), vq_params)
+        perceptor = CLIPPerceptor(device="cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(t.numel() for t in _leaves(params))
+        text = ARC._text_tokens(AUTOREG_PROMPT, cfg, "cuda").repeat(AUTOREG_BATCH, 1)
+        torch.cuda.reset_peak_memory_stats()
+        stages = {}
+        A.reset_launches()
+        with attention_cases_recorded() as cases:
+            toks = AT.generate_tokens(params, text, cfg, torch.Generator(device="cuda").manual_seed(0),
+                                      top_k=AUTOREG_TOP_K, stage_times=stages)
+            t0 = time.perf_counter()
+            imgs = VQ.decode_tokens(vq_params, toks, vq_cfg, cfg.image_rows, cfg.image_cols)
+            torch.cuda.synchronize()
+            stages["decode"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            best = RR.clip_rerank(imgs, AUTOREG_PROMPT, top_n=2, perceptor=perceptor)
+            torch.cuda.synchronize()
+            stages["rerank"] = time.perf_counter() - t0
+        launches = A.launches
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        t = toks.cpu().numpy()
+        if (t.shape != (AUTOREG_BATCH, cfg.image_length) or t.min() < 0 or t.max() >= cfg.vocab_size
+                or imgs.shape != (AUTOREG_BATCH, 3, cfg.image_rows * vq_cfg.upscale, cfg.image_cols * vq_cfg.upscale)
+                or not bool(torch.isfinite(imgs).all())
+                or float(imgs.abs().max()) > 1.0 or len(set(best.tolist())) != 2):
+            raise AssertionError(f"autoreg: tokens {t.shape}, images {tuple(imgs.shape)}, rerank {best}")
+        want_case = [k for k in cases if k[2][0] == (AUTOREG_BATCH, 1, cfg.image_length, 512)]
+        if launches != 1 or sum(cases.values()) != 1 or not want_case:
+            raise AssertionError(f"autoreg: {launches} attention launches in the decode, cases {dict(cases)}")
+        attention = check_attention_cases(cases, "autoreg")
+
+        # 8 decode steps as generate_tokens takes them (kv_step and the top-k draw), profiled
+        pos_tab = AT.position_table(params, cfg, cfg.total_length)
+        n = cfg.text_length - 1
+        caches = AT.kv_prefill(params, cfg, params["tok_emb"][text[:, :n]] + pos_tab[None, :n], cfg.total_length)
+        draw = AT.gumbel_draws(torch.Generator(device="cuda").manual_seed(1))
+        tok, p = text[:, -1], n
+
+        def step(tok, p):
+            logits, _ = AT.kv_step(params, cfg, params["tok_emb"][tok] + pos_tab[p], p, caches)
+            return AT.sample_logits(logits[:, cfg.text_vocab_size:], draw, 1.0, AUTOREG_TOP_K) + cfg.text_vocab_size
+
+        for _ in range(2):
+            tok, p = step(tok, p), p + 1
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(AUTOREG_PROFILE_STEPS):
+                tok, p = step(tok, p), p + 1
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        busy_ms = device_busy_ms(prof)
+        kernels = cuda_kernel_count(prof)
+    del params, caches
+    torch.cuda.empty_cache()
+    bound_step_ms = 4 * n_params / HBM_BYTES_PER_S * 1e3
+    tokens = AUTOREG_BATCH * cfg.image_length
+    return {"parameters": n_params, "weights_gb": 4 * n_params / 1e9, "init_seconds": init_s,
+            **{f"{k}_seconds": v for k, v in stages.items()},
+            "tokens_per_s": tokens / stages["sampling"], "step_ms": stages["sampling"] / cfg.image_length * 1e3,
+            "bound_step_ms": bound_step_ms, "bound_tokens_per_s": AUTOREG_BATCH / (bound_step_ms / 1e3),
+            "profiled_steps": AUTOREG_PROFILE_STEPS, "profiled_wall_ms_per_step": wall_ms / AUTOREG_PROFILE_STEPS,
+            "profiled_busy_ms_per_step": busy_ms / AUTOREG_PROFILE_STEPS,
+            "idle_share": max(0.0, 1 - busy_ms / wall_ms) if busy_ms else "not measured",
+            "launches_per_step": kernels / AUTOREG_PROFILE_STEPS, "peak_gib": peak_gib,
+            "rerank_best": best.tolist(), "decode_launches": launches, "attention_cases": attention,
+            "attention_max_abs_err": max(r["max_abs_err"] for r in attention)}
+
+
+def run_autoreg_reference():
+    """At ruDALL-E's widths with 2 layers over a 16 x 16 grid, batch 2: the KV-cached and the recompute
+    samplers give the same tokens on the same draws; one oversampled decode to 24 of the 16 native
+    columns (the VQ decoder at full width); one RQ encode and decode at depth 4 of a 256^2 seed image
+    (its first level the depth-1 codes, its mid attentions on the kernel route, each case held against
+    the plain version). Then transformer logits card vs CPU at ARConfig's defaults, TF32 off."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from maua_tpu_torch.autoregressive import oversample as OV
+    from maua_tpu_torch.autoregressive import transformer as AT
+    from maua_tpu_torch.autoregressive import vq as VQ
+    from maua_tpu_torch.kernels import attention as A
+
+    cfg, vq_cfg = autoreg_configs()
+    cfg2 = dataclasses.replace(cfg, layers=2, image_rows=16, image_cols=16)
+    out = {}
+    with tf32_off():
+        params = AT.init_params(cfg2, torch.Generator(device="cuda").manual_seed(2))
+        text = torch.randint(0, cfg2.text_vocab_size, (2, cfg2.text_length), device="cuda",
+                             generator=torch.Generator(device="cuda").manual_seed(3))
+        gumbel = AT.gumbel_draws(torch.Generator(device="cuda").manual_seed(4))
+        draws = [gumbel((2, cfg2.vocab_size)) for _ in range(cfg2.image_length)]
+        toks = {}
+        for cached in (True, False):
+            t0 = time.perf_counter()
+            toks[cached] = AT.generate_tokens(params, text, cfg2, top_k=AUTOREG_TOP_K, cached=cached,
+                                              draw=lambda shape, it=iter(draws): next(it))
+            out[f"{'cached' if cached else 'recompute'}_seconds"] = time.perf_counter() - t0
+        if not torch.equal(toks[True], toks[False]):
+            raise AssertionError(f"autoreg_reference: cached and recompute tokens differ at "
+                                 f"{int((toks[True] != toks[False]).sum())} positions")
+        vq_params = VQ.init_params(vq_cfg, torch.Generator(device="cuda").manual_seed(1))
+        t0 = time.perf_counter()
+        grid = OV.oversample_generate(params, text, cfg2, target_cols=24, top_k=AUTOREG_TOP_K,
+                                      gen=torch.Generator(device="cuda").manual_seed(5))
+        wide = VQ.decode_tokens(vq_params, grid.reshape(2, -1), vq_cfg, 16, 24)
+        torch.cuda.synchronize()
+        out["oversample_seconds"] = time.perf_counter() - t0
+        u = vq_cfg.upscale
+        if grid.shape != (2, 16, 24) or wide.shape != (2, 3, 16 * u, 24 * u) or not bool(torch.isfinite(wide).all()):
+            raise AssertionError(f"autoreg_reference: oversampled grid {tuple(grid.shape)}, images {tuple(wide.shape)}")
+        del params
+        side = cfg.image_rows * vq_cfg.upscale  # 256: a 32 x 32 grid
+        img = torch.tanh(torch.randn(1, 3, side, side, generator=torch.Generator(device="cuda").manual_seed(6),
+                                     device="cuda"))
+        A.reset_launches()
+        with attention_cases_recorded() as cases:
+            codes = {d: VQ.encode_rq_tokens(vq_params, img, vq_cfg, d) for d in (1, 4)}
+            rq = VQ.decode_rq_tokens(vq_params, codes[4], vq_cfg, cfg.image_rows, cfg.image_cols, 4)
+        launches = A.launches
+        z = VQ._latents(vq_params, img, vq_cfg)
+        resid = {d: float((z - vq_params["codebook"][codes[d].reshape(-1, d)].sum(1)).norm()) for d in (1, 4)}
+        first = codes[4].reshape(-1, 4)[:, 0]  # the first level snaps the latent itself, as depth 1 does
+        if (rq.shape != img.shape or not bool(torch.isfinite(rq).all()) or not torch.equal(first, codes[1].reshape(-1))
+                or launches != 3 or sum(cases.values()) != 3):
+            raise AssertionError(f"autoreg_reference: RQ {tuple(rq.shape)}, residuals {resid}, {launches} launches")
+        out["rq"] = {"depth": 4, "residual_norm": resid, "launches": launches,
+                     "attention_cases": check_attention_cases(cases, "autoreg_reference")}
+        small = AT.ARConfig()
+        cpu_params = AT.init_params(small, torch.Generator().manual_seed(7))
+        tokens = torch.randint(0, small.total_vocab, (2, small.total_length),
+                               generator=torch.Generator().manual_seed(8))
+        want = AT.forward(cpu_params, tokens, small)
+        got = AT.forward(tree_map(lambda t: t.cuda(), cpu_params), tokens.cuda(), small).cpu()
+        err = float((got - want).abs().max() / want.abs().max())
+        if not err <= AUTOREG_LOGIT_TOL:
+            raise AssertionError(f"autoreg_reference: logits card vs CPU {err}")
+        out["logits_card_vs_cpu_rel_err"] = err
+    return out
+
+
+def run_autoreg_video(tmp: str):
+    """`python -m maua_tpu_torch autoregressive video` at its own configuration (3 keyframes, 1
+    interpolation round: 5 frames, --guidance_alpha 1.5): seconds, frames and the mp4. Then both stages at
+    that configuration with the KV-cached and the recompute fills on the same draws: equal tokens."""
+    import numpy as np
+    import torch
+
+    from maua_tpu_torch import __main__ as command
+    from maua_tpu_torch.autoregressive import video as AV
+    from maua_tpu_torch.autoregressive.cli import word_id
+    from maua_tpu_torch.autoregressive.transformer import ARConfig, init_params
+
+    out_dir = os.path.join(tmp, "autoreg_video")
+    t0 = time.perf_counter()
+    command.main(["autoregressive", "video", "--text", AUTOREG_PROMPT, "--n_keyframes", "3",
+                  "--interpolation_rounds", "1", "--guidance_alpha", "1.5", "--out_dir", out_dir])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    frames = sorted(f for f in os.listdir(out_dir) if f.startswith("frame_"))
+    if len(frames) != 5 or not os.path.getsize(os.path.join(out_dir, "video.mp4")):
+        raise AssertionError(f"autoreg_video: {os.listdir(out_dir)}")
+    cfg = ARConfig(width=128, layers=2, heads=4, image_rows=8, image_cols=8, text_length=16, max_frames=5)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    text = np.asarray([[word_id(w, cfg.text_vocab_size - 1) for w in AUTOREG_PROMPT.split()]
+                       + [0] * (cfg.text_length - len(AUTOREG_PROMPT.split()))])
+    guider = np.asarray([[word_id("video", cfg.text_vocab_size - 1)] + [0] * (cfg.text_length - 1)])
+    tokens, fill_s = {}, {}
+    for cached in (True, False):
+        t0 = time.perf_counter()
+        keys = AV.generate_video_tokens(params, text, cfg, 3, gen=torch.Generator(device="cuda").manual_seed(1),
+                                        guider_text_tokens=guider, guidance_alpha=1.5, cached=cached)
+        tokens[cached] = AV.interpolate_frames(params, keys, text, cfg, cached=cached,
+                                               gen=torch.Generator(device="cuda").manual_seed(2))
+        torch.cuda.synchronize()
+        fill_s["cached" if cached else "recompute"] = time.perf_counter() - t0
+    if tokens[True].shape != (5, 1, cfg.image_length) or not torch.equal(tokens[True], tokens[False]):
+        raise AssertionError("autoreg_video: the cached and recompute fills differ")
+    return {"command_seconds": seconds, "frames": len(frames), "fill_seconds": fill_s}
+
+
+def run_autoreg_finetune(tmp: str):
+    """`python -m maua_tpu_torch autoregressive finetune` on 4 seed-made 32^2 images at the CLI's
+    configuration (AUTOREG_CLI_FT_STEPS steps, batch 2, then 2 samples), with and without --adam8bit; then
+    AUTOREG_FT_STEPS finetune_step's at ruDALL-E Malevich's widths with int8 Adam on seed-made token rows
+    (batch 2, 1152 tokens): seconds a step, peak memory, the frozen leaves unchanged."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from maua_tpu_torch import __main__ as command
+    from maua_tpu_torch.autoregressive import finetune as FT
+    from maua_tpu_torch.autoregressive import transformer as AT
+
+    rs = np.random.RandomState(9)
+    paths = []
+    for i in range(4):
+        paths.append(os.path.join(tmp, f"autoreg_ft_{i}.png"))
+        Image.fromarray(rs.randint(0, 256, (32, 32, 3)).astype(np.uint8)).save(paths[-1])
+    out = {}
+    for adam8bit in (False, True):
+        tag = "adam8bit" if adam8bit else "adamw"
+        save = os.path.join(tmp, f"autoreg_ft_{tag}.npz")
+        t0 = time.perf_counter()
+        command.main(["autoregressive", "finetune", "--images", *paths, "--captions", "a", "b", "c", "d",
+                      "--steps", str(AUTOREG_CLI_FT_STEPS), "--train_batch_size", "2", "--save_path", save,
+                      "--num_outputs", "2", "--output_dir", os.path.join(tmp, f"autoreg_ft_{tag}")]
+                     + (["--adam8bit"] if adam8bit else []))
+        torch.cuda.synchronize()
+        out[f"command_{tag}_seconds"] = time.perf_counter() - t0
+        if not os.path.exists(save) or len(os.listdir(os.path.join(tmp, f"autoreg_ft_{tag}"))) != 2:
+            raise AssertionError(f"autoreg_finetune: the {tag} command wrote {os.listdir(tmp)}")
+    cfg, _ = autoreg_configs()
+    params = AT.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    ft = FT.FinetuneConfig(lr=1e-5, steps=AUTOREG_FT_STEPS, adam8bit=True)
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    tokens = torch.cat([torch.randint(0, cfg.text_vocab_size, (AUTOREG_FT_BATCH, cfg.text_length), generator=gen,
+                                      device="cuda"),
+                        torch.randint(0, cfg.vocab_size, (AUTOREG_FT_BATCH, cfg.image_length), generator=gen,
+                                      device="cuda") + cfg.text_vocab_size], 1)
+    torch.cuda.reset_peak_memory_stats()
+    state = FT.init_finetune_state(params, ft)
+    first = [t.clone() for t in _leaves(state["params"]["blocks"][0]["qkv"])]
+    first.append(state["params"]["head"]["w"][:4].clone())
+    seconds, losses = [], []
+    for _ in range(AUTOREG_FT_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = FT.finetune_step(state, tokens, cfg, ft)
+        losses.append(float(loss))
+        seconds.append(time.perf_counter() - t0)
+    qkv = _leaves(state["params"]["blocks"][0]["qkv"])
+    if (not all(math.isfinite(x) for x in losses) or not all(torch.equal(a, b) for a, b in zip(first[:2], qkv))
+            or torch.equal(first[2], state["params"]["head"]["w"][:4])):
+        raise AssertionError(f"autoreg_finetune: losses {losses}, frozen or trained leaves wrong")
+    return {**out, "step_seconds": seconds, "losses": losses, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "batch": AUTOREG_FT_BATCH, "tokens_per_row": cfg.total_length}
+
+
+def run_gan_icgan(tmp: str):
+    """IC-GAN's BigGAN at its 256^2 widths (BigGANConfig()) from a synthetic BigGAN-PyTorch state dict with
+    u0, sv0, stored_mean and stored_var (seed-made, attention gamma 0.5), a batch of 8 on the card against
+    the CPU (TF32 off, PSNR at peak 2); then the StyleGAN2 backbone (128^2, c_dim 256): instance features
+    of 4 seed images, `generate` (2 an instance) and ICGAN_CLIP_STEPS `icgan_clip` steps with CLIP ViT-B/32,
+    the epilogue's launches and those under autograd, each case held against the plain version."""
+    import numpy as np
+    import torch
+
+    from maua_tpu_torch.gan import biggan as BG
+    from maua_tpu_torch.gan import icgan as IC
+    from maua_tpu_torch.kernels import epilogue as E
+    from maua_tpu_torch.perceptors.clip import CLIPPerceptor
+
+    cfg = BG.BigGANConfig()
+    gen = torch.Generator().manual_seed(11)
+    params = BG.init_params(cfg, gen)
+    for blk in params["blocks"]:
+        for bn in ("bn1", "bn2"):
+            blk[bn]["mean"] = torch.randn(blk[bn]["mean"].shape, generator=gen) * 0.1
+            blk[bn]["var"] = 1 + torch.randn(blk[bn]["var"].shape, generator=gen).abs() * 0.2
+    params["attention"]["gamma"] = torch.tensor(0.5)
+    path = os.path.join(tmp, "icgan_biggan.pth")
+    torch.save({"state_dict": biggan_state_dict(params, cfg, sv0=True, seed=12)}, path)
+    z = torch.randn(ICGAN_BATCH, cfg.dim_z, generator=gen)
+    feats = torch.randn(ICGAN_BATCH, cfg.feature_dim, generator=gen)
+    feats = feats / feats.norm(dim=-1, keepdim=True)
+    with tf32_off():
+        card = IC.load_icgan(path, backbone="biggan", biggan_cfg=cfg, device="cuda")
+        cpu = IC.load_icgan(path, backbone="biggan", biggan_cfg=cfg, device="cpu")
+        with torch.no_grad():
+            a = card(z.cuda(), feats.cuda())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            a = card(z.cuda(), feats.cuda()).cpu()
+            biggan_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            b = cpu(z, feats)
+            cpu_s = time.perf_counter() - t0
+    psnr = psnr_db(a.numpy(), b.numpy(), 2.0)
+    if a.shape != (ICGAN_BATCH, 3, 256, 256) or not psnr >= 40.0:
+        raise AssertionError(f"gan_icgan: BigGAN {tuple(a.shape)}, card vs CPU {psnr} dB")
+    del card, cpu
+    g = IC.load_icgan(device="cuda")
+    imgs = torch.tanh(torch.randn(4, 3, 128, 128, generator=torch.Generator(device="cuda").manual_seed(13),
+                                  device="cuda"))
+    inst = IC.instance_features(imgs, dim=g.cfg.c_dim)
+    E.reset_launches()
+    with epilogue_cases_recorded() as cases:
+        out_imgs = IC.generate(g, inst, n_per_instance=2, rng=torch.Generator(device="cuda").manual_seed(14))
+        torch.cuda.synchronize()
+    per_generate = E.launches
+    rows, worst = check_epilogue_cases(cases, "gan_icgan")
+    perceptor = CLIPPerceptor(device="cuda")
+    E.reset_launches()
+    with autograd_epilogue_cases() as grad_cases:
+        t0 = time.perf_counter()
+        clip_imgs, lat = IC.icgan_clip(g, LANGEVIN_PROMPT, perceptor=perceptor, n_steps=ICGAN_CLIP_STEPS, batch=4,
+                                       rng=torch.Generator(device="cuda").manual_seed(15), verbose=False)
+        torch.cuda.synchronize()
+        clip_s = time.perf_counter() - t0
+    launches, under = E.launches, sum(grad_cases.values())
+    if (out_imgs.shape != (8, 3, 128, 128) or clip_imgs.shape != (4, 3, 128, 128) or per_generate == 0
+            or under != ICGAN_CLIP_STEPS * per_generate or launches != under + per_generate
+            or not bool(torch.isfinite(clip_imgs).all())):
+        raise AssertionError(f"gan_icgan: {per_generate} launches a generate, {launches} in icgan_clip, "
+                             f"{under} under autograd")
+    return {"biggan_batch_seconds": biggan_s, "biggan_cpu_seconds": cpu_s, "biggan_card_vs_cpu_psnr_db": psnr,
+            "generate_launches": per_generate, "launches_per_image": per_generate / out_imgs.shape[0],
+            "epilogue_cases": rows, "epilogue_max_abs_err": worst, "icgan_clip_seconds": clip_s,
+            "icgan_clip_seconds_per_step": clip_s / ICGAN_CLIP_STEPS, "icgan_clip_launches": launches,
+            "launches_under_autograd": under, "gradient_cases": check_epilogue_gradients(grad_cases, "gan_icgan")}
+
+
+def run_sd_finetune(tmp: str):
+    """SD 1.x at the CompVis v1-inference widths (random weights from seed 0), 512^2 images (64^2
+    latents), batch 1, f32, cuDNN's deterministic algorithms: SD_FT_STEPS finetune steps with the EMA and
+    the validation sample once (SD_FT_SAMPLE_STEPS LMS steps); the same run as SD_FT_STEPS - 1 steps, the
+    torch.save state, and a resumed last step, which must equal the uninterrupted run. Seconds a step,
+    peak memory, the checkpoint's size and seconds, and the attention kernel's launches under autograd
+    (10 a step), each such case's dq, dk, dv held against the plain version."""
+    import numpy as np
+    import torch
+
+    from maua_tpu_torch.diffusion import finetune as DF
+    from maua_tpu_torch.diffusion.processors.stable import StableDiffusion
+    from maua_tpu_torch.kernels import attention as A
+
+    proc = StableDiffusion(device="cuda", seed=0, timesteps=SD_FT_SAMPLE_STEPS, image_size=512)
+    init = tree_map(torch.clone, proc.unet_params)
+    rs = np.random.RandomState(16)
+    imgs = np.tanh(rs.randn(2, 512, 512, 3)).astype(np.float32)
+    captions = [SD_PROMPT, "a red fox in the snow"]
+    hooks = []
+    det = torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True)
+
+    def run(n_steps, gen, **kw):
+        proc.unet_params = tree_map(torch.clone, init) if not kw.get("resume") else proc.unet_params
+        return DF.finetune(proc, imgs, captions, n_steps=n_steps, batch_size=1, lr=1e-5, gen=gen, verbose=False,
+                           **kw)
+
+    torch.cuda.reset_peak_memory_stats()
+    with det:
+        A.reset_launches()
+        with autograd_attention_cases() as cases:
+            t0 = time.perf_counter()
+            full = run(SD_FT_STEPS, torch.Generator(device="cuda").manual_seed(17), sample_every=SD_FT_STEPS,
+                       sample_hook=lambda step, im: hooks.append((step, im.shape, bool(np.isfinite(im).all()))))
+            torch.cuda.synchronize()
+            full_s = time.perf_counter() - t0
+        launches, under = A.launches, sum(cases.values())
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        full = tree_map(lambda t: t.cpu(), list(full))
+        ckpt = os.path.join(tmp, "sd_finetune")
+        gen = torch.Generator(device="cuda").manual_seed(17)
+        t0 = time.perf_counter()
+        run(SD_FT_STEPS - 1, gen, checkpoint_dir=ckpt)
+        torch.cuda.synchronize()
+        part_s = time.perf_counter() - t0
+        size_gb = os.path.getsize(os.path.join(ckpt, "finetune_last.pt")) / 1e9
+        t0 = time.perf_counter()
+        resumed = run(SD_FT_STEPS, gen, checkpoint_dir=ckpt, resume=True)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+    diff = max(float((a - b.cpu()).abs().max()) for a, b in zip(_leaves(full), _leaves(list(resumed))))
+    if hooks != [(SD_FT_STEPS, (1, 512, 512, 3), True)] or diff != 0.0 or proc.unet_params is not resumed[1]:
+        raise AssertionError(f"sd_finetune: hook {hooks}, resumed run {diff} from the uninterrupted one")
+    if under != 10 * SD_FT_STEPS or launches < under:
+        raise AssertionError(f"sd_finetune: {launches} attention launches, {under} under autograd")
+    del full, resumed, init
+    proc.unet_params = None
+    torch.cuda.empty_cache()
+    return {"run_seconds": full_s, "seconds_per_step_with_sample": full_s / SD_FT_STEPS, "peak_gib": peak_gib,
+            "partial_run_seconds": part_s, "resume_seconds": resume_s, "checkpoint_gb": size_gb,
+            "resumed_equals_uninterrupted": True, "launches": launches, "launches_under_autograd": under,
+            "gradient_cases": check_attention_gradients(cases, "sd_finetune")}
+
+
+def run_transport():
+    """sliced_histogram_transport over a 1024^2 RGB image (TRANSPORT_ITERS iterations, the rotations from
+    seed-made normals) and each hist_match mode, card vs CPU: the CDF remaps within one bin of the range
+    and 1e-4 of it on average (a value that crosses a bin edge moves later CDF steps by 1 / N), the
+    covariance modes within TRANSPORT_TOL of the largest magnitude. Seconds on each device."""
+    import numpy as np
+    import torch
+
+    from maua_tpu_torch.ops import transport as TR
+
+    rs = np.random.RandomState(18)
+    n = TRANSPORT_SIZE
+    src = torch.from_numpy(rs.rand(n, n, 3).astype(np.float32))
+    tgt = torch.from_numpy((rs.rand(n, n, 3) ** 2 * np.array([1.0, 0.5, 2.0])).astype(np.float32))
+    normals = [rs.randn(3, 3).astype(np.float32) for _ in range(TRANSPORT_ITERS)]
+    out, res = {}, {}
+    with tf32_off():
+        for dev in ("cuda", "cpu"):
+            a, b = src.to(dev), tgt.to(dev)
+            t0 = time.perf_counter()
+            res[dev] = {"sliced": TR.sliced_histogram_transport(a, b, TRANSPORT_ITERS, normals=normals).cpu(),
+                        **{m: TR.hist_match(a, b, mode=m).cpu() for m in ("cdf", "chol", "pca", "sym")}}
+            out[f"{dev}_seconds"] = time.perf_counter() - t0
+    errs = {}
+    for k, want in res["cpu"].items():
+        got = res["cuda"][k]
+        err = (got - want).abs()
+        if k in ("sliced", "cdf"):
+            span = float(want.max() - want.min())
+            errs[k] = {"max_of_range": float(err.max()) / span, "mean_of_range": float(err.mean()) / span}
+            ok = float(err.max()) <= span / 256 and float(err.mean()) <= 1e-4 * span
+        else:
+            errs[k] = float(err.max()) / float(want.abs().max())
+            ok = errs[k] <= TRANSPORT_TOL
+        if not ok or got.shape != src.shape or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"transport {k}: card vs CPU {errs[k]}")
+    return {**out, "card_vs_cpu": errs}
+
+
 def main() -> int:
     try:
         import torch
@@ -5728,6 +6375,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--ar-features-child"] and len(sys.argv) == 3:
         print(json.dumps(ar_features_child(sys.argv[2])))
         return 0
+    if sys.argv[1:2] == ["--sg3-reference-child"] and len(sys.argv) == 3:
+        sg3_reference_child(sys.argv[2])
+        return 0
     if sys.argv[1:2] == ["--ss-mir-child"] and len(sys.argv) == 3:
         print(json.dumps(ss_mir_child(sys.argv[2])))
         return 0
@@ -5740,7 +6390,8 @@ def main() -> int:
               "super_reference,sd_multires,sg3_resize,realtime,ss_mir,ss_e2e,ss_reference,interactive,"
               "av_correlation,sd_guided,sd_paths,sd_glide,sd_animation,sd_video,flow_neural,style,style_video,"
               "epilogue_grad,gan_langevin,style_zoo,nca,video_vit,optimizers,gan_train,gan_langevin_d,"
-              "gan_train_reference,delivery]",
+              "gan_train_reference,autoreg,autoreg_reference,autoreg_video,autoreg_finetune,gan_icgan,sd_finetune,"
+              "transport,delivery]",
               file=sys.stderr)
         return 2
 
@@ -5766,41 +6417,56 @@ def main() -> int:
                      ("attn", check_attention), ("mel", check_mel), ("kconv", check_kconv)):
         if want(name):
             results[name] = phase(name, fn)
-            torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as tmp:
-        wav, song = os.path.join(tmp, "mix.wav"), os.path.join(tmp, "song.wav")
-        synth_wav(wav)
-        synth_wav(song, seconds=SONG_SECONDS, seed=1, chords=True)
-        for name, fn in (("e2e", lambda: run_e2e(wav, repo)), ("sg3_e2e", lambda: run_sg3_e2e(wav, repo)),
-                         ("ar_e2e", lambda: run_ar_e2e(wav, tmp)), ("ar_features", lambda: run_ar_features(song)),
-                         ("ar_reference", lambda: ar_card_vs_cpu(song)), ("gan_load", lambda: run_gan_load(wav, repo, tmp)),
-                         ("sd_load", lambda: run_sd_load(tmp)), ("writer", lambda: run_writer(repo, tmp)),
-                         ("super_load", lambda: run_super_load(tmp)), ("super_video", lambda: run_super_video(tmp)),
-                         ("umx", lambda: run_umx(song)), ("noise_patch", lambda: run_noise_patch(wav, repo)),
-                         ("gan_generate", lambda: run_gan_generate(tmp)), ("ss_mir", lambda: run_ss_mir(song)),
-                         ("ss_e2e", lambda: run_ss_e2e(wav, tmp)), ("ss_reference", lambda: run_ss_reference(wav)),
-                         ("interactive", lambda: run_interactive(tmp)),
-                         ("av_correlation", lambda: run_av_correlation(wav, tmp)),
-                         ("sd_guided", lambda: run_sd_guided(tmp)), ("sd_paths", lambda: run_sd_paths(tmp)),
-                         ("sd_glide", lambda: run_sd_glide(tmp)), ("sd_animation", lambda: run_sd_animation(tmp)),
-                         ("sd_video", lambda: run_sd_video(tmp)), ("flow_neural", lambda: run_flow_neural(tmp)),
-                         ("style", lambda: run_style(tmp)), ("style_video", lambda: run_style_video(tmp)),
-                         ("gan_langevin", lambda: run_gan_langevin(tmp)), ("style_zoo", lambda: run_style_zoo(tmp)),
-                         ("nca", lambda: run_nca(tmp)), ("gan_train", lambda: run_gan_train(tmp)),
-                         ("gan_langevin_d", lambda: run_gan_langevin_d(tmp))):
-            if want(name):
-                results[name] = phase(name, fn)
-                torch.cuda.empty_cache()
-    for name, fn in (("fast", run_fast), ("profile", profile_render_batch), ("sg3_profile", profile_sg3_render_batch),
-                     ("reference", card_vs_cpu), ("sg3_reference", sg3_card_vs_cpu), ("sd_e2e", run_sd_e2e),
-                     ("sd_steps", run_sd_steps), ("sd_profile", profile_sd_step), ("sd_reference", sd_card_vs_cpu),
-                     ("super", run_super), ("super_reference", super_card_vs_cpu), ("sd_multires", run_sd_multires),
-                     ("sg3_resize", run_sg3_resize), ("realtime", run_realtime), ("video_vit", run_video_vit),
-                     ("optimizers", run_optimizers), ("gan_train_reference", run_gan_train_reference),
-                     ("delivery", run_delivery)):
-        if want(name):
-            results[name] = phase(name, fn)
-            torch.cuda.empty_cache()
+            release_memory()
+    sg3_reference = {}
+    with tempfile.TemporaryDirectory() as ref_dir:
+        try:
+            with tempfile.TemporaryDirectory() as tmp:
+                wav, song = os.path.join(tmp, "mix.wav"), os.path.join(tmp, "song.wav")
+                synth_wav(wav)
+                synth_wav(song, seconds=SONG_SECONDS, seed=1, chords=True)
+                for name, fn in (("e2e", lambda: run_e2e(wav, repo)), ("sg3_e2e", lambda: run_sg3_e2e(wav, repo)),
+                                 ("ar_e2e", lambda: run_ar_e2e(wav, tmp)), ("ar_features", lambda: run_ar_features(song)),
+                                 ("ar_reference", lambda: ar_card_vs_cpu(song)), ("gan_load", lambda: run_gan_load(wav, repo, tmp)),
+                                 ("sd_load", lambda: run_sd_load(tmp)), ("writer", lambda: run_writer(repo, tmp)),
+                                 ("super_load", lambda: run_super_load(tmp)), ("super_video", lambda: run_super_video(tmp)),
+                                 ("umx", lambda: run_umx(song)), ("noise_patch", lambda: run_noise_patch(wav, repo)),
+                                 ("gan_generate", lambda: run_gan_generate(tmp)), ("ss_mir", lambda: run_ss_mir(song)),
+                                 ("ss_e2e", lambda: run_ss_e2e(wav, tmp)), ("ss_reference", lambda: run_ss_reference(wav)),
+                                 ("interactive", lambda: run_interactive(tmp)),
+                                 ("av_correlation", lambda: run_av_correlation(wav, tmp)),
+                                 ("sd_guided", lambda: run_sd_guided(tmp)), ("sd_paths", lambda: run_sd_paths(tmp)),
+                                 ("sd_glide", lambda: run_sd_glide(tmp)), ("sd_animation", lambda: run_sd_animation(tmp)),
+                                 ("sd_video", lambda: run_sd_video(tmp)), ("flow_neural", lambda: run_flow_neural(tmp)),
+                                 ("style", lambda: run_style(tmp)), ("style_video", lambda: run_style_video(tmp)),
+                                 ("gan_langevin", lambda: run_gan_langevin(tmp)), ("style_zoo", lambda: run_style_zoo(tmp)),
+                                 ("nca", lambda: run_nca(tmp)), ("gan_train", lambda: run_gan_train(tmp)),
+                                 ("gan_langevin_d", lambda: run_gan_langevin_d(tmp))):
+                    if name == "gan_load" and want("sg3_resize"):  # its CPU reference overlaps the phases from here
+                        sg3_reference.update(start_sg3_reference(ref_dir))
+                    if want(name):
+                        results[name] = phase(name, fn)
+                        release_memory()
+            for name, fn in (("fast", run_fast), ("profile", profile_render_batch), ("sg3_profile", profile_sg3_render_batch),
+                             ("reference", card_vs_cpu), ("sg3_reference", sg3_card_vs_cpu), ("sd_e2e", run_sd_e2e),
+                             ("sd_steps", run_sd_steps), ("sd_profile", profile_sd_step), ("sd_reference", sd_card_vs_cpu),
+                             ("super", run_super), ("super_reference", super_card_vs_cpu), ("sd_multires", run_sd_multires),
+                             ("sg3_resize", lambda: run_sg3_resize(sg3_reference or start_sg3_reference(ref_dir))), ("realtime", run_realtime), ("video_vit", run_video_vit),
+                             ("optimizers", run_optimizers), ("gan_train_reference", run_gan_train_reference),
+                             # after gan_train_reference: the 64^2 card-vs-CPU step there has read another cuDNN
+                             # algorithm (1.35e-3 against 1.87e-4) after these phases' 25-40 GiB allocations
+                             ("autoreg_video", in_temp_dir(run_autoreg_video)),
+                             ("autoreg_finetune", in_temp_dir(run_autoreg_finetune)),
+                             ("gan_icgan", in_temp_dir(run_gan_icgan)), ("sd_finetune", in_temp_dir(run_sd_finetune)),
+                             ("autoreg", run_autoreg), ("autoreg_reference", run_autoreg_reference),
+                             ("transport", run_transport), ("delivery", run_delivery)):
+                if want(name):
+                    results[name] = phase(name, fn)
+                    release_memory()
+        finally:
+            if sg3_reference and sg3_reference["proc"].poll() is None:  # a phase failed before sg3_resize
+                sg3_reference["proc"].kill()
+                sg3_reference["proc"].wait()
     if phases is not None:
         return 0  # a partial run prints no record
 
@@ -5809,7 +6475,8 @@ def main() -> int:
     mel_main = mel["cases"][max(mel_cases, key=lambda c: mel_cases[c] * mel["cases"][c]["bound_ms"])]
     song_cases = results["ar_features"]["warm"]["mel_cases"]
     grad_rows = [r for rows in (results["gan_langevin"]["gradient_cases"],
-                                results["style_zoo"]["stylegan_adam"]["gradient_cases"]) for r in rows]
+                                results["style_zoo"]["stylegan_adam"]["gradient_cases"],
+                                results["gan_icgan"]["gradient_cases"]) for r in rows]
     grad_errs = dict(results["epilogue_grad"]["grad_max_rel_err"])  # dtype -> the largest relative error
     for r in grad_rows:
         grad_errs[r["dtype"]] = max(grad_errs.get(r["dtype"], 0.0), *r["grad_rel_err"].values())
@@ -5841,7 +6508,12 @@ def main() -> int:
         "autograd_launches": {"style_zoo": results["style_zoo"]["stylegan_adam"]["launches_under_autograd"],
                               "gan_langevin": results["gan_langevin"]["launches_under_autograd"],
                               "gan_train": results["gan_train"]["launches_under_autograd"],
-                              "gan_langevin_d": results["gan_langevin_d"]["launches_under_autograd"]},
+                              "gan_langevin_d": results["gan_langevin_d"]["launches_under_autograd"],
+                              "gan_icgan": results["gan_icgan"]["launches_under_autograd"]},
+        "icgan_generate_launches": results["gan_icgan"]["generate_launches"],
+        "icgan_launches_per_image": results["gan_icgan"]["launches_per_image"],
+        "icgan_clip_launches": results["gan_icgan"]["icgan_clip_launches"],
+        "icgan_max_abs_err": results["gan_icgan"]["epilogue_max_abs_err"],
         "train_launches": results["gan_train"]["launches"],
         "langevin_d_launches": results["gan_langevin_d"]["launches"],
         "second_order_cases": results["epilogue_grad"]["second_order_cases"],
@@ -5875,7 +6547,10 @@ def main() -> int:
                  f"langevin_d_launches: `gan generate --sampling langevin --langevin_critic discriminator` on an ADA "
                  f".pkl with a D (gan_langevin_d); second_order_*: the double backward through the Function at the "
                  f"plain route's layer shapes in f32 and bf16 against the plain version's (epilogue_grad), and the "
-                 f"smallest reading of the detached backward that the bar rejects",
+                 f"smallest reading of the detached backward that the bar rejects; icgan_*: IC-GAN's StyleGAN2 "
+                 f"backbone at 128^2 (gan_icgan): the launches of one `generate` of 8 images, per image, and of "
+                 f"{ICGAN_CLIP_STEPS} `icgan_clip` steps (under autograd but the final images' synthesis), every "
+                 f"case of the generate held with icgan_max_abs_err and every autograd case among autograd_cases",
     }, {
         "name": "filtered_lrelu",
         "route": "cuda",
@@ -5911,8 +6586,8 @@ def main() -> int:
         "guided_launches": results["sd_guided"]["launches"],
         "guided_launches_per_step": results["sd_guided"]["launches_per_step"],
         "guided_launches_under_autograd": results["sd_guided"]["launches_under_autograd"],
-        "autograd_cases": len(results["sd_guided"]["gradient_cases"]) + len(results["sd_paths"]["gradient_cases"]),
-        "autograd_grad_max_rel_err": max(r["grad_rel_err"][g] for p in ("sd_guided", "sd_paths")
+        "autograd_cases": sum(len(results[p]["gradient_cases"]) for p in ("sd_guided", "sd_paths", "sd_finetune")),
+        "autograd_grad_max_rel_err": max(r["grad_rel_err"][g] for p in ("sd_guided", "sd_paths", "sd_finetune")
                                          for r in results[p]["gradient_cases"] for g in ("dq", "dk", "dv")),
         "guided_max_abs_err": results["sd_guided"]["attention_max_abs_err"],
         "paths_launches": {k: v["launches"] for k, v in results["sd_paths"].items()
@@ -5932,6 +6607,12 @@ def main() -> int:
         "style_grad_max_rel_err": max(r["grad_rel_err"][g] for r in results["style"]["gradient_cases"]
                                       for g in ("dq", "dk", "dv")),
         "style_max_abs_err": max(results[p]["attention_max_abs_err"] for p in ("flow_neural", "style")),
+        "autoreg_decode_launches": results["autoreg"]["decode_launches"],
+        "autoreg_rq_launches": results["autoreg_reference"]["rq"]["launches"],
+        "autoreg_max_abs_err": max([results["autoreg"]["attention_max_abs_err"]]
+                                   + [r["max_abs_err"] for r in results["autoreg_reference"]["rq"]["attention_cases"]]),
+        "sd_finetune_launches": results["sd_finetune"]["launches"],
+        "sd_finetune_launches_under_autograd": results["sd_finetune"]["launches_under_autograd"],
         "scope": f"the {10 * SD_STEPS + 1} launches of one 512^2 {SD_STEPS}-step SD 1.x image in f32 (sd_e2e's "
                  f"path, CUDA cores); bf16_*: the same launches in bf16 (the sd_steps path, tensor cores); "
                  f"loaded_launches: one {SD_LOAD_STEPS}-step image from a CompVis checkpoint (sd_load); "
@@ -5953,7 +6634,12 @@ def main() -> int:
                  f"(flow_neural); style_launches: the 512^2 VQGAN style transfer ({STYLE_VQGAN_ITERS} Adam "
                  f"iterations, style), whose (1, 1, 16384, 128) decoder attention runs under autograd "
                  f"(style_launches_under_autograd; dq, dk, dv within style_grad_max_rel_err), every case of both "
-                 f"matched with style_max_abs_err",
+                 f"matched with style_max_abs_err; autoreg_decode_launches: the VQ decode of 4 images of "
+                 f"ruDALL-E's 32 x 32 tokens, (4, 1, 1024, 512) (autoreg); autoreg_rq_launches: one RQ encode at "
+                 f"depths 1 and 4 and one decode of a 256^2 image (autoreg_reference), every case of both within "
+                 f"autoreg_max_abs_err; sd_finetune_*: {SD_FT_STEPS} SD 1.x finetune steps at 512^2 with their "
+                 f"validation sample ({SD_FT_SAMPLE_STEPS} LMS steps), 10 a step under autograd, their cases among "
+                 f"autograd_cases",
     }, {
         "name": "melspectrogram",
         "route": "cuda",

@@ -312,3 +312,20 @@ def resnet_extractor_params_to_torch(jax_params: Dict, device: Optional[torch.de
     a block's `stride` and a missing `skip` (None) kept."""
     return _walk(jax_params, lambda name, v: v if v is None or isinstance(v, int)
                  else experimental_params_to_torch({name: v}, device)[name])
+
+
+def biggan_params_to_torch(jax_params: Dict, device: Optional[torch.device | str] = None) -> Dict:
+    """JAX BigGAN pytree (`maua_tpu.gan.biggan`) -> the port's (`maua_tpu_torch.gan.biggan`): linear weights
+    (in, out) -> (out, in), conv weights HWIO -> OIHW; the class table, norms' statistics and gamma unchanged."""
+    return diffusion_params_to_torch(jax_params, device)
+
+
+def ar_params_to_torch(jax_params: Dict, device: Optional[torch.device | str] = None) -> Dict:
+    """JAX autoregressive transformer pytree (`maua_tpu.autoregressive.transformer`) -> the port's: the same
+    layout (linear weights (in, out)), f32 tensors; the block list stays a list."""
+    return _walk(jax_params, lambda name, v: torch.from_numpy(np.array(v, np.float32, order="C")).to(device))
+
+
+def ar_params_to_jax(torch_params: Dict) -> Dict:
+    """The port's autoregressive transformer dict -> a JAX-layout pytree of numpy arrays."""
+    return _walk(torch_params, lambda name, v: np.array(v.detach().float().cpu().numpy(), order="C"))

@@ -77,8 +77,90 @@ def scale(step_size) -> GradientTransformation:
     return stateless(lambda u, p: [step_size * x for x in u])
 
 
+def scale_by_schedule(step_size_fn: Callable) -> GradientTransformation:
+    """optax.scale_by_schedule: updates times step_size_fn(count), count from 0 before the step."""
+
+    def update(u, s, p=None):
+        step = float(step_size_fn(s["count"]))
+        return [step * x for x in u], {"count": s["count"] + 1}
+
+    return GradientTransformation(lambda p: {"count": 0}, update)
+
+
 def scale_by_learning_rate(lr, flip_sign: bool = True) -> GradientTransformation:
+    """optax.scale_by_learning_rate: a constant, or a schedule (a callable of the step count)."""
+    if callable(lr):
+        return scale_by_schedule(lambda count: f32(-1 if flip_sign else 1) * f32(lr(count)))
     return scale(-lr if flip_sign else lr)
+
+
+def cosine_onecycle_schedule(transition_steps: int, peak_value: float, pct_start: float = 0.3,
+                             div_factor: float = 25.0, final_div_factor: float = 1e4) -> Callable:
+    """optax.cosine_onecycle_schedule: optax's piecewise cosine interpolation between the accumulated
+    values at the boundaries {pct_start * steps: div_factor, steps: 1 / (div_factor * final_div_factor)},
+    evaluated in f32 as optax evaluates it on the device. A count is a host int."""
+    if transition_steps <= 0:
+        raise ValueError("A linear onecycle schedule was set with a non-positive `transition_steps`")
+    boundaries = (int(pct_start * transition_steps), int(transition_steps))
+    scales = (div_factor, 1.0 / (div_factor * final_div_factor))
+    bounds = np.array((0,) + boundaries, np.int32)
+    values = np.cumprod(np.array((peak_value / div_factor,) + scales))  # f64, cast to f32 where used
+    sizes = bounds[1:] - bounds[:-1]
+    end = values[1:].astype(f32)
+    half = ((values[:-1] - values[1:]) / 2.0).astype(f32)
+
+    def schedule(count):
+        count = np.int32(count)
+        indicator = ((bounds[:-1] <= count) & (count < bounds[1:])).astype(f32)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            pct = ((count - bounds[:-1]) / sizes).astype(f32)
+        interp = end + half * (np.cos(f32(np.pi) * pct) + f32(1))
+        return f32(indicator.dot(interp) + f32(bounds[-1] <= count) * f32(values[-1]))
+
+    return schedule
+
+
+def _global_norm(updates: Tensors) -> torch.Tensor:
+    """optax.tree.norm: the square root of the sum of every leaf's squares."""
+    return torch.sqrt(sum(torch.sum(x * x) for x in updates))
+
+
+def clip_by_global_norm(max_norm: float) -> GradientTransformation:
+    """optax.clip_by_global_norm: where the global norm is at least max_norm, (t / norm) * max_norm."""
+
+    def fn(u, p):
+        g_norm = _global_norm(u)
+        return [torch.where(g_norm < max_norm, x, (x / g_norm.to(x.dtype)) * max_norm) for x in u]
+
+    return stateless(fn)
+
+
+def set_to_zero() -> GradientTransformation:
+    """optax.set_to_zero: zero updates, no state."""
+    return stateless(lambda u, p: [torch.zeros_like(x) for x in u])
+
+
+def multi_transform(transforms: dict, labels: Sequence) -> GradientTransformation:
+    """optax.multi_transform over a list: `labels` names each leaf's transformation, and each
+    transformation sees only its own leaves (in order), as optax masks the others out."""
+    groups = {name: [i for i, lab in enumerate(labels) if lab == name] for name in transforms}
+
+    def pick(xs, idx):
+        return None if xs is None else [xs[i] for i in idx]
+
+    def init(params):
+        return {name: tx.init(pick(params, groups[name])) for name, tx in transforms.items()}
+
+    def update(updates, state, params=None):
+        out, new = list(updates), {}
+        for name, tx in transforms.items():
+            idx = groups[name]
+            part, new[name] = tx.update(pick(updates, idx), state[name], pick(params, idx))
+            for i, x in zip(idx, part):
+                out[i] = x
+        return out, new
+
+    return GradientTransformation(init, update)
 
 
 def add_decayed_weights(weight_decay) -> GradientTransformation:

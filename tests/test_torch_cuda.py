@@ -40,7 +40,15 @@ route (`ModconvEpilogue`) against autograd of the plain version: 1e-4 of
 each gradient's largest magnitude in f32 (the same sums in other orders),
 and one bf16 ulp of that magnitude on top in bf16; its second-order gradients
 (create_graph) the same. A GAN train step card vs CPU: 1e-3 of each gradient
-leaf's largest magnitude, floored at 1e-2 of its network's largest.
+leaf's largest magnitude, floored at 1e-2 of its network's largest. The
+autoregressive samplers on the card: the same tokens from the cached and
+the recompute paths given the same draws, and card vs CPU logits within
+1e-4 of the largest (TF32 off). The VQ decode with its mid attention on the
+kernel route against the CPU's plain decode: 1e-4 absolute on images in
+[-1, 1]. An SD finetune step's gradient card vs CPU (TF32 off): 1e-3 of each
+leaf's largest magnitude, floored at 1e-7 of the largest of all (the conv
+biases before one-channel groups have a gradient of exactly 0, computed as
+f32 noise).
 """
 
 import pytest
@@ -966,3 +974,108 @@ def test_selfsupervised_patch_on_the_card_matches_the_cpu(cuda_device, no_tf32, 
     assert out["cuda"][0].is_cuda and len(out["cuda"]) == 1 + 2 * 13
     for card, host in zip(out["cuda"], out["cpu"]):
         assert float((card.cpu() - host).abs().max()) <= 1e-4
+
+
+def _ar_cfg(**kw):
+    from maua_tpu_torch.autoregressive.transformer import ARConfig
+
+    return ARConfig(**{**dict(vocab_size=512, text_vocab_size=256, text_length=8, image_rows=8, image_cols=8,
+                              width=64, layers=2, heads=4, max_frames=5), **kw})
+
+
+@pytest.mark.cuda
+def test_ar_samplers_agree_on_the_card(cuda_device):
+    """generate_tokens (KV-cached and recompute, with forced positions) and a video fill with a guider on
+    the card: the same tokens from both paths on the same draws; the card's logits against the CPU's."""
+    from maua_tpu_torch.autoregressive import transformer as AT
+    from maua_tpu_torch.autoregressive import video as AV
+    from maua_tpu_torch.utility import to_device
+
+    cfg = _ar_cfg()
+    params = AT.init_params(cfg, torch.Generator().manual_seed(0))
+    card = to_device(params, cuda_device)
+    text = torch.randint(0, cfg.text_vocab_size, (3, cfg.text_length), generator=torch.Generator().manual_seed(1))
+    gumbels = AT.gumbel_draws(torch.Generator().manual_seed(2))
+    steps = [gumbels((3, cfg.vocab_size)).to(cuda_device) for _ in range(cfg.image_length)]
+    mask = torch.arange(cfg.image_length) % 5 == 0
+    forced = torch.randint(0, cfg.vocab_size, (3, cfg.image_length), generator=torch.Generator().manual_seed(3))
+    flag = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        toks = [AT.generate_tokens(card, text, cfg, top_k=32, cached=c, forced_tokens=forced, forced_mask=mask,
+                                   draw=lambda shape, it=iter(steps): next(it)) for c in (True, False)]
+        assert torch.equal(toks[0], toks[1]) and torch.equal(toks[0][:, mask].cpu(), forced[:, mask])
+        full = torch.cat([text, toks[0].cpu() + cfg.text_vocab_size], 1)
+        want = AT.forward(params, full, cfg)
+        got = AT.forward(card, full.to(cuda_device), cfg).cpu()
+        assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+        seq, fids, boi = AV.build_video_sequence(cfg, text[:2].numpy(), 2)
+        gseq = seq.copy()
+        gseq[:, : cfg.text_length] = 0
+        fills = [AV.filling_sequence(card, seq, fids, boi, cfg, guider_seq=gseq, guidance_alpha=1.5, top_k=16,
+                                     top_k_first_frame=4, cached=c,
+                                     gen=torch.Generator(device=cuda_device).manual_seed(4))
+                 for c in (True, False)]
+        assert torch.equal(fills[0], fills[1])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flag
+
+
+@pytest.mark.cuda
+def test_vq_decode_takes_the_kernel_route(cuda_device):
+    """A 16 x 16 token grid at 64 mid channels: the decoder's (B, 1, 256, 64) mid attention launches the
+    kernel once per decode; the decode matches the CPU's (plain attention)."""
+    from maua_tpu_torch.autoregressive import vq as VQ
+    from maua_tpu_torch.utility import to_device
+
+    cfg = VQ.VQConfig(codebook_size=128, z_channels=4, base_channels=32, channel_mult=(1, 2), num_res_blocks=1)
+    params = VQ.init_params(cfg, torch.Generator().manual_seed(5))
+    toks = torch.randint(0, 128, (2, 256), generator=torch.Generator().manual_seed(6))
+    flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        A.reset_launches()
+        got = VQ.decode_tokens(to_device(params, cuda_device), toks.to(cuda_device), cfg, 16, 16).cpu()
+        assert A.launches == 1
+        want = VQ.decode_tokens(params, toks, cfg, 16, 16)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    assert got.shape == (2, 3, 32, 32) and float((got - want).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_sd_finetune_step_gradient_through_the_kernel(cuda_device):
+    """A finetune step of a 2-level UNet at 32^2 latents: its four (2, 1, 256, 64) self-attentions run the
+    kernel under autograd (FlashAttention) and the step's gradient (AdamW's first moment / 0.1) matches the
+    CPU's."""
+    from maua_tpu_torch import transforms as T
+    from maua_tpu_torch.diffusion import finetune as DF
+    from maua_tpu_torch.diffusion.models import unet as U
+    from maua_tpu_torch.diffusion.samplers import make_ddpm_schedule
+    from maua_tpu_torch.gan.training import tree_leaves
+    from maua_tpu_torch.utility import to_device
+
+    cfg = U.UNetConfig(model_channels=32, channel_mult=(1, 2), num_res_blocks=1, attention_resolutions=(2,),
+                       num_heads=1, context_dim=64)
+    params = U.init_params(cfg, torch.Generator().manual_seed(7))
+    gen = torch.Generator().manual_seed(8)
+    lat, noise = torch.randn(2, 4, 32, 32, generator=gen), torch.randn(2, 4, 32, 32, generator=gen)
+    ctx, t = torch.randn(2, 16, 64, generator=gen), torch.tensor([100, 700])
+    ac = make_ddpm_schedule(1000)
+    mus = {}
+    flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        for dev in ("cpu", cuda_device):
+            p = to_device(params, dev)
+            tx = T.adamw(1e-4)
+            A.reset_launches()
+            _, st, _ = DF.train_step(p, tx.init(tree_leaves(p)), tx, lat.to(dev), ctx.to(dev), t.to(dev),
+                                     noise.to(dev), ac, cfg)
+            mus[str(dev)] = [m.cpu() for m in st[0]["mu"]]
+        assert A.launches == 4  # the (2, 1, 256, 64) self-attentions: one down, the middle, two up
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    top = max(float(m.abs().max()) for m in mus["cpu"])
+    for got, want in zip(mus[str(cuda_device)], mus["cpu"]):
+        assert float((got - want).abs().max()) <= max(1e-3 * float(want.abs().max()), 1e-7 * top)

@@ -221,3 +221,59 @@ def test_noisy_sgd_draws_from_a_generator_without_draws():
     x.grad = torch.zeros(4)
     opt.step()
     assert 0 < x.detach().abs().max() < 1.0
+
+
+# ------------------------------------------------ the finetuning transforms (optax's formulas)
+def _optax_steps(tx, ttx, shapes=SHAPES, labels=None):
+    """STEPS steps of an optax transformation and the port's on the same draws (the gradient
+    g = R_t + p / 2, updates applied), compared after each within 1e-5 of each leaf's largest magnitude."""
+    p0, rs_g = _draws(shapes)
+    names = sorted(shapes)
+    params = {k: jnp.asarray(v) for k, v in p0.items()}
+    tparams = [torch.from_numpy(p0[k].copy()) for k in names]
+    state, tstate = tx.init(params), ttx.init(tparams)
+    for r in rs_g:
+        g = {k: jnp.asarray(r[k]) + 0.5 * params[k] for k in names}
+        u, state = tx.update(g, state, params)
+        params = optax.apply_updates(params, u)
+        tu, tstate = ttx.update([torch.from_numpy(r[k]) + 0.5 * p for k, p in zip(names, tparams)], tstate, tparams)
+        tparams = [p + x for p, x in zip(tparams, tu)]
+        for k, p in zip(names, tparams):
+            want = np.asarray(params[k])
+            assert np.abs(p.numpy() - want).max() <= 1e-5 * np.abs(want).max(), k
+
+
+@pytest.mark.parametrize("steps,pct,final", [(10, 0.3, 500.0), (20, 0.3, 1e4), (100, 0.25, 500.0), (7, 0.3, 500.0)])
+def test_cosine_onecycle_schedule_matches_optax(steps, pct, final):
+    """Every count from 0 past the end, within 1e-5 relative (near the end cos + 1 approaches 0, where one
+    f32 ulp of XLA's cos against numpy's reads ~3e-6); 7 steps puts the ramp's boundary at 2 (maua_tpu floors
+    its finetuning horizon at 10 because shorter ones leave an empty interval: at 3 steps optax's rate is
+    NaN)."""
+    want = optax.cosine_onecycle_schedule(steps, 0.01, pct_start=pct, final_div_factor=final)
+    got = T.cosine_onecycle_schedule(steps, 0.01, pct_start=pct, final_div_factor=final)
+    for count in range(steps + 3):
+        w = float(want(count))
+        assert abs(float(got(count)) - w) <= 1e-5 * abs(w), count
+
+
+@pytest.mark.parametrize("max_norm", [0.24, 100.0])
+def test_clip_by_global_norm_matches_optax(max_norm):
+    """0.24 clips every step (the gradients' global norm is ~3), 100 none."""
+    _optax_steps(optax.chain(optax.clip_by_global_norm(max_norm), optax.sgd(LR)),
+                 T.chain(T.clip_by_global_norm(max_norm), T.sgd(LR)))
+
+
+def test_set_to_zero_matches_optax():
+    _optax_steps(optax.chain(optax.sgd(LR), optax.set_to_zero()), T.chain(T.sgd(LR), T.set_to_zero()))
+
+
+def test_multi_transform_matches_optax():
+    """Adam with a schedule on "b", frozen (set_to_zero) "w", as the finetuning chain labels its leaves."""
+    sched, tsched = optax.cosine_onecycle_schedule(10, 0.05), T.cosine_onecycle_schedule(10, 0.05)
+    labels = {"b": "train", "w": "freeze"}
+    _optax_steps(optax.chain(optax.clip_by_global_norm(0.24),
+                             optax.multi_transform({"train": optax.adamw(sched), "freeze": optax.set_to_zero()},
+                                                   labels)),
+                 T.chain(T.clip_by_global_norm(0.24),
+                         T.multi_transform({"train": T.adamw(tsched), "freeze": T.set_to_zero()},
+                                           [labels[k] for k in sorted(SHAPES)])))
