@@ -7,7 +7,8 @@ Phases, each printed as one JSON line with its elapsed seconds:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA.
 2. build: nvcc builds every CUDA kernel of the paths from the sources
-   under maua_tpu_torch/csrc into maua_tpu_torch/_build, all at once.
+   under maua_tpu_torch/csrc into maua_tpu_torch/_build, all at once, and
+   g++ the host kernels of maua_tpu_torch/native.py beside them.
 3. kernel: the modulated-conv epilogue kernel against its plain PyTorch
    version at every epilogue shape of a 1024^2 StyleGAN2 frame batch of
    8, in each layer's dtype, on the plain route and on the space-to-depth
@@ -233,7 +234,9 @@ Phases, each printed as one JSON line with its elapsed seconds:
    discriminator` on an ADA .pkl with a D entry (config-f, seeds 0 and 1): two
    PNGs, seconds, 850 launches under autograd.
 54. gan_train_reference (after optimizers): one train step card vs CPU at
-   64^2 on the same draws (TF32 off), D and G gradients leaf by leaf; the
+   64^2 on the same draws (TF32 off, the card's convolutions on PyTorch's
+   own CUDA kernels; cuDNN's readings beside it, unbarred), D and G
+   gradients leaf by leaf; the
    kernel route against the plain route at 1024^2, beside it the plain route
    again and with every epilogue output one ulp off (sound readings the bar
    must pass; again under cuDNN's deterministic algorithms, unbarred); beside
@@ -254,7 +257,9 @@ Phases, each printed as one JSON line with its elapsed seconds:
    the same draws (full width, 2 layers, a 16 x 16 grid); one oversampled
    decode to 1.5x the native columns; one RQ encode and decode at depth 4;
    transformer logits card vs CPU.
-57. autoreg_video (after gan_train_reference): `python -m maua_tpu_torch
+57. autoreg_video (after gan_langevin_d; with autoreg_finetune, gan_icgan
+   and sd_finetune before gan_train_reference, as when its card step once
+   moved): `python -m maua_tpu_torch
    autoregressive video` (3 keyframes, 1 interpolation round, guidance
    alpha 1.5), then both stages' cached and recompute fills, equal.
 58. autoreg_finetune: `autoregressive finetune` at the CLI's config with
@@ -267,6 +272,20 @@ Phases, each printed as one JSON line with its elapsed seconds:
    the uninterrupted run; the attention kernel under autograd, 10 a step.
 61. transport (after autoreg_reference): sliced histogram transport over a
    1024^2 image and every hist_match mode, card vs CPU.
+62. codec (after writer): the e2e clip through the FFMPEG renderer with
+   pix_fmt="dct" (the DCT frame codec: calibrated and encoded on the card,
+   the packed bytes copied, the native C++ decoder on the host), batch 8,
+   read back; every frame >= 40 dB against the card's own I420 of it, the
+   card's stream against the CPU's encode of the same frames, the native
+   decode against the numpy one; calibration, encode and decode times, bytes
+   a frame against I420's; the renderer and the delivery alone, yuv420p
+   against dct in turns (P N N P); the epilogue's launches.
+63. native (after transport): the host kernels (g++, OpenMP) against their
+   plain versions, quantile_device on the card past 2^24 elements against
+   numpy, inverse_conv_device on the card, one emerging-conv round trip.
+64. profiling: profiling.py on the card: a StageTimer stage, a
+   torch.profiler trace, FlopCounterMode's count of a config-f frame against
+   sg2_frame_flops, the codec render's model-FLOPs utilization.
 Phases that upscale fail if an out-of-memory ladder took a rung past its
 first.
 
@@ -5486,16 +5505,16 @@ GAN_REF_SIZE = 64  # the train step held card vs CPU at 64^2 (channel_max 64)
 # carries the roundoff of its terms (1.58e-2 at b16.conv0, H100 80GB HBM3, 700.00 W; every other leaf <= 6.2e-4);
 # floored, G read 1.87e-4 and D 2.64e-6, and the detached (pre-repair) backward 1.08 in G
 GAN_REF_BAR = 1e-3
+GAN_REF_CUDNN_RUNS = 2  # the 64^2 step on cuDNN's default algorithms, read beside the held one, unbarred
 GAN_LEAF_FLOOR = 1e-2
 # the kernel route against the plain route on the card at 1024^2, TF32 off, floored as GAN_REF_BAR. The sound
 # readings under cuDNN's default algorithms: the kernel route 4.2e-4 to 7.9e-3 over nine runs, the plain route
 # against itself 3.9e-4 to 8.2e-4, every epilogue output one ulp off 4.3e-4 to 7.4e-3 (the spikes are b512's
 # noise strengths, sums over every pixel that take cuDNN's atomics). Wrong routes: the detached backward
 # 0.70-0.71, the noise input's gradient dropped 1.0 (at b1024's noise strengths: the floor does not hide them).
-# H100 80GB HBM3, 700.00 W. Under cuDNN's deterministic algorithms no bar can tell the routes apart: any
-# ulp-level change of the epilogue output moves the D step's fakes by 0.03 (6e-5 under the defaults), so the
-# kernel route (0.10 in D, 0.14 in G) and the sound witnesses (one ulp off and the f64 epilogue rounded once:
-# 0.009-0.058 in D, 0.016-0.041 in G) read of one order; recorded unbarred
+# H100 80GB HBM3, 700.00 W. Under cuDNN's deterministic algorithms (TF32 kept off: deterministic_kernels once let
+# cudnn.flags turn it on, which alone moved the fakes by 0.03) the kernel route read 3.8e-4, the one-ulp witness
+# 7.2e-3 and the f64 epilogue rounded once 7.1e-3, the fakes within 7.1e-5: held to the same bar
 GAN_ROUTE_BAR = 3e-2
 # one step resumed from the checkpoint against one from the state in memory, of each parameter leaf's largest
 # magnitude: the inputs are equal bit for bit (checked) and the kernels deterministic, so it reads 0
@@ -5505,10 +5524,11 @@ GAN_RESUME_BAR = 1e-5
 @contextlib.contextmanager
 def deterministic_kernels():
     """cuDNN's deterministic algorithms, and PyTorch's deterministic kernels (a warning names any op that has
-    none), within the block."""
+    none), within the block; cuDNN's TF32 setting stays the caller's (cudnn.flags would turn it on)."""
     import torch
 
-    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True):
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=torch.backends.cudnn.allow_tf32):
         torch.use_deterministic_algorithms(True, warn_only=True)
         try:
             yield
@@ -5697,15 +5717,19 @@ def run_gan_train(tmp: str):
 
 def run_gan_train_reference():
     """One train step (R1, path length and the initial blur on) card vs CPU at GAN_REF_SIZE^2 on the same
-    state and draws, TF32 off: D and G gradients leaf by leaf within GAN_REF_BAR (each over the larger of its
-    largest magnitude and GAN_LEAF_FLOOR of its network's largest gradient); beside it the card with the
-    detached (pre-repair) backward, whose reading the bar must reject. Then config-f 1024^2, batch 4, on the
+    state and draws, TF32 off, the card's convolutions on PyTorch's own CUDA kernels (on cuDNN its reading falls
+    in one of two clusters from run to run: GAN_REF_CUDNN_RUNS readings on its default algorithms and one on
+    its deterministic ones stand beside it, unbarred): D and G gradients leaf by leaf within GAN_REF_BAR (each
+    over the larger of its largest magnitude and GAN_LEAF_FLOOR of its network's largest gradient); beside it
+    the card (on cuDNN) with the detached (pre-repair) backward, whose reading the bar must reject. Then
+    config-f 1024^2, batch 4, on the
     card, TF32 off, against the plain route's gradients (the epilogue's plain version through autograd): the
     kernel route, the plain route run again (cuDNN's atomics) and the plain route with every epilogue output
     one ulp off (forward rounding alone), each within GAN_ROUTE_BAR; the detached backward and the backward with
     the noise input's gradient dropped beyond it. Beside them the D step's fakes (each epilogue output against
-    the f64 evaluation rounded once, and each route's images). Under cuDNN's deterministic algorithms the kernel
-    route, the one-ulp witness and the f64 epilogue rounded once are read again, unbarred."""
+    the f64 evaluation rounded once, and each route's images). Under cuDNN's deterministic algorithms (TF32 still
+    off) the kernel route, the one-ulp witness and the f64 epilogue rounded once are read again, within the same
+    bar."""
     import torch
 
     from maua_tpu_torch.gan import discriminator as D
@@ -5723,16 +5747,30 @@ def run_gan_train_reference():
         gen = torch.Generator().manual_seed(1)
         draws = gan_draws(g_cfg, t_cfg, GAN_TRAIN_BATCH, gen)
         real = torch.tanh(torch.randn(GAN_TRAIN_BATCH, 3, GAN_REF_SIZE, GAN_REF_SIZE, generator=gen))
-        on = {dev: gan_grads(state, real.to(dev), g_cfg, d_cfg, t_cfg, to_device(draws, dev))
-              for dev in ("cpu", "cuda")}
+        args = (real.cuda(), g_cfg, d_cfg, t_cfg, to_device(draws, "cuda"))
+        on = {"cpu": gan_grads(state, real, g_cfg, d_cfg, t_cfg, draws)}
+        # under cuDNN the card's reading falls, from run to run, on G 1.87e-4 or on 1.35e-3 (b64.conv1.weight),
+        # the second every time under its deterministic algorithms (C11 in ROADMAP.md): the held step pins the
+        # convolutions to PyTorch's own CUDA kernels (deterministic); cuDNN's readings stand beside it, unbarred
+        with torch.backends.cudnn.flags(enabled=False, allow_tf32=False):
+            on["cuda"] = gan_grads(state, *args)
         with swapped(E.ModconvEpilogue, "backward", staticmethod(detached_epilogue_backward)):
-            wrong, _ = gan_grads(state, real.cuda(), g_cfg, d_cfg, t_cfg, to_device(draws, "cuda"))
+            wrong, _ = gan_grads(state, *args)  # on cuDNN: the bar must reject it by far either way
+
+        def cudnn_g():
+            return max(leaf_rel_errs(gan_grads(state, *args)[0]["g"], on["cpu"][0]["g"], GAN_LEAF_FLOOR))
+
+        cudnn = {"default": [cudnn_g() for _ in range(GAN_REF_CUDNN_RUNS)]}
+        with deterministic_kernels():
+            cudnn["deterministic"] = cudnn_g()
     ref = on["cpu"][0]
     small = {f"{n}_max_rel_err": max(leaf_rel_errs(on["cuda"][0][n], ref[n], GAN_LEAF_FLOOR)) for n in ("d", "g")}
     small["g_worst_leaf"] = worst_leaf(leaf_rel_errs(on["cuda"][0]["g"], ref["g"], GAN_LEAF_FLOOR), state["g_params"])
     small["g_leaf_max_rel_err_unfloored"] = max(leaf_rel_errs(on["cuda"][0]["g"], ref["g"]))
     small["detached_g_max_rel_err"] = max(leaf_rel_errs(wrong["g"], ref["g"], GAN_LEAF_FLOOR))
     small["metrics"] = {dev: m for dev, (_, m) in on.items()}
+    small["card_convolutions"] = "PyTorch's CUDA kernels (cuDNN off), TF32 off"
+    small["cudnn_g_max_rel_err_unbarred"] = cudnn
     if max(small["d_max_rel_err"], small["g_max_rel_err"]) > GAN_REF_BAR or \
             small["detached_g_max_rel_err"] <= GAN_REF_BAR:
         raise AssertionError(f"gan_train_reference: card vs CPU at {GAN_REF_SIZE}^2: {small}")
@@ -5826,6 +5864,8 @@ def run_gan_train_reference():
             deterministic["forward"] = forward_reading()
     big = {"default_flags": default, "deterministic": deterministic}
     sound = [max(default[k]["d"], default[k]["g"]) for k in ("kernel", "plain_again", "plain_one_ulp_off")]
+    sound += [max(deterministic[k]["d"], deterministic[k]["g"]) for k in ("kernel", "plain_one_ulp_off",
+                                                                         "plain_rounded_once")]
     wrong = [default[k]["g"] for k in ("detached", "without_dnoise")]
     if max(sound) > GAN_ROUTE_BAR or min(wrong) <= GAN_ROUTE_BAR or default["kernel"]["launches"] == 0:
         raise AssertionError(f"gan_train_reference: kernel vs plain route at 1024^2 (bar {GAN_ROUTE_BAR}): {big}")
@@ -6355,6 +6395,297 @@ def run_transport():
     return {**out, "card_vs_cpu": errs}
 
 
+# ------------------------------------------------------------ frame codec, host kernels, profiling
+CODEC_PSNR_BAR = 40.0  # every delivered frame against the card's own I420 of it: maua_tpu's bar
+CODEC_AB_ROUTES = ("yuv420p", "dct", "dct", "yuv420p")  # the renderer's A/B: P N N P
+CODEC_AB_SECONDS = 2.0  # the renderer A/B's clip: 48 frames (the checked render takes the 3 s e2e clip)
+CODEC_CPU_FRAMES = 3  # of the first chunk's 8, encoded on the CPU too: intra and two deltas (the CPU's ~1 s a frame)
+CODEC_TIMED = 5  # timed calls of the native decode (median); the numpy decode (~1.1 s a chunk) is timed once
+
+
+@contextlib.contextmanager
+def dct_route_recorded():
+    """Within the block, keeps what the dct route of pipelined_frames handles: each batch it is given (a copy
+    on the card), the frames it hands out and the plan it calibrated."""
+    from maua_tpu_torch.ops import framecodec as FC
+    from maua_tpu_torch.ops import video as V
+
+    seen = {"batches": [], "frames": [], "codecs": []}
+    route, calibrate = V.pipelined_frames, FC.calibrate_chunk_device
+
+    def recording(batches, pix_fmt="rgb24", **kw):
+        def kept():
+            for item in batches:
+                batch = item[0] if isinstance(item, tuple) else item
+                seen["batches"].append((batch.clone(), item[1] if isinstance(item, tuple) else batch.shape[0]))
+                yield item
+
+        for f in route(kept() if pix_fmt == "dct" else batches, pix_fmt, **kw):
+            if pix_fmt == "dct":
+                seen["frames"].append(f)
+            yield f
+
+    def calibrating(*a, **k):
+        codec = calibrate(*a, **k)
+        seen["codecs"].append(codec)
+        return codec
+
+    with swapped(V, "pipelined_frames", recording), swapped(FC, "calibrate_chunk_device", calibrating):
+        yield seen
+
+
+def codec_stream_card_vs_cpu(batch, codec) -> dict:
+    """The card's chunk stream against the CPU's encode of the same uint8 frames: equal bytes, or every
+    differing quantized coefficient at a tie of the CPU's own f32 coefficient (raises otherwise)."""
+    import numpy as np
+
+    from maua_tpu_torch.ops import framecodec as FC
+
+    card = [t.cpu().numpy() for t in FC.encode_chunk(batch, codec)]
+    cpu = [t.numpy() for t in FC.encode_chunk(batch.cpu(), codec)]
+    if all(np.array_equal(a, b) for a, b in zip(card, cpu)):
+        return {"stream_bytes_differing": 0, "coefficients_at_ties": 0}
+    ties = 0
+    planes = FC._yuv_planes_device(batch.cpu())
+    ci = codec.intra
+    for pl, got, want, q in zip(planes, FC.chunk_coefficients(batch, codec), FC.chunk_coefficients(batch.cpu(), codec),
+                                (ci.qstep_y, ci.qstep_c, ci.qstep_c)):
+        diff = (got.cpu() != want).numpy()
+        if diff.any():
+            r = FC._block_dct_device(pl).numpy()[diff].astype(np.float64) / q
+            if not np.all(np.abs(r - (np.floor(r) + 0.5)) < 1e-5):
+                raise AssertionError(f"codec: the card's coefficients differ from the CPU's away from a tie: {r}")
+        ties += int(diff.sum())
+    return {"stream_bytes_differing": int(sum((a != b).sum() for a, b in zip(card, cpu))), "coefficients_at_ties": ties}
+
+
+def run_codec(wav: str, repo: str, tmp: str):
+    """The dct delivery of the e2e clip: the example StyleGAN2 patch (config-f 1024^2, seed 0, the facade's s2d
+    route) over the 3 s wav through the entry point's FFMPEG renderer with pix_fmt="dct", batch 8, into a file
+    (ffmpeg, or OpenCV without it) read back with OpenCV; the epilogue's launches counted. Every delivered frame
+    against the card's own I420 of it (PSNR >= CODEC_PSNR_BAR); the card's stream of the first chunk's first
+    CODEC_CPU_FRAMES frames against the CPU's encode of them; the native decode against the numpy decode
+    (within one gray level on under 1 % of the bytes); how many plans the route calibrated (a chunk its plan
+    does not hold is encoded again under one that does). Times: calibration on the card, encode a chunk (CUDA
+    events), native and numpy decode a chunk (host), packed bytes a frame against I420's. Then the renderer's
+    A/B, yuv420p against dct in turns (P N N P), render-stage fps over a CODEC_AB_SECONDS clip; and the
+    delivery alone (the facade's render of the 72 frames, no writer) likewise."""
+    import cv2
+    import numpy as np
+    import torch
+
+    from maua_tpu_torch import native
+    from maua_tpu_torch.audiovisual.generate import generate_audiovisual_from_patch
+    from maua_tpu_torch.gan.wrappers import StyleGAN2
+    from maua_tpu_torch.kernels import epilogue as E
+    from maua_tpu_torch.ops import framecodec as FC
+    from maua_tpu_torch.ops.video import ffmpeg_available, rgb_to_yuv420
+
+    patch = example_patch(repo, "stylegan2.py")
+
+    ab_wav = os.path.join(tmp, "codec_ab.wav")
+    synth_wav(ab_wav, seconds=CODEC_AB_SECONDS)
+
+    def render(pix_fmt, name, clip=wav):
+        stages = {}
+        path, _ = generate_audiovisual_from_patch(
+            clip, None, patch, renderer="ffmpeg",
+            renderer_kwargs={"output_file": os.path.join(tmp, "codec", f"{name}.mp4"), "batch_size": BATCH,
+                             "pix_fmt": pix_fmt},
+            fps=FPS, out_size=(1024, 1024), device="cuda", stylegan_kwargs={"seed": 0}, stage_times=stages)
+        torch.cuda.synchronize()
+        return path, stages
+
+    E.reset_launches()
+    with epilogue_cases_recorded() as cases, dct_route_recorded() as seen:
+        path, stages = render("dct", "checked")
+    launches, cells = E.launches, cases["cells"].total()
+    n_frames = round(SECONDS * FPS)
+    batches = math.ceil(n_frames / BATCH)
+    if launches != 17 * batches or cells != 4 * batches:
+        raise AssertionError(f"codec: {launches} epilogue launches ({cells} on cells), want 17 x {batches} (4 on cells)")
+    cap = cv2.VideoCapture(path)
+    count = 0
+    while cap.read()[0]:
+        count += 1
+    cap.release()
+    if count != n_frames or len(seen["frames"]) != n_frames or not seen["codecs"]:
+        raise AssertionError(f"codec: {count} frames read back, {len(seen['frames'])} delivered, "
+                             f"{len(seen['codecs'])} plans; want {n_frames}, {n_frames}, >= 1")
+    codec = seen["codecs"][0]
+    worst, k = math.inf, 0
+    for batch, n in seen["batches"]:
+        ref = rgb_to_yuv420(batch).cpu().numpy()
+        for t in range(n):
+            worst = min(worst, psnr_db(seen["frames"][k].astype(np.float64), ref[t].astype(np.float64), 255.0))
+            k += 1
+    if worst < CODEC_PSNR_BAR:
+        raise AssertionError(f"codec: a delivered frame reads {worst:.2f} dB against its I420 (bar {CODEC_PSNR_BAR})")
+    first = seen["batches"][0][0]
+    stream = codec_stream_card_vs_cpu(first[:CODEC_CPU_FRAMES], codec)
+
+    intra, deltas = (t.cpu().numpy() for t in FC.encode_chunk(first, codec))
+    via = {"native": FC.decode_chunk(intra, deltas, codec), "numpy": FC.decode_chunk(intra, deltas, codec, decoder="numpy")}
+    diff = np.abs(via["native"].astype(np.int32) - via["numpy"].astype(np.int32))
+    if diff.max() > 1 or (diff > 0).mean() >= 0.01:
+        raise AssertionError(f"codec: native vs numpy decode {int(diff.max())} levels, {(diff > 0).mean():.4f} of bytes")
+
+    def host_ms(fn, reps=CODEC_TIMED):
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times))
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    FC.calibrate_chunk_device(first)  # warm: the phase's render calibrated once already
+    calibrate_s = time.perf_counter() - t0
+    out = {
+        "frames": count, "writer": "ffmpeg" if ffmpeg_available() else "cv2", "launches": launches,
+        "s2d_launches": cells, "stage_seconds": stages, "min_psnr_db": worst, "card_vs_cpu": stream,
+        "native_vs_numpy": {"max_levels": int(diff.max()), "share_of_bytes": float((diff > 0).mean())},
+        "plan": {"chroma_step": codec.chroma_step, "esc_cap_y": codec.esc_cap_y, "esc_cap_c": codec.esc_cap_c,
+                 "order2_positions": [sum(codec.order2_y), sum(codec.order2_c)]},
+        "plans_calibrated": len(seen["codecs"]),  # 1 + the chunks the route's plan did not hold
+        "bytes_per_frame_by_plan": [c.chunk_bytes(BATCH) / BATCH for c in seen["codecs"]],
+        "calibrate_seconds": calibrate_s,
+        "encode_ms_per_chunk": cuda_time_ms(lambda: FC.encode_chunk(first, codec), iters=10),
+        "bytes_per_frame": codec.chunk_bytes(BATCH) / BATCH, "i420_bytes_per_frame": 1024 * 1024 * 3 // 2,
+        "native_decode_ms_per_chunk": host_ms(lambda: FC.decode_chunk(intra, deltas, codec)),
+        "numpy_decode_ms_per_chunk": host_ms(lambda: FC.decode_chunk(intra, deltas, codec, decoder="numpy"), 1),
+        "framecodec_simd_available": native.simd_available(), "decode_threads": torch.get_num_threads(),
+    }
+    out["bytes_ratio_i420_over_dct"] = out["i420_bytes_per_frame"] / out["bytes_per_frame"]
+    del seen, first, via
+    ab = {"yuv420p": [], "dct": []}
+    for i, pix_fmt in enumerate(CODEC_AB_ROUTES):
+        _, st = render(pix_fmt, f"ab{i}", ab_wav)
+        ab[pix_fmt].append(round(CODEC_AB_SECONDS * FPS) / st["render"])
+    out["renderer_fps"] = ab
+    out["renderer_fps_median"] = {k: float(np.median(v)) for k, v in ab.items()}
+
+    model = StyleGAN2(device="cuda", seed=0)
+    latents = model.get_w_latents(f"0-{n_frames}")
+    alone = {"yuv420p": [], "dct": []}
+    for pix_fmt in CODEC_AB_ROUTES:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in model.render(latents, batch_size=BATCH, pix_fmt=pix_fmt):
+            pass
+        alone[pix_fmt].append(n_frames / (time.perf_counter() - t0))
+    del model, latents
+    out["delivery_fps"] = alone
+    out["delivery_fps_median"] = {k: float(np.median(v)) for k, v in alone.items()}
+    out["render_seconds_dct"] = stages["render"]
+    return out
+
+
+NATIVE_QUANTILE_N = 10_000_000  # host samples of efficient_quantile's timing
+NATIVE_DEVICE_N = 2**24 + 4097  # past torch.quantile's limit
+
+
+def run_native():
+    """The host kernels against their plain versions: efficient_quantile against numpy's quantile (and
+    nanquantile), kthvalue against np.partition, inverse_conv against its Python loop (both masks, dilations 1
+    and 2); quantile_device on the card over more than 2^24 elements against numpy; inverse_conv_device on the
+    card against the host kernel; one emerging-conv round trip on the card (the forward on cuDNN, TF32 off,
+    the inverse on the host kernel)."""
+    import numpy as np
+    import torch
+
+    from maua_tpu_torch import native
+    from maua_tpu_torch.gan import models_experimental as X
+
+    rs = np.random.RandomState(0)
+    x = rs.randn(NATIVE_QUANTILE_N).astype(np.float32)
+    qs = [0.0, 0.01, 0.5, 0.99, 1.0]
+    out = {"simd_available": native.simd_available()}
+    t0 = time.perf_counter()
+    got = native.efficient_quantile(x, qs)
+    out["efficient_quantile_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    want = np.quantile(x, qs)
+    out["numpy_quantile_ms"] = (time.perf_counter() - t0) * 1e3
+    out["efficient_quantile_max_abs_err"] = float(np.abs(got - want).max())
+    xn = x[:100_000].copy()
+    xn[::10] = np.nan
+    out["nan_max_abs_err"] = float(np.abs(native.efficient_quantile(xn, qs, ignore_nan=True) - np.nanquantile(xn, qs)).max())
+    out["kthvalue_exact"] = all(native.kthvalue(x[:9973], k) == float(np.partition(x[:9973], k - 1)[k - 1])
+                                for k in (1, 17, 4986, 9973))
+    inv = 0.0
+    for is_upper in (False, True):
+        for dilation in (1, 2):
+            w = X.masked_emerging_weight(torch.Generator().manual_seed(1), 4, 3, is_upper).permute(2, 3, 1, 0).numpy()
+            z = rs.randn(1, 8, 8, 4).astype(np.float32)
+            inv = max(inv, float(np.abs(native.inverse_conv(z, w, is_upper, dilation)
+                                        - native._inverse_conv_py(z, w, is_upper, dilation)).max()))
+    out["inverse_conv_vs_python_max_abs_err"] = inv
+    big = torch.randn(NATIVE_DEVICE_N, generator=torch.Generator().manual_seed(2))
+    card = big.cuda()
+    out["quantile_device_max_abs_err"] = float(np.abs(native.quantile_device(card, qs).cpu().numpy()
+                                                      - np.quantile(big.numpy(), qs)).max())
+    out["quantile_device_ms"] = cuda_time_ms(lambda: native.quantile_device(card, qs), iters=5)
+    with tf32_off():
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        w = X.masked_emerging_weight(gen, 8, 3)
+        xc = torch.randn(2, 8, 64, 64, generator=gen, device="cuda")
+        z = X.emerging_conv(xc, w)
+        back = X.emerging_conv_inverse(z, w)
+        out["emerging_round_trip_max_abs_err"] = float((back - xc).abs().max())
+        zs = z[:1, :, :6, :5].permute(0, 2, 3, 1).contiguous()
+        wh = w.permute(2, 3, 1, 0).contiguous()
+        out["inverse_conv_device_vs_host"] = float(np.abs(native.inverse_conv_device(zs, wh).cpu().numpy()
+                                                          - native.inverse_conv(zs.cpu(), wh.cpu())).max())
+    bars = {"efficient_quantile_max_abs_err": 1e-6, "nan_max_abs_err": 1e-6, "inverse_conv_vs_python_max_abs_err": 1e-4,
+            "quantile_device_max_abs_err": 1e-5, "emerging_round_trip_max_abs_err": 1e-4,
+            "inverse_conv_device_vs_host": 1e-4}
+    if not out["kthvalue_exact"] or any(out[k] > v for k, v in bars.items()):
+        raise AssertionError(f"native: {out} (bars {bars})")
+    return out
+
+
+def run_profiling(tmp: str, codec=None):
+    """profiling.py on the card: one StageTimer stage around card work (its sync holds the stage until the
+    work ends); a torch.profiler trace written with an annotated region; FlopCounterMode's count of one
+    StyleGAN2 config-f 1024^2 frame (f32) against sg2_frame_flops; the codec render's model-FLOPs utilization
+    against the card's bf16 peak, beside the card's name and power limit."""
+    import torch
+
+    from maua_tpu_torch import profiling as P
+    from maua_tpu_torch.gan import stylegan2 as S2
+
+    a = torch.randn(4096, 4096, device="cuda")
+    timer = P.StageTimer()
+    with timer.stage("matmuls"):
+        for _ in range(20):
+            a = a @ a / 64.0
+        queued = torch.cuda.Event()
+        queued.record()
+    if not queued.query() or timer.counts["matmuls"] != 1:
+        raise AssertionError("profiling: the stage ended before its card work")
+    log_dir = os.path.join(tmp, "trace")
+    with P.trace(log_dir):
+        with P.annotate("codec_probe"):
+            (a @ a).sum().item()
+    trace = open(os.path.join(log_dir, "trace.json")).read()
+    if "codec_probe" not in trace:
+        raise AssertionError("profiling: the annotation is missing from the trace")
+    cfg = S2.SG2Config(num_fp16_res=0)
+    params = S2.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    ws = torch.randn(1, cfg.num_ws, cfg.w_dim, device="cuda")
+    with torch.no_grad():
+        counted = P.compiled_flops(S2.synthesis, params, ws, cfg, noise_mode="const")
+    analytic = P.sg2_frame_flops(cfg)
+    n_frames = round(SECONDS * FPS)
+    return {"stage_report": timer.report(), "trace_bytes": len(trace), "sg2_frame_flops": analytic,
+            "flop_counter_sg2_frame": counted, "counted_over_analytic": counted / analytic,
+            "codec_render_mfu_bf16_peak": (P.mfu(analytic * n_frames, codec["render_seconds_dct"], "bfloat16")
+                                           if codec else "not measured (the codec phase did not run)"),
+            "card": nvidia_smi()}
+
+
 def main() -> int:
     try:
         import torch
@@ -6391,7 +6722,7 @@ def main() -> int:
               "av_correlation,sd_guided,sd_paths,sd_glide,sd_animation,sd_video,flow_neural,style,style_video,"
               "epilogue_grad,gan_langevin,style_zoo,nca,video_vit,optimizers,gan_train,gan_langevin_d,"
               "gan_train_reference,autoreg,autoreg_reference,autoreg_video,autoreg_finetune,gan_icgan,sd_finetune,"
-              "transport,delivery]",
+              "transport,delivery,codec,native,profiling]",
               file=sys.stderr)
         return 2
 
@@ -6406,10 +6737,15 @@ def main() -> int:
     def build_all():
         from concurrent.futures import ThreadPoolExecutor
 
+        from maua_tpu_torch import native
+
         names = ("epilogue", "filtered_lrelu", "attention", "spectrogram", "kconv")
-        with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source, all started together
+        with ThreadPoolExecutor(len(names) + 1) as pool:  # one nvcc per source and the host g++, all started together
+            host = pool.submit(native.build)
             libs = list(pool.map(build.build, names))
-        return {"libraries": [str(p) for p in libs], "ptxas": {n: build.PTXAS_REPORT.get(n, "") for n in names}}
+            host_lib = host.result()
+        return {"libraries": [str(p) for p in libs], "host_library": str(host_lib),
+                "ptxas": {n: build.PTXAS_REPORT.get(n, "") for n in names}}
 
     phase("build", build_all)
     results = {}
@@ -6429,6 +6765,7 @@ def main() -> int:
                                  ("ar_e2e", lambda: run_ar_e2e(wav, tmp)), ("ar_features", lambda: run_ar_features(song)),
                                  ("ar_reference", lambda: ar_card_vs_cpu(song)), ("gan_load", lambda: run_gan_load(wav, repo, tmp)),
                                  ("sd_load", lambda: run_sd_load(tmp)), ("writer", lambda: run_writer(repo, tmp)),
+                                 ("codec", lambda: run_codec(wav, repo, tmp)),
                                  ("super_load", lambda: run_super_load(tmp)), ("super_video", lambda: run_super_video(tmp)),
                                  ("umx", lambda: run_umx(song)), ("noise_patch", lambda: run_noise_patch(wav, repo)),
                                  ("gan_generate", lambda: run_gan_generate(tmp)), ("ss_mir", lambda: run_ss_mir(song)),
@@ -6447,19 +6784,21 @@ def main() -> int:
                     if want(name):
                         results[name] = phase(name, fn)
                         release_memory()
-            for name, fn in (("fast", run_fast), ("profile", profile_render_batch), ("sg3_profile", profile_sg3_render_batch),
+            # the four phases that once ran before gan_train_reference when its 64^2 card step read 1.35e-3 (C11)
+            # run first again, as the witness that its card half (now a fresh process) no longer depends on them
+            for name, fn in (("autoreg_video", in_temp_dir(run_autoreg_video)),
+                             ("autoreg_finetune", in_temp_dir(run_autoreg_finetune)),
+                             ("gan_icgan", in_temp_dir(run_gan_icgan)), ("sd_finetune", in_temp_dir(run_sd_finetune)),
+                             ("fast", run_fast), ("profile", profile_render_batch), ("sg3_profile", profile_sg3_render_batch),
                              ("reference", card_vs_cpu), ("sg3_reference", sg3_card_vs_cpu), ("sd_e2e", run_sd_e2e),
                              ("sd_steps", run_sd_steps), ("sd_profile", profile_sd_step), ("sd_reference", sd_card_vs_cpu),
                              ("super", run_super), ("super_reference", super_card_vs_cpu), ("sd_multires", run_sd_multires),
                              ("sg3_resize", lambda: run_sg3_resize(sg3_reference or start_sg3_reference(ref_dir))), ("realtime", run_realtime), ("video_vit", run_video_vit),
                              ("optimizers", run_optimizers), ("gan_train_reference", run_gan_train_reference),
-                             # after gan_train_reference: the 64^2 card-vs-CPU step there has read another cuDNN
-                             # algorithm (1.35e-3 against 1.87e-4) after these phases' 25-40 GiB allocations
-                             ("autoreg_video", in_temp_dir(run_autoreg_video)),
-                             ("autoreg_finetune", in_temp_dir(run_autoreg_finetune)),
-                             ("gan_icgan", in_temp_dir(run_gan_icgan)), ("sd_finetune", in_temp_dir(run_sd_finetune)),
                              ("autoreg", run_autoreg), ("autoreg_reference", run_autoreg_reference),
-                             ("transport", run_transport), ("delivery", run_delivery)):
+                             ("transport", run_transport), ("native", run_native),
+                             ("profiling", in_temp_dir(lambda tmp: run_profiling(tmp, results.get("codec")))),
+                             ("delivery", run_delivery)):
                 if want(name):
                     results[name] = phase(name, fn)
                     release_memory()
@@ -6503,6 +6842,8 @@ def main() -> int:
         "library_ms": None,
         **{f"plain_route_{k}": kernel[f"frame_batch_{k}"] for k in ("ms", "plain_ms", "bound_ms")},
         "plain_route_launches": results["e2e"]["plain_1920x1080"]["launches"],
+        "dct_launches": results["codec"]["launches"],
+        "dct_s2d_launches": results["codec"]["s2d_launches"],
         "stylegan_param_launches": results["style_zoo"]["stylegan_adam"]["launches"],
         "langevin_launches": results["gan_langevin"]["launches"],
         "autograd_launches": {"style_zoo": results["style_zoo"]["stylegan_adam"]["launches_under_autograd"],
@@ -6528,7 +6869,8 @@ def main() -> int:
                  f"plain, b512 and b1024 on space-to-depth grids (4 launches a batch at 256 and 128 channels, 4 "
                  f"noise groups; s2d_launches counts them in e2e); plain_route_*: the same batch with every block "
                  f"plain; plain_route_launches: the e2e clip rendered to 1920 x 1080, which the output resize "
-                 f"keeps on the plain route; loaded_launches: the e2e clip rendered from an ADA .pkl (gan_load); "
+                 f"keeps on the plain route; dct_launches: the e2e clip through the FFMPEG renderer with "
+                 f"pix_fmt=\"dct\" (codec; dct_s2d_launches on cells); loaded_launches: the e2e clip rendered from an ADA .pkl (gan_load); "
                  f"noise_patch_launches: the noise-parameterization clip; selfsupervised_launches: the "
                  f"self-supervised clip (ss_e2e, s2d route; selfsupervised_s2d_launches on cells); "
                  f"interactive_launches: the interactive 8 s render to 512^2 (plain route); "

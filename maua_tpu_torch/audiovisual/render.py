@@ -25,10 +25,13 @@ class FFMPEG:
     """Stream frames into a threaded video writer (`ops/video.VideoWriter`:
     ffmpeg, or OpenCV where there is no ffmpeg binary).
 
-    Frames travel as planar I420 (`pix_fmt="yuv420p"`, half the bytes of
-    rgb24, converted on the device) unless the caller asks for rgb24; odd
-    frame sizes fall back to rgb24. (maua_tpu's default, its DCT frame
-    codec, is not ported yet.)"""
+    Frames travel as planar I420 by default (`pix_fmt="yuv420p"`, half the
+    bytes of rgb24, converted on the device). `pix_fmt="dct"` (maua_tpu's
+    default) encodes each batch with the DCT frame codec on the device, copies
+    only its packed bytes and decodes them to I420 on the host; it goes the
+    yuv420p way for sizes that are not 16-aligned. "rgb24" pipes raw RGB. Odd
+    frame sizes fall back to rgb24. The writer receives I420 for both
+    yuv420p and dct."""
 
     def __init__(self, output_file: str, fps: float = 24, audio_file: Optional[str] = None,
                  batch_size: int = 32, pix_fmt: Optional[str] = None, **writer_kwargs):
@@ -55,18 +58,19 @@ class FFMPEG:
             first = next(frame_iter)
         except ValueError as e:
             # odd frame dimensions cannot be I420: the rgb24 pipe pads them
-            if pix_fmt != "yuv420p" or "even frame dimensions" not in str(e):
+            if pix_fmt not in ("yuv420p", "dct") or "even frame dimensions" not in str(e):
                 raise
             pix_fmt = "rgb24"
             frame_iter = make_iter(pix_fmt)
             first = next(frame_iter)
-        if pix_fmt == "yuv420p":
+        writer_fmt = "yuv420p" if pix_fmt in ("yuv420p", "dct") else pix_fmt
+        if writer_fmt == "yuv420p":
             h, w = first.shape[0] * 2 // 3, first.shape[1]
         else:
             h, w = first.shape[0], first.shape[1]
         duration = latents.shape[0] / self.fps
         with VideoWriter(self.output_file, (w, h), self.fps, audio_file=self.audio_file, audio_duration=duration,
-                         value_range=(0, 255), pix_fmt=pix_fmt, **self.writer_kwargs) as video:
+                         value_range=(0, 255), pix_fmt=writer_fmt, **self.writer_kwargs) as video:
             video.write(first.tobytes())
             for frame in frame_iter:
                 video.write(frame.tobytes())

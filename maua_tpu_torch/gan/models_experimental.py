@@ -11,8 +11,8 @@ maua_tpu's distributions. GELU is the tanh approximation (jax.nn.gelu's
 default) and resizes are jax.image.resize's (`ops/warp.resize`).
 
 The emerging convolutions (`masked_emerging_weight`, `emerging_conv`,
-`emerging_conv_inverse`) serve no family; their inverse needs the native
-extension, and they wait for its port.
+`emerging_conv_inverse`) serve no family, as in maua_tpu; their inverse is
+the host kernel `maua_tpu_torch.native.inverse_conv`.
 """
 
 from __future__ import annotations
@@ -84,6 +84,41 @@ def dcgan_d(params: Dict, img: torch.Tensor) -> torch.Tensor:
     for p in params["downs"]:
         x = F.leaky_relu(F.conv2d(x, p["w"], p["b"], stride=2, padding=1), 0.2)
     return F.conv2d(x, params["out"]["w"], params["out"]["b"], padding=1).mean(dim=(2, 3))
+
+
+# -------------------------------------------- optstyle emerging convs
+def masked_emerging_weight(gen: torch.Generator, channels: int, ksize: int = 3, is_upper: bool = False) -> torch.Tensor:
+    """An autoregressive masked conv weight (OIHW) whose inverse the host kernel computes: one-sided spatial
+    taps and a triangular centre tap with a diagonal in [1, 2)."""
+    kc = (ksize - 1) // 2
+    w = _randn(gen, ksize, ksize, channels, channels) * 0.1  # HWIO while masking, as maua_tpu builds it
+    mask = torch.zeros(ksize, ksize, 1, 1, device=gen.device)
+    for kk in range(ksize):
+        for mm in range(ksize):
+            solved = (kk < kc or (kk == kc and mm < kc)) if is_upper else (kk > kc or (kk == kc and mm > kc))
+            mask[kk, mm] = float(solved)
+    ones = torch.ones(channels, channels, device=gen.device)
+    centre_mask = torch.tril(ones, -1) if is_upper else torch.triu(ones, 1)
+    w = w * mask
+    centre = _randn(gen, channels, channels) * 0.1
+    diag = 1.0 + torch.rand(channels, generator=gen, device=gen.device)
+    w[kc, kc] = centre * centre_mask + torch.diag(diag)
+    return w.permute(3, 2, 0, 1).contiguous()
+
+
+def emerging_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The forward masked conv (NCHW, OIHW weight, same padding); invertible by `emerging_conv_inverse`."""
+    return F.conv2d(x, w, padding=w.shape[-1] // 2)
+
+
+def emerging_conv_inverse(z: torch.Tensor, w: torch.Tensor, is_upper: bool = False) -> torch.Tensor:
+    """x with emerging_conv(x, w) = z, by the host kernel's raster back-substitution (`native.inverse_conv`),
+    returned on z's device."""
+    from .. import native
+
+    x = native.inverse_conv(z.detach().permute(0, 2, 3, 1).cpu(), w.detach().permute(2, 3, 1, 0).cpu(),
+                            is_upper=is_upper)
+    return torch.from_numpy(x).permute(0, 3, 1, 2).contiguous().to(z.device)
 
 
 # -------------------------------------------------- StyleHyperMixer

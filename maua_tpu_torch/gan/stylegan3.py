@@ -320,7 +320,7 @@ class StyleGAN3:
         **_ignored,  # the SG2 renderer's noises and zoom: SG3 has no noise inputs or zoom
     ) -> Iterator[np.ndarray]:
         """Yield uint8 frames, synthesized `batch_size` at a time: (H, W, C)
-        with pix_fmt "rgb24", planar I420 (3H/2, W) with "yuv420p";
+        with pix_fmt "rgb24", planar I420 (3H/2, W) with "yuv420p" and "dct";
         per-frame translation and rotation drive the Fourier input
         transform. Each batch is resized to `output_size`, if one was given,
         and `postprocess` gets it as (B, H, W, C), the layout of maua_tpu.

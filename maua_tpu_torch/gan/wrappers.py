@@ -360,7 +360,8 @@ class StyleGAN2:
         pix_fmt: str = "rgb24",
     ) -> Iterator[np.ndarray]:
         """Yield uint8 frames, synthesized `batch_size` at a time: (H, W, C)
-        with pix_fmt "rgb24", planar I420 (3H/2, W) with "yuv420p".
+        with pix_fmt "rgb24", planar I420 (3H/2, W) with "yuv420p" and "dct"
+        (the DCT frame codec: encoded on the device, decoded on the host).
         `postprocess` gets each batch as (B, H, W, C) in [-1, 1], the layout
         of maua_tpu. Frames are converted on the device and delivered by
         `ops.video.pipelined_frames`, which copies a batch while the next

@@ -8,9 +8,10 @@ read_video).
 On a CUDA tensor `pipelined_frames` overlaps the synthesis of the next
 batch with the copy of this one: each batch goes to a reused pinned host
 buffer on a copy stream that an event orders after the compute stream,
-and its frames are handed out once the copy's event has completed.
-The `dct` delivery format (the reference's `ops/framecodec.py`) is not
-ported yet.
+and its frames are handed out once the copy's event has completed. With
+`pix_fmt="dct"` each batch is encoded on its device by the DCT frame codec
+(`ops/framecodec.py`), only the packed bytes are copied, and the host's C++
+decoder turns each chunk back into I420 frames.
 """
 
 from __future__ import annotations
@@ -93,20 +94,70 @@ class _PinnedCopies:
         return frames.numpy()
 
 
-def pipelined_frames(batches, pix_fmt: str = "rgb24"):
+# leading-axis slices a fetch is split into (presplit): maua_tpu's count of parallel streams; on the card each
+# slice is one copy on the copy stream
+FETCH_STREAMS = 8
+
+
+def presplit(arr: torch.Tensor, n_streams: Optional[int] = None) -> List[torch.Tensor]:
+    """Split a tensor into leading-axis slices for fetch_slices, when the producing work is enqueued (views:
+    nothing is copied yet). Below 1 MiB, or with one stream, the tensor stays whole."""
+    n = min(FETCH_STREAMS if n_streams is None else n_streams, arr.shape[0] if arr.dim() else 1)
+    if n <= 1 or arr.numel() * arr.element_size() < (1 << 20):
+        return [arr]
+    bounds = np.linspace(0, arr.shape[0], n + 1).astype(int)
+    return [arr[a:b] for a, b in zip(bounds[:-1], bounds[1:]) if b > a]
+
+
+def submit_fetches(slices, copies: Optional[_PinnedCopies] = None) -> list:
+    """Start copying each slice to the host now: a CUDA slice into a pinned buffer of `copies` (made for the
+    call when none is given; the dct route passes its own, whose buffers it reuses) on its copy stream,
+    ordered after the work enqueued so far; a CPU slice as it is. Returns the pending copies for
+    gather_fetches."""
+    pending = []
+    for s in slices:
+        if s.is_cuda:
+            copies = copies or _PinnedCopies(s.device)
+            pending.append((copies, *copies.start(s)))
+        else:
+            pending.append((None, s, None))
+    return pending
+
+
+def gather_fetches(pending) -> np.ndarray:
+    """Wait for submitted copies and join them along the leading axis."""
+    parts = [host.detach().numpy() if copies is None else copies.finish(host, done, host.shape[0])
+             for copies, host, done in pending]
+    return parts[0] if len(parts) == 1 else np.concatenate(parts, axis=0)
+
+
+def fetch_slices(slices) -> np.ndarray:
+    """Copy presplit slices to the host and join them."""
+    return gather_fetches(submit_fetches(slices))
+
+
+def fetch_parallel(arr: torch.Tensor, n_streams: Optional[int] = None) -> np.ndarray:
+    """presplit and fetch_slices in one call."""
+    return fetch_slices(presplit(arr, n_streams))
+
+
+def pipelined_frames(batches, pix_fmt: str = "rgb24", codec_quality: float = 1.0):
     """Yield the uint8 frames of device batches in order, PIPELINE_DEPTH
     batches behind the one being synthesized.
 
     `batches` yields (B, H, W, 3) uint8 tensors, or (batch, n_valid)
     tuples whose first n_valid frames count (a padded tail). With
     pix_fmt="yuv420p" each batch is converted to planar I420 on its device
-    first (rgb_to_yuv420) and the frames are (3H/2, W). A CUDA batch is
-    copied to the host through pinned buffers on a copy stream, so
-    synthesis of the next batches overlaps the copy; a CPU batch is handed
-    out as it is."""
+    first (rgb_to_yuv420) and the frames are (3H/2, W). With pix_fmt="dct"
+    each batch is one chunk of the DCT frame codec, encoded on its device
+    and decoded on the host (`_dct_pipelined_frames`; `codec_quality`
+    scales its quantization step), and the frames are I420 as well. A CUDA
+    batch is copied to the host through pinned buffers on a copy stream,
+    so synthesis of the next batches overlaps the copy; a CPU batch is
+    handed out as it is."""
     if pix_fmt == "dct":
-        raise NotImplementedError("pix_fmt='dct' needs the frame codec (maua_tpu's ops/framecodec.py), "
-                                  "which is not ported yet; use 'yuv420p' or 'rgb24'")
+        yield from _dct_pipelined_frames(batches, codec_quality)
+        return
     if pix_fmt not in ("rgb24", "yuv420p"):
         raise ValueError(f"unknown pix_fmt {pix_fmt!r}")
     copies = None
@@ -136,6 +187,75 @@ def pipelined_frames(batches, pix_fmt: str = "rgb24"):
             yield from emit(pending.popleft())
     while pending:
         yield from emit(pending.popleft())
+
+
+def _dct_pipelined_frames(batches, quality: float):
+    """The dct delivery: each batch is one chunk of the DCT frame codec (frame 0 intra, the rest closed-loop
+    deltas). The plan is calibrated on the first batch by statistics computed on its device
+    (`framecodec.calibrate_chunk_device`); every batch is then encoded on its device, its packed bytes and
+    its clip error are copied (intra and the delta stream's presplit slices), and the host's C++ decoder
+    turns it back into I420 frames, PIPELINE_DEPTH chunks behind the one being encoded. Frames that are not
+    16-aligned go the yuv420p way instead.
+
+    A chunk whose plan does not hold it (clipping added more than CLIP_MSE_SHARE of the quantizer's own
+    error, qstep^2 / 12, to a plane of a frame) is encoded again before it is decoded: under the route's newer
+    plan if that holds it, else under a plan calibrated on the chunk itself, which the route keeps from then
+    on. maua_tpu keeps the first batch's plan and clips: on the e2e clip, whose later batches want more
+    escapes than the first batch's capacity, frames fell to 24 dB."""
+    import itertools
+
+    from . import framecodec as fc
+
+    it = iter(batches)
+    first = next(it, None)
+    if first is None:
+        return
+    fbatch = first[0] if isinstance(first, tuple) else first
+    H, W = fbatch.shape[1], fbatch.shape[2]
+    if H % 16 or W % 16:
+        yield from pipelined_frames(itertools.chain([first], it), "yuv420p")
+        return
+    plan = [fc.calibrate_chunk_device(fbatch, quality=quality)]  # the route's current plan
+    copies = _PinnedCopies(fbatch.device) if fbatch.is_cuda else None
+    pending: "collections.deque" = collections.deque()
+    for item in itertools.chain([first], it):
+        batch, n = item if isinstance(item, tuple) else (item, None)
+        intra, deltas, clip_mse = fc.encode_chunk(batch, plan[0], clip_error=True)
+        fetches = [submit_fetches(part, copies) for part in ([intra], [clip_mse.reshape(1)], presplit(deltas))]
+        pending.append((fetches, batch.shape[0] if n is None else n, batch, plan[0]))
+        if len(pending) > PIPELINE_DEPTH:
+            yield from _emit_chunk(pending.popleft(), plan, quality, copies)
+    while pending:
+        yield from _emit_chunk(pending.popleft(), plan, quality, copies)
+
+
+# the share of the quantizer's own mean squared error (qstep^2 / 12) that clipping may add to a plane of a frame
+# before the dct route encodes the chunk again under a plan that holds it (a quarter: about 1 dB at most)
+CLIP_MSE_SHARE = 0.25
+
+
+def _emit_chunk(item, plan: list, quality: float, copies: Optional[_PinnedCopies]):
+    """Wait for a chunk's copies (a chunk its plan does not hold encoded again, see _dct_pipelined_frames),
+    decode it with the native decoder and yield its first n frames."""
+    from . import framecodec as fc
+
+    (intra_f, clip_f, deltas_f), n, batch, codec = item
+
+    def holds(mse, c):
+        return float(mse) <= CLIP_MSE_SHARE * max(c.delta.qstep_y, c.delta.qstep_c) ** 2 / 12.0
+
+    if not holds(gather_fetches(clip_f)[0], codec):
+        held = False
+        if plan[0] is not codec:  # a newer plan: whether it holds this chunk
+            codec = plan[0]
+            intra, deltas, clip_mse = fc.encode_chunk(batch, codec, clip_error=True)
+            held = holds(clip_mse, codec)
+        if not held:
+            codec = plan[0] = fc.calibrate_chunk_device(batch, quality=quality)
+            intra, deltas = fc.encode_chunk(batch, codec)
+        intra_f, deltas_f = submit_fetches([intra], copies), submit_fetches(presplit(deltas), copies)
+    frames = fc.decode_chunk(gather_fetches(intra_f), gather_fetches(deltas_f), codec)
+    yield from frames[:n]
 
 
 class WriteWorker(threading.Thread):

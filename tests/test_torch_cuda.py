@@ -48,7 +48,10 @@ kernel route against the CPU's plain decode: 1e-4 absolute on images in
 [-1, 1]. An SD finetune step's gradient card vs CPU (TF32 off): 1e-3 of each
 leaf's largest magnitude, floored at 1e-7 of the largest of all (the conv
 biases before one-channel groups have a gradient of exactly 0, computed as
-f32 noise).
+f32 noise). The DCT frame codec on the card: the CPU's plan, bytes and
+delivered frames exactly (its arithmetic is elementwise f32 in a fixed
+order); the sort-based quantiles past 2^24 elements within 1e-5 of numpy's
+(positions q * (n - 1) in f32, as jnp.quantile computes them).
 """
 
 import pytest
@@ -1079,3 +1082,80 @@ def test_sd_finetune_step_gradient_through_the_kernel(cuda_device):
     top = max(float(m.abs().max()) for m in mus["cpu"])
     for got, want in zip(mus[str(cuda_device)], mus["cpu"]):
         assert float((got - want).abs().max()) <= max(1e-3 * float(want.abs().max()), 1e-7 * top)
+
+
+def codec_frames(T: int = 6, size: int = 128, seed: int = 0):
+    """A smooth crossfade between two structured images with a static texture and sparse impulses: order-2
+    positions and escapes engage at this size."""
+    import numpy as np
+
+    rs = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32)
+    a = np.stack([128 + 90 * np.sin(xx / 7.0) * np.cos(yy / 11.0), 128 + 70 * np.cos(xx / 13.0),
+                  128 + 50 * np.sin(yy / 9.0)], -1)
+    b = np.stack([128 - 80 * np.cos(xx / 9.0), 128 + 85 * np.sin((xx + yy) / 15.0), 128 - 60 * np.cos(yy / 8.0)], -1)
+    tex = rs.randn(size, size, 3).astype(np.float32) * 2.0
+    frames = []
+    for t in np.linspace(0.0, 1.0, T, dtype=np.float32):
+        s = t * t * (3.0 - 2.0 * t)
+        f = np.clip(np.round((1 - s) * a + s * b + tex), 0, 255).astype(np.uint8)
+        pts = rs.randint(0, size, size=(20, 2))
+        f[pts[:, 0], pts[:, 1]] = rs.randint(0, 256, size=(20, 3))
+        frames.append(f)
+    return torch.from_numpy(np.stack(frames))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(escape="force", order2="force"), dict(escape="force", chroma_step=2),
+                                dict(escape=False, order2=False)], ids=["order2", "chroma2", "clipped"])
+def test_codec_on_the_card_equals_the_cpu(cuda_device, kw):
+    """The frame codec's device calibration and encodes on the card give the CPU's plan and bytes: its
+    arithmetic is elementwise f32 in a fixed order (no matmul), so nothing can round differently."""
+    import numpy as np
+
+    from maua_tpu_torch.ops import framecodec as FC
+
+    frames = codec_frames()
+    plans = {d: FC.calibrate_chunk_device(frames.to(d), **kw) for d in ("cpu", cuda_device)}
+    assert plans["cpu"] == plans[cuda_device]
+    codec = plans["cpu"]
+    on = {d: [t.cpu().numpy() for t in FC.encode_chunk(frames.to(d), codec)] for d in ("cpu", cuda_device)}
+    for got, want in zip(on[cuda_device], on["cpu"]):
+        assert np.array_equal(got, want)
+    cfg = codec.intra
+    assert np.array_equal(FC.encode_frames(frames.to(cuda_device), cfg).cpu().numpy(),
+                          FC.encode_frames(frames, cfg).numpy())
+
+
+@pytest.mark.cuda
+def test_dct_delivery_on_the_card_equals_the_cpu(cuda_device):
+    """pipelined_frames(..., "dct") over card batches (a padded tail) hands out the CPU route's frames."""
+    import numpy as np
+
+    frames = codec_frames(T=10, size=64)
+
+    def batches(dev):
+        for lo in range(0, 10, 4):
+            b = frames[lo:lo + 4]
+            n = b.shape[0]
+            if n < 4:
+                b = torch.cat([b, b[-1:].repeat(4 - n, 1, 1, 1)])
+            yield b.to(dev) * 1, n
+
+    got = list(V.pipelined_frames(batches(cuda_device), "dct"))
+    want = list(V.pipelined_frames(batches("cpu"), "dct"))
+    assert len(got) == len(want) == 10 and all(np.array_equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_quantile_device_on_the_card_matches_numpy(cuda_device):
+    """Past torch.quantile's 2^24-element limit: the sort-based quantiles on the card against numpy's."""
+    import numpy as np
+
+    from maua_tpu_torch import native
+
+    x = torch.randn(2**24 + 4097, generator=torch.Generator().manual_seed(9))
+    qs = [0.0, 0.001, 0.5, 0.999, 1.0]
+    got = native.quantile_device(x.to(cuda_device), qs).cpu().numpy()
+    want = np.quantile(x.numpy(), qs)
+    assert np.allclose(got, want, atol=1e-5, rtol=0)
