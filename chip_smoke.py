@@ -268,8 +268,9 @@ Phases, each printed as one JSON line with its elapsed seconds:
    state dict, batch 8, card vs CPU; the StyleGAN2 backbone's `generate`
    and 20 `icgan_clip` steps, the epilogue under autograd.
 60. sd_finetune: SD 1.x finetuning at 512^2, batch 1: 3 steps with the EMA
-   and a 5-step validation sample; a resume from the saved state equal to
-   the uninterrupted run; the attention kernel under autograd, 10 a step.
+   and a 5-step validation sample; the attention kernel under autograd, 10 a
+   step; a resume from the saved state equal to the uninterrupted run, at a
+   cut depth (the UNet's first two levels, one residual block each).
 61. transport (after autoreg_reference): sliced histogram transport over a
    1024^2 image and every hist_match mode, card vs CPU.
 62. codec (after writer): the e2e clip through the FFMPEG renderer with
@@ -286,6 +287,25 @@ Phases, each printed as one JSON line with its elapsed seconds:
 64. profiling: profiling.py on the card: a StageTimer stage, a
    torch.profiler trace, FlopCounterMode's count of a config-f frame against
    sg2_frame_flops, the codec render's model-FLOPs utilization.
+65. serve (after autoreg_reference): `serve http` on port 0 with the GAN
+   (config-f 1024^2, seed 0, max_batch 8, warmed up), diffusion (SD 1.x at
+   512^2, max_batch 2, 8 euler steps) and upscale (RealESRGAN-x4plus)
+   services: 24 GAN requests from 6 client threads and a z payload, two
+   prompts in one batch and one alone, a 128^2 upscale, over HTTP; every PNG
+   >= 40 dB from a direct call (and its bit-equal share), 17 epilogue
+   launches a GAN batch, 10 attention launches an evaluation and 1 a decode
+   (from /healthz), every case held against the plain versions; a StyleGAN3
+   service batch, 13 filtered-lrelu launches; p50 / p95, occupancy, PNG time.
+66. export: export_generator at config-f 1024^2, batch 8, replayed in a
+   process that imports no model module (17 epilogue launches there, >= 40
+   dB from the live service, ArtifactGANService over HTTP); export_diffusion
+   at SD 1.x widths, batch 2, 2 steps: write seconds, size, 21 attention
+   launches, frames against text2img_fn's; the artifact deleted.
+67. parallel: pipeline_forward at ruDALL-E Malevich's widths (4 logical
+   stages, 4 microbatches, f32, TF32 off) against forward within 1e-4 of the
+   logits' peak; sharded_generate's tokens equal generate_tokens'; moe_apply_ep
+   over a 4-way logical expert axis (8 experts, 1024 -> 4096, top-2, 8192
+   tokens) against moe_apply; upscale_bulk_sharded on 8 frames against upscale.
 Phases that upscale fail if an out-of-memory ladder took a rung past its
 first.
 
@@ -5925,6 +5945,7 @@ ICGAN_CLIP_STEPS = 20
 ICGAN_BATCH = 8
 SD_FT_STEPS = 3
 SD_FT_SAMPLE_STEPS = 5  # LMS steps of the validation sample
+SD_FT_RESUME_DEPTH = {"channel_mult": (1, 2), "num_res_blocks": 1}  # SD1_UNET cut for the resume check
 TRANSPORT_SIZE = 1024
 TRANSPORT_ITERS = 8
 TRANSPORT_TOL = 1e-4  # covariance modes card vs CPU: of the largest magnitude
@@ -6295,14 +6316,19 @@ def run_gan_icgan(tmp: str):
 def run_sd_finetune(tmp: str):
     """SD 1.x at the CompVis v1-inference widths (random weights from seed 0), 512^2 images (64^2
     latents), batch 1, f32, cuDNN's deterministic algorithms: SD_FT_STEPS finetune steps with the EMA and
-    the validation sample once (SD_FT_SAMPLE_STEPS LMS steps); the same run as SD_FT_STEPS - 1 steps, the
-    torch.save state, and a resumed last step, which must equal the uninterrupted run. Seconds a step,
-    peak memory, the checkpoint's size and seconds, and the attention kernel's launches under autograd
-    (10 a step), each such case's dq, dk, dv held against the plain version."""
+    the validation sample once (SD_FT_SAMPLE_STEPS LMS steps). The resume check runs at a cut depth
+    (SD_FT_RESUME_DEPTH: the widths' first two levels, one residual block each; the full width's 13.75
+    GB state cost ~59 s of host I/O): SD_FT_STEPS uninterrupted steps, the same run as SD_FT_STEPS - 1
+    steps, the torch.save state, and a resumed last step, which must equal the uninterrupted run. Seconds a step, peak memory,
+    the checkpoint's size and seconds, and the attention kernel's launches under autograd (10 a step at
+    full width), each such case's dq, dk, dv held against the plain version."""
+    import dataclasses
+
     import numpy as np
     import torch
 
     from maua_tpu_torch.diffusion import finetune as DF
+    from maua_tpu_torch.diffusion.models import unet as U
     from maua_tpu_torch.diffusion.processors.stable import StableDiffusion
     from maua_tpu_torch.kernels import attention as A
 
@@ -6319,6 +6345,11 @@ def run_sd_finetune(tmp: str):
         return DF.finetune(proc, imgs, captions, n_steps=n_steps, batch_size=1, lr=1e-5, gen=gen, verbose=False,
                            **kw)
 
+    def cut_run(n_steps, gen, **kw):
+        small.unet_params = tree_map(torch.clone, small_init) if not kw.get("resume") else small.unet_params
+        return DF.finetune(small, imgs, captions, n_steps=n_steps, batch_size=1, lr=1e-5, gen=gen, verbose=False,
+                           **kw)
+
     torch.cuda.reset_peak_memory_stats()
     with det:
         A.reset_launches()
@@ -6330,28 +6361,37 @@ def run_sd_finetune(tmp: str):
             full_s = time.perf_counter() - t0
         launches, under = A.launches, sum(cases.values())
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
-        full = tree_map(lambda t: t.cpu(), list(full))
+        del full
+        proc.unet_params = None
+        del init
+        torch.cuda.empty_cache()
+        small = StableDiffusion(device="cuda", seed=0, timesteps=SD_FT_SAMPLE_STEPS, image_size=512,
+                                unet_cfg=dataclasses.replace(U.SD1_UNET, **SD_FT_RESUME_DEPTH),
+                                vae_params=proc.vae_params, text_params=proc.text_params)
+        small_init = tree_map(torch.clone, small.unet_params)
+        full = tree_map(lambda t: t.cpu(), list(cut_run(SD_FT_STEPS, torch.Generator(device="cuda").manual_seed(17))))
         ckpt = os.path.join(tmp, "sd_finetune")
         gen = torch.Generator(device="cuda").manual_seed(17)
         t0 = time.perf_counter()
-        run(SD_FT_STEPS - 1, gen, checkpoint_dir=ckpt)
+        cut_run(SD_FT_STEPS - 1, gen, checkpoint_dir=ckpt)
         torch.cuda.synchronize()
         part_s = time.perf_counter() - t0
         size_gb = os.path.getsize(os.path.join(ckpt, "finetune_last.pt")) / 1e9
         t0 = time.perf_counter()
-        resumed = run(SD_FT_STEPS, gen, checkpoint_dir=ckpt, resume=True)
+        resumed = cut_run(SD_FT_STEPS, gen, checkpoint_dir=ckpt, resume=True)
         torch.cuda.synchronize()
         resume_s = time.perf_counter() - t0
     diff = max(float((a - b.cpu()).abs().max()) for a, b in zip(_leaves(full), _leaves(list(resumed))))
-    if hooks != [(SD_FT_STEPS, (1, 512, 512, 3), True)] or diff != 0.0 or proc.unet_params is not resumed[1]:
+    if hooks != [(SD_FT_STEPS, (1, 512, 512, 3), True)] or diff != 0.0 or small.unet_params is not resumed[1]:
         raise AssertionError(f"sd_finetune: hook {hooks}, resumed run {diff} from the uninterrupted one")
     if under != 10 * SD_FT_STEPS or launches < under:
         raise AssertionError(f"sd_finetune: {launches} attention launches, {under} under autograd")
-    del full, resumed, init
-    proc.unet_params = None
+    del full, resumed, small_init
+    small.unet_params = None
     torch.cuda.empty_cache()
     return {"run_seconds": full_s, "seconds_per_step_with_sample": full_s / SD_FT_STEPS, "peak_gib": peak_gib,
             "partial_run_seconds": part_s, "resume_seconds": resume_s, "checkpoint_gb": size_gb,
+            "resume_unet": {k: list(v) if isinstance(v, tuple) else v for k, v in SD_FT_RESUME_DEPTH.items()},
             "resumed_equals_uninterrupted": True, "launches": launches, "launches_under_autograd": under,
             "gradient_cases": check_attention_gradients(cases, "sd_finetune")}
 
@@ -6686,6 +6726,429 @@ def run_profiling(tmp: str, codec=None):
             "card": nvidia_smi()}
 
 
+SERVE_CLIENTS = 6  # client threads of the GAN traffic
+SERVE_GAN_REQUESTS = 24  # seeds 0..23, truncation 1.0, 0.7 and 0.5 in turn, then one z payload
+SERVE_TRUNCATIONS = (1.0, 0.7, 0.5)
+SERVE_SD_STEPS = 8  # euler steps of each diffusion request (cut from the serve CLI's 20 for time)
+SERVE_PROMPTS = (SD_PROMPT, "a red fox in the snow")
+SERVE_PSNR_BAR = 40.0  # every served or exported frame against a direct call on the same z, psi or noise: dB
+EXPORT_SD_STEPS = 2  # euler steps in the exported SD program: two UNet evaluations show the loop
+PIPELINE_TOL = 1e-4  # pipeline_forward's logits against forward's, f32 with TF32 off: of their largest magnitude
+MOE_TOL = 1e-5  # moe_apply_ep against moe_apply, TF32 off: of the largest output magnitude
+SHARDED_TOKENS = 64  # image tokens of the sharded-generation check (cut from 1024 for time)
+BULK_FRAMES = 8  # 128^2 frames of the upscale_bulk_sharded check
+BULK_TOL = 1e-4  # upscale_bulk_sharded against upscale one image at a time, f32 with TF32 off, images in [0, 1]:
+# cuDNN picks its algorithms by batch size (23 residual blocks; 3.35e-5 in the slice's first chip call)
+
+
+def _png_rgb(png: bytes):
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    return np.asarray(Image.open(io.BytesIO(png)).convert("RGB"))
+
+
+def _frame_checks(got, want, what: str) -> dict:
+    """Each served or exported uint8 frame against its direct call: PSNR (>= SERVE_PSNR_BAR) and the share
+    of bit-equal pixels."""
+    import numpy as np
+
+    psnrs = [psnr_db(a, b, 255.0) for a, b in zip(got, want)]
+    equal = float(np.mean([np.mean(np.asarray(a) == np.asarray(b)) for a, b in zip(got, want)]))
+    if len(got) != len(want) or any(np.shape(a) != np.shape(b) for a, b in zip(got, want)) \
+            or min(psnrs) < SERVE_PSNR_BAR:
+        raise AssertionError(f"{what}: frames at {min(psnrs):.2f} dB against the direct calls, shapes "
+                             f"{[np.shape(a) for a in got[:2]]} / {[np.shape(b) for b in want[:2]]}")
+    return {"frames": len(got), "min_psnr_db": min(psnrs), "bit_equal_share": equal}
+
+
+def gan_direct(gen, zs, psis, batch: int = BATCH):
+    """The frames of (z, psi) rows through the facade directly, `batch` at a time (the tail padded by its
+    last row, as the batcher pads): mapper, the truncation lerp, synthesizer, uint8 as maua_tpu casts."""
+    import numpy as np
+    import torch
+
+    from maua_tpu_torch.serve import _find_w_avg, to_u8
+
+    w_avg = _find_w_avg(gen.params)
+    out = []
+    with torch.inference_mode():
+        for lo in range(0, len(zs), batch):
+            z, psi = np.asarray(zs[lo : lo + batch], np.float32), np.asarray(psis[lo : lo + batch], np.float32)
+            n, pad = len(z), batch - len(z)
+            z, psi = np.concatenate([z, np.repeat(z[-1:], pad, 0)]), np.concatenate([psi, np.repeat(psi[-1:], pad)])
+            ws = gen.mapper(torch.from_numpy(z).cuda())
+            ws = w_avg + torch.from_numpy(psi).cuda()[:, None, None] * (ws - w_avg)
+            out.extend(to_u8(gen.synthesizer(ws)).cpu().numpy()[:n])
+    return out
+
+
+def run_serve(tmp: str):
+    """`serve http` on the card: make_http_server on port 0 over GANImageService (config-f 1024^2, seed-0
+    weights, max_batch 8, warmed up), DiffusionImageService (SD 1.x v1-inference widths, 512^2, max_batch
+    2, SERVE_SD_STEPS euler steps) and UpscaleService (RealESRGAN-x4plus); traffic over HTTP: 24 GAN
+    requests from 6 client threads and one z payload, two prompts posted together (one batch), one of
+    them again alone, a 128^2 upscale. Every PNG against a direct call on the same z, psi or noise; the
+    epilogue's launches 17 a GAN batch and the attention kernel's 10 an evaluation and 1 a decode, from
+    /healthz's batch counts; every case either kernel met held against its plain version. Then a
+    StyleGAN3 GANImageService (config T 1024^2) batch: 13 filtered-lrelu launches. p50 / p95 latency in
+    the batcher (submit to frame) and at the clients (the HTTP round trip with the PNG), occupancy, the
+    host's PNG time."""
+    import base64
+    import io
+    import threading
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from maua_tpu_torch import serve as SV
+    from maua_tpu_torch.kernels import attention as A
+    from maua_tpu_torch.kernels import epilogue as E
+    from maua_tpu_torch.kernels import filtered_lrelu as FL
+    from maua_tpu_torch.text.clip_text import tokenize
+
+    t0 = time.perf_counter()
+    gan = SV.GANImageService(max_batch=BATCH, device="cuda")
+    sd = SV.DiffusionImageService(max_batch=2, timesteps=SERVE_SD_STEPS, sampler="euler", device="cuda")
+    up = SV.UpscaleService("RealESRGAN-x4plus", device="cuda")
+    services = {"gan": gan, "diffusion": sd, "upscale": up}
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gan.warmup()
+    sd.warmup()
+    warmup_s = time.perf_counter() - t0
+    server = SV.make_http_server(services, port=0)
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+
+    def post(name, payload):
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/v1/{name}", data=json.dumps(payload).encode(),
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            if resp.status != 200 or resp.headers["Content-Type"] != "image/png":
+                raise AssertionError(f"serve: /v1/{name} answered {resp.status} {resp.headers['Content-Type']}")
+            return resp.read()
+
+    def healthz():
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=60) as resp:
+            return json.loads(resp.read())
+
+    rs = np.random.RandomState(99)
+    z_row = rs.randn(gan.gen.z_dim).astype(np.float32)
+    small = (np.clip(rs.rand(128, 128, 3) * 0.5 + np.linspace(0, 0.5, 128)[None, :, None], 0, 1) * 255)
+    small = small.astype(np.uint8)
+    buf = io.BytesIO()
+    Image.fromarray(small).save(buf, format="PNG")
+    try:
+        before = healthz()
+        E.reset_launches()
+        A.reset_launches()
+        with epilogue_cases_recorded() as ecases, attention_cases_recorded() as acases:
+            payloads = [{"seed": s, "truncation": SERVE_TRUNCATIONS[s % 3]} for s in range(SERVE_GAN_REQUESTS)]
+            payloads.append({"z": z_row.tolist(), "truncation": 0.7})
+            def timed_post(p):
+                t = time.perf_counter()
+                png = post("gan", p)
+                return png, (time.perf_counter() - t) * 1e3
+
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(SERVE_CLIENTS) as pool:
+                gan_pngs, client_ms = zip(*pool.map(timed_post, payloads))
+            gan_s = time.perf_counter() - t0
+            with ThreadPoolExecutor(2) as pool:  # posted together: one batch of both prompts
+                pair = list(pool.map(lambda i: post("diffusion", {"text": SERVE_PROMPTS[i], "seed": i + 1}), (0, 1)))
+            alone = post("diffusion", {"text": SERVE_PROMPTS[0], "seed": 1})
+            up_png = post("upscale", {"image": base64.b64encode(buf.getvalue()).decode()})
+            torch.cuda.synchronize()
+            health = healthz()
+            e_launches, a_launches = E.launches, A.launches
+        gan_batches = health["gan"]["batches"] - before["gan"]["batches"]
+        sd_batches = health["diffusion"]["batches"] - before["diffusion"]["batches"]
+        if e_launches != 17 * gan_batches:
+            raise AssertionError(f"serve: {e_launches} epilogue launches for {gan_batches} GAN batches")
+        if a_launches != (10 * SERVE_SD_STEPS + 1) * sd_batches or sd_batches != 2:
+            raise AssertionError(f"serve: {a_launches} attention launches for {sd_batches} diffusion batches")
+        if health["diffusion"]["max_occupancy"] != 2 or health["gan"]["served"] - before["gan"]["served"] != 25:
+            raise AssertionError(f"serve: the two prompts did not share a batch or requests went missing: {health}")
+        epilogue_rows, epilogue_err = check_epilogue_cases(ecases, "serve")
+        attention_rows = check_attention_cases(acases, "serve")
+
+        gan_frames = [_png_rgb(p) for p in gan_pngs]
+        zs = [np.random.RandomState(p["seed"]).randn(gan.gen.z_dim).astype(np.float32) if "seed" in p else z_row
+              for p in payloads]
+        direct = gan_direct(gan.gen, zs, [p["truncation"] for p in payloads])
+        t0 = time.perf_counter()
+        for f in direct:
+            SV._encode_png(f)
+        png_ms = (time.perf_counter() - t0) / len(direct) * 1e3
+        gan_check = _frame_checks(gan_frames, direct, "serve gan")
+
+        proc = sd.proc
+        with torch.inference_mode():
+            sd_direct = SV.text2img_fn(proc)(tokenize(list(SERVE_PROMPTS), proc.text_cfg.context_length), [1, 2],
+                                             [proc.cfg_scale] * 2).cpu().numpy()
+        sd_check = _frame_checks([_png_rgb(p) for p in pair], list(sd_direct), "serve diffusion")
+        alone_check = _frame_checks([_png_rgb(alone)], [_png_rgb(pair[0])], "serve diffusion alone vs co-batched")
+        with torch.inference_mode():
+            up_direct = (np.clip(up.upscaler(small[None].astype(np.float32) / 255.0).cpu().numpy()[0], 0, 1)
+                         * 255.0).astype(np.uint8)
+        up_check = _frame_checks([_png_rgb(up_png)], [up_direct], "serve upscale")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+        for svc in services.values():
+            svc.close()
+    del gan, sd, up, services
+    release_memory()
+
+    sg3 = SV.GANImageService(architecture="stylegan3", max_batch=BATCH, device="cuda")
+    try:
+        sg3.warmup()
+        FL.reset_launches()
+        futs = [sg3.submit({"seed": s, "truncation": SERVE_TRUNCATIONS[s % 3]}) for s in range(BATCH)]
+        sg3_frames = [f.result(timeout=600) for f in futs]
+        torch.cuda.synchronize()
+        fl_launches, sg3_batches = FL.launches, sg3.metrics.snapshot()["batches"] - 1
+        if fl_launches != 13 * sg3_batches:
+            raise AssertionError(f"serve: {fl_launches} filtered-lrelu launches for {sg3_batches} StyleGAN3 batches")
+        zs = [np.random.RandomState(s).randn(sg3.gen.z_dim).astype(np.float32) for s in range(BATCH)]
+        sg3_check = _frame_checks(sg3_frames, gan_direct(sg3.gen, zs, [SERVE_TRUNCATIONS[s % 3] for s in range(BATCH)]),
+                                  "serve stylegan3")
+    finally:
+        sg3.close()
+    snap = health["gan"]
+    return {"build_seconds": build_s, "warmup_seconds": warmup_s, "gan_traffic_seconds": gan_s,
+            "gan_requests_per_s": len(payloads) / gan_s, "gan_p50_ms": snap["p50_ms"], "gan_p95_ms": snap["p95_ms"],
+            "gan_client_p50_ms": float(np.percentile(client_ms, 50)),
+            "gan_client_p95_ms": float(np.percentile(client_ms, 95)),
+            "gan_mean_occupancy": snap["mean_occupancy"], "gan_max_occupancy": snap["max_occupancy"],
+            "gan_batches": gan_batches, "epilogue_launches": e_launches, "diffusion_batches": sd_batches,
+            "diffusion": health["diffusion"], "attention_launches": a_launches, "png_encode_ms_1024": png_ms,
+            "gan_frames": gan_check, "diffusion_frames": sd_check, "diffusion_alone_vs_cobatched": alone_check,
+            "upscale_frame": up_check, "epilogue_cases": epilogue_rows, "epilogue_max_abs_err": epilogue_err,
+            "attention_cases": attention_rows,
+            "attention_max_abs_err": max(r["max_abs_err"] for r in attention_rows),
+            "sg3_flrelu_launches": fl_launches, "sg3_batches": sg3_batches, "sg3_frames": sg3_check}
+
+
+def export_child(artifact: str, inputs: str):
+    """Run in a fresh process: the generator artifact loaded by maua_tpu_torch.export alone (no model
+    module), one batch replayed with the epilogue's launches counted, then ArtifactGANService over HTTP."""
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from maua_tpu_torch import serve as SV
+    from maua_tpu_torch.kernels import epilogue as E
+
+    t0 = time.perf_counter()
+    svc = SV.ArtifactGANService(artifact)  # load_exported, the signature read from meta.json
+    load_s = time.perf_counter() - t0
+    data = np.load(inputs)
+    with torch.inference_mode():
+        svc._call(data["z"], data["psi"])  # the first call pays the kernel's load
+        torch.cuda.synchronize()
+        E.reset_launches()
+        t0 = time.perf_counter()
+        frames = svc._call(data["z"], data["psi"]).cpu().numpy()
+        batch_ms = (time.perf_counter() - t0) * 1e3
+    launches = E.launches
+    np.save(inputs + ".frames.npy", frames)
+    server = SV.make_http_server({"gan": svc}, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        req = urllib.request.Request(f"http://127.0.0.1:{server.server_address[1]}/v1/gan",
+                                     data=json.dumps({"seed": 0, "truncation": 1.0}).encode())
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            status, png = resp.status, resp.read()
+    finally:
+        server.shutdown()
+        server.server_close()
+        svc.close()
+    models = sorted(m for m in sys.modules if m.startswith(("maua_tpu_torch.gan", "maua_tpu_torch.diffusion")))
+    return {"load_seconds": load_s, "batch_ms": batch_ms, "launches": launches, "http_status": status,
+            "http_psnr_db_vs_replay": psnr_db(_png_rgb(png), frames[0], 255.0), "model_modules": models}
+
+
+def run_export(tmp: str):
+    """export_generator at config-f 1024^2, batch 8, truncation=None (seed-0 weights): write seconds and
+    size; the artifact loaded in a fresh process that imports no model module (export_child), its batch
+    >= 40 dB from the live service's frames and its epilogue launches counted there; ArtifactGANService
+    on it over HTTP. export_diffusion at SD 1.x widths, batch 2, EXPORT_SD_STEPS euler steps, traced and
+    saved on the host while that process runs: trace and save seconds, the artifact's size (then
+    deleted); the traced program run, its attention launches, its frames against text2img_fn's on the
+    same noise. (process_seconds: the artifact's process from launch to its result, overlapped.)"""
+    import numpy as np
+    import torch
+
+    from maua_tpu_torch import export as EX
+    from maua_tpu_torch import serve as SV
+    from maua_tpu_torch.diffusion.processors.stable import StableDiffusion
+    from maua_tpu_torch.gan.wrappers import StyleGAN2
+    from maua_tpu_torch.kernels import attention as A
+    from maua_tpu_torch.text.clip_text import tokenize
+
+    gen = StyleGAN2(device="cuda")
+    path = os.path.join(tmp, "g.pt2")
+    t0 = time.perf_counter()
+    EX.export_generator(gen, path, batch_size=BATCH)
+    gan_write_s = time.perf_counter() - t0
+    seeds = list(range(BATCH))
+    psis = [SERVE_TRUNCATIONS[s % 3] for s in seeds]
+    zs = np.stack([np.random.RandomState(s).randn(gen.z_dim).astype(np.float32) for s in seeds])
+    live = SV.GANImageService(generator=gen, max_batch=BATCH, max_wait_ms=100.0)
+    try:
+        live_frames = [f.result(timeout=600) for f in [live.submit({"seed": s, "truncation": p})
+                                                       for s, p in zip(seeds, psis)]]
+    finally:
+        live.close()
+    inputs = os.path.join(tmp, "gan_inputs.npz")
+    np.savez(inputs, z=zs, psi=np.asarray(psis, np.float32))
+    del gen
+    release_memory()
+    # the artifact's process loads and replays while this one traces and saves the SD program on the host
+    # (its trace touches no card; the SD program runs on the card only after that process has ended)
+    t_child = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--export-child", path, inputs],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        sd = StableDiffusion(device="cuda", seed=0, timesteps=EXPORT_SD_STEPS, sampler="euler", image_size=512)
+        sd_path = os.path.join(tmp, "sd.pt2")
+        fn, example = EX.diffusion_program(sd, batch_size=2)  # export_diffusion's two steps, timed apart
+        t0 = time.perf_counter()
+        program = EX.trace(fn, example)
+        sd_trace_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        EX.save_program(program, example, sd_path)
+        sd_save_s = time.perf_counter() - t0
+        sd_gb = os.path.getsize(sd_path) / 1e9
+        os.remove(sd_path)
+        out, err = proc.communicate(timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0:
+        raise RuntimeError(f"the export process failed:\n{err[-4000:]}")
+    child = {**json.loads(out.strip().splitlines()[-1]), "process_seconds": time.perf_counter() - t_child}
+    if child["launches"] != 17 or child["model_modules"] or child["http_status"] != 200 \
+            or child["http_psnr_db_vs_replay"] < SERVE_PSNR_BAR:
+        raise AssertionError(f"export: the artifact's process read {child}")
+    gan_check = _frame_checks(list(np.load(inputs + ".frames.npy")), live_frames, "export gan")
+    gan_mb = os.path.getsize(path) / 1e6
+    tokens = torch.from_numpy(tokenize(list(SERVE_PROMPTS), sd.text_cfg.context_length).astype(np.int64)).cuda()
+    scales = torch.tensor([sd.cfg_scale] * 2, device="cuda")
+    with torch.inference_mode():
+        noise = SV.seeded_noise(sd, [1, 2], "cuda").permute(0, 2, 3, 1)
+        A.reset_launches()
+        t0 = time.perf_counter()
+        got = program.module()(tokens, noise, scales).cpu().numpy()  # the written program's graph, in memory
+        sd_run_s = time.perf_counter() - t0
+        sd_launches = A.launches
+        want = SV.text2img_fn(sd)(tokens, [1, 2], scales).cpu().numpy()
+    if sd_launches != 10 * EXPORT_SD_STEPS + 1:
+        raise AssertionError(f"export: the SD program launched attention {sd_launches} times")
+    sd_check = _frame_checks(list(got), list(want), "export diffusion")
+    del program, sd
+    return {"gan_write_seconds": gan_write_s, "gan_artifact_mb": gan_mb, "gan_child": child, "gan_frames": gan_check,
+            "sd_trace_seconds": sd_trace_s, "sd_save_seconds": sd_save_s, "sd_artifact_gb": sd_gb,
+            "sd_run_seconds": sd_run_s, "sd_attention_launches": sd_launches, "sd_frames": sd_check}
+
+
+def run_parallel():
+    """The parallel layer on the card, f32 with TF32 off: pipeline_forward at ruDALL-E Malevich's widths
+    (4 logical stages on the card, 4 microbatches of one sequence) against forward; sharded_generate
+    against generate_tokens (SHARDED_TOKENS tokens, the same generator seed); moe_apply_ep over a 4-way
+    logical expert axis (8 experts, width 1024, hidden 4096, top-2, 8192 tokens) against moe_apply;
+    upscale_bulk_sharded on BULK_FRAMES frames over a 2-way logical data axis against upscale."""
+    import numpy as np
+    import torch
+
+    from maua_tpu_torch.autoregressive import transformer as T
+    from maua_tpu_torch.autoregressive.video import sharded_generate
+    from maua_tpu_torch.parallel import moe as MOE
+    from maua_tpu_torch.parallel.mesh import make_mesh
+    from maua_tpu_torch.parallel.pipeline import pipeline_forward
+    from maua_tpu_torch.super import image as SI
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    out = {}
+    with tf32_off(), torch.inference_mode():
+        cfg, _ = autoreg_configs()
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = T.init_params(cfg, gen)
+        tokens = torch.randint(0, cfg.total_vocab, (4, cfg.total_length), generator=gen, device="cuda")
+        ref, fwd_s = timed(lambda: T.forward(params, tokens, cfg))
+        pp, pp_s = timed(lambda: pipeline_forward(params, tokens, cfg, make_mesh(axes=("stage",), devices=["cuda"] * 4),
+                                                  num_microbatches=4))
+        rel = float((pp - ref).abs().max() / ref.abs().max())
+        del pp, ref
+        if rel > PIPELINE_TOL:
+            raise AssertionError(f"parallel: pipeline logits {rel:.3g} of their peak from forward's")
+        out["pipeline"] = {"logits_rel_err": rel, "forward_seconds": fwd_s, "pipeline_seconds": pp_s,
+                           "stages": 4, "microbatches": 4, "tokens": list(tokens.shape)}
+        text = tokens[:, : cfg.text_length]
+        kw = dict(top_k=AUTOREG_TOP_K, n_image_tokens=SHARDED_TOKENS)
+        want, gen_s = timed(lambda: T.generate_tokens(params, text, cfg, gen=torch.Generator(device="cuda")
+                                                      .manual_seed(3), **kw))
+        got, sharded_s = timed(lambda: sharded_generate(params, text, cfg, make_mesh(devices=["cuda"]),
+                                                        gen=torch.Generator(device="cuda").manual_seed(3), **kw))
+        if not torch.equal(got, want):
+            raise AssertionError(f"parallel: sharded tokens differ at {int((got != want).sum())} positions")
+        out["sharded_generate"] = {"tokens": list(got.shape), "equal": True, "seconds": sharded_s,
+                                   "unsharded_seconds": gen_s}
+        del params, tokens
+        release_memory()
+
+        mcfg = MOE.MoEConfig(width=1024, hidden=4096, n_experts=8, top_k=2)
+        mp = MOE.init_moe(mcfg, torch.Generator(device="cuda").manual_seed(1))
+        x = torch.randn(8192, 1024, generator=torch.Generator(device="cuda").manual_seed(2), device="cuda")
+        (dense, aux), dense_s = timed(lambda: MOE.moe_apply(mp, x, mcfg))
+        (ep, ep_aux), ep_s = timed(lambda: MOE.moe_apply_ep(mp, x, mcfg, make_mesh(axes=("expert",),
+                                                                                   devices=["cuda"] * 4)))
+        rel = float((ep - dense).abs().max() / dense.abs().max())
+        if rel > MOE_TOL or abs(float(aux) - float(ep_aux)) > 1e-6:
+            raise AssertionError(f"parallel: expert-parallel MoE {rel:.3g} of the dense peak, aux {aux} / {ep_aux}")
+        out["moe"] = {"rel_err": rel, "aux": float(aux), "aux_ep": float(ep_aux), "dense_seconds": dense_s,
+                      "ep_seconds": ep_s, "tokens": x.shape[0], "experts": mcfg.n_experts, "expert_shards": 4}
+        del mp, x, dense, ep
+
+        up = SI.Upscaler("RealESRGAN-x4plus", device="cuda")
+        rs = np.random.RandomState(5)
+        frames = [rs.rand(1, 128, 128, 3).astype(np.float32) for _ in range(BULK_FRAMES)]
+        with first_rungs_only("parallel"):
+            want, one_s = timed(lambda: list(SI.upscale(frames, model=up)))
+            got, bulk_s = timed(lambda: list(SI.upscale_bulk_sharded(frames, batch_size=3, model=up,
+                                                                     mesh=make_mesh(2, devices=["cuda"] * 2))))
+            # the same batches as the bulk path makes them (3 frames padded to 4 by the last), through the model
+            same = [up(np.concatenate(fs + fs[-1:] * (-len(fs) % 2))).cpu().numpy()[: len(fs)]
+                    for fs in (frames[i : i + 3] for i in range(0, BULK_FRAMES, 3))]
+        same = [f[None] for b in same for f in b]
+        err = max(float(np.abs(a - b).max()) for a, b in zip(got, want))
+        if len(got) != BULK_FRAMES or err > BULK_TOL or not all(np.array_equal(a, b) for a, b in zip(got, same)):
+            raise AssertionError(f"parallel: upscale_bulk_sharded {err} from upscale over {len(got)} frames, or not "
+                                 f"the model's output on its own batches")
+        out["upscale_bulk_sharded"] = {"frames": BULK_FRAMES, "max_abs_err_vs_upscale": err,
+                                       "equal_to_its_batches": True, "seconds": bulk_s, "upscale_seconds": one_s}
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -6712,6 +7175,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--ss-mir-child"] and len(sys.argv) == 3:
         print(json.dumps(ss_mir_child(sys.argv[2])))
         return 0
+    if sys.argv[1:2] == ["--export-child"] and len(sys.argv) == 4:
+        print(json.dumps(export_child(sys.argv[2], sys.argv[3])))
+        return 0
     if sys.argv[1:2] == ["--phases"] and len(sys.argv) == 3:
         phases = set(sys.argv[2].split(","))
     elif sys.argv[1:]:
@@ -6722,7 +7188,7 @@ def main() -> int:
               "av_correlation,sd_guided,sd_paths,sd_glide,sd_animation,sd_video,flow_neural,style,style_video,"
               "epilogue_grad,gan_langevin,style_zoo,nca,video_vit,optimizers,gan_train,gan_langevin_d,"
               "gan_train_reference,autoreg,autoreg_reference,autoreg_video,autoreg_finetune,gan_icgan,sd_finetune,"
-              "transport,delivery,codec,native,profiling]",
+              "transport,delivery,codec,native,profiling,serve,export,parallel]",
               file=sys.stderr)
         return 2
 
@@ -6796,6 +7262,8 @@ def main() -> int:
                              ("sg3_resize", lambda: run_sg3_resize(sg3_reference or start_sg3_reference(ref_dir))), ("realtime", run_realtime), ("video_vit", run_video_vit),
                              ("optimizers", run_optimizers), ("gan_train_reference", run_gan_train_reference),
                              ("autoreg", run_autoreg), ("autoreg_reference", run_autoreg_reference),
+                             ("serve", in_temp_dir(run_serve)), ("export", in_temp_dir(run_export)),
+                             ("parallel", run_parallel),
                              ("transport", run_transport), ("native", run_native),
                              ("profiling", in_temp_dir(lambda tmp: run_profiling(tmp, results.get("codec")))),
                              ("delivery", run_delivery)):
@@ -6856,6 +7324,10 @@ def main() -> int:
         "icgan_clip_launches": results["gan_icgan"]["icgan_clip_launches"],
         "icgan_max_abs_err": results["gan_icgan"]["epilogue_max_abs_err"],
         "train_launches": results["gan_train"]["launches"],
+        "serve_launches": results["serve"]["epilogue_launches"],
+        "serve_batches": results["serve"]["gan_batches"],
+        "serve_max_abs_err": results["serve"]["epilogue_max_abs_err"],
+        "export_launches": results["export"]["gan_child"]["launches"],
         "langevin_d_launches": results["gan_langevin_d"]["launches"],
         "second_order_cases": results["epilogue_grad"]["second_order_cases"],
         "second_order_max_rel_err": results["epilogue_grad"]["second_order_max_rel_err"],
@@ -6892,7 +7364,11 @@ def main() -> int:
                  f"smallest reading of the detached backward that the bar rejects; icgan_*: IC-GAN's StyleGAN2 "
                  f"backbone at 128^2 (gan_icgan): the launches of one `generate` of 8 images, per image, and of "
                  f"{ICGAN_CLIP_STEPS} `icgan_clip` steps (under autograd but the final images' synthesis), every "
-                 f"case of the generate held with icgan_max_abs_err and every autograd case among autograd_cases",
+                 f"case of the generate held with icgan_max_abs_err and every autograd case among autograd_cases; "
+                 f"serve_launches: `serve http`'s GANImageService at config-f 1024^2 over {SERVE_GAN_REQUESTS + 1} "
+                 f"requests in serve_batches batches (17 a batch; serve), every case held with serve_max_abs_err; "
+                 f"export_launches: one batch of {BATCH} replayed from the export_generator artifact in a process "
+                 f"that imports no model module (export)",
     }, {
         "name": "filtered_lrelu",
         "route": "cuda",
@@ -6900,6 +7376,7 @@ def main() -> int:
         "replaces": "maua_tpu/kernels/filtered_lrelu.py:361",
         "launches": results["sg3_e2e"]["launches"],
         "loaded_launches": results["gan_load"]["sg3_nvidia.pt"]["launches"],
+        "serve_launches": results["serve"]["sg3_flrelu_launches"],
         "max_abs_err": flrelu["max_abs_err"],
         "ms": flrelu["frame_batch_ms"],
         "plain_ms": flrelu["frame_batch_plain_ms"],
@@ -6907,7 +7384,8 @@ def main() -> int:
         "bound_by": flrelu["bound_by"],
         "library_ms": None,
         "scope": f"the 13 launches of one 1024^2 StyleGAN3 frame batch of {BATCH} in bf16; loaded_launches: the e2e "
-                 f"clip rendered from an NVIDIA-named .pt (gan_load)",
+                 f"clip rendered from an NVIDIA-named .pt (gan_load); serve_launches: one batch of {BATCH} of "
+                 f"`serve http --architecture stylegan3` (serve)",
     }, {
         "name": "flash_attention",
         "route": "cuda",
@@ -6955,6 +7433,9 @@ def main() -> int:
                                    + [r["max_abs_err"] for r in results["autoreg_reference"]["rq"]["attention_cases"]]),
         "sd_finetune_launches": results["sd_finetune"]["launches"],
         "sd_finetune_launches_under_autograd": results["sd_finetune"]["launches_under_autograd"],
+        "serve_launches": results["serve"]["attention_launches"],
+        "serve_max_abs_err": results["serve"]["attention_max_abs_err"],
+        "export_launches": results["export"]["sd_attention_launches"],
         "scope": f"the {10 * SD_STEPS + 1} launches of one 512^2 {SD_STEPS}-step SD 1.x image in f32 (sd_e2e's "
                  f"path, CUDA cores); bf16_*: the same launches in bf16 (the sd_steps path, tensor cores); "
                  f"loaded_launches: one {SD_LOAD_STEPS}-step image from a CompVis checkpoint (sd_load); "
@@ -6981,7 +7462,10 @@ def main() -> int:
                  f"depths 1 and 4 and one decode of a 256^2 image (autoreg_reference), every case of both within "
                  f"autoreg_max_abs_err; sd_finetune_*: {SD_FT_STEPS} SD 1.x finetune steps at 512^2 with their "
                  f"validation sample ({SD_FT_SAMPLE_STEPS} LMS steps), 10 a step under autograd, their cases among "
-                 f"autograd_cases",
+                 f"autograd_cases; serve_launches: `serve http`'s DiffusionImageService at 512^2, two batches of "
+                 f"{SERVE_SD_STEPS} euler steps (10 an evaluation, 1 a decode), every case held with "
+                 f"serve_max_abs_err; export_launches: the export_diffusion program at SD 1.x widths, batch 2, "
+                 f"{EXPORT_SD_STEPS} steps, loaded and run (export)",
     }, {
         "name": "melspectrogram",
         "route": "cuda",

@@ -1,6 +1,6 @@
 """Constant-Q / variable-Q transform, multirate with early downsampling.
 
-Port of `maua_tpu/audio/constantq.py` (vqt, cqt, decimate2,
+Port of `maua_tpu/audio/constantq.py` (vqt, cqt, pseudo_cqt, decimate2,
 wavelet_basis): per octave, the frames are correlated with that
 octave's time-domain wavelets in one matrix product, then the signal is
 halved in rate (anti-aliased) and the hop with it.
@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from .convert import cqt_frequencies, note_to_hz
-from .spectral import frame
+from .spectral import frame, stft
 
 
 @functools.lru_cache(maxsize=None)
@@ -122,3 +122,16 @@ def cqt(y: torch.Tensor, sr: float = 22050, hop_length: int = 512, fmin: Optiona
         n_bins: int = 84, bins_per_octave: int = 12, filter_scale: float = 1.0, scale: bool = True) -> torch.Tensor:
     """Constant-Q transform: the VQT with gamma 0."""
     return vqt(y, sr, hop_length, fmin, n_bins, bins_per_octave, gamma=0.0, filter_scale=filter_scale, scale=scale)
+
+
+def pseudo_cqt(y: torch.Tensor, sr: float = 22050, hop_length: int = 512, fmin: Optional[float] = None,
+               n_bins: int = 84, bins_per_octave: int = 12) -> torch.Tensor:
+    """Single-resolution CQT approximation: the magnitudes of the CQT filterbank applied to the magnitude
+    STFT at the longest filter's n_fft (librosa's pseudo_cqt), (n_bins, frames)."""
+    if fmin is None:
+        fmin = note_to_hz("C1")
+    freqs = cqt_frequencies(n_bins, fmin, bins_per_octave)
+    Q = 1.0 / (2.0 ** (1.0 / bins_per_octave) - 1)
+    basis, _, n_fft = wavelet_basis(freqs, sr, Q)
+    mag_basis = torch.as_tensor(np.abs(basis), device=y.device)
+    return mag_basis @ torch.abs(stft(y, n_fft=n_fft, hop_length=hop_length))

@@ -303,6 +303,27 @@ def generate_tokens(params: Dict, text_tokens: torch.Tensor, cfg: ARConfig, gen:
 
 
 def tp_shardings(params: Dict, mesh):
-    """maua_tpu's tensor-parallel shardings wait for the port of its parallel layer."""
-    raise NotImplementedError("tensor-parallel sharding waits for the port of maua_tpu/parallel "
-                              "(ROADMAP §A, the platform layer)")
+    """maua_tpu's tensor-parallel rule, leaf by leaf: a matrix under `qkv`, `fc1` or `head` splits its
+    output features on the mesh's `tensor` axis, (None, "tensor"); under `proj` or `fc2` its input
+    features, ("tensor", None); every other leaf is replicated, (). A tree of these specs in the shape
+    of `params` (`parallel.mesh.shard_params` places the leaves; on one device each shard is the leaf)."""
+    if "tensor" not in mesh.shape:
+        raise ValueError(f"the mesh has no 'tensor' axis: {mesh.axis_names}")
+
+    def spec(names, leaf):
+        if leaf.ndim != 2:
+            return ()
+        if {"qkv", "fc1", "head"} & set(names):
+            return (None, "tensor")
+        if {"proj", "fc2"} & set(names):
+            return ("tensor", None)
+        return ()
+
+    def walk(tree, names):
+        if isinstance(tree, dict):
+            return {k: walk(v, names + [k]) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [walk(v, names + [i]) for i, v in enumerate(tree)]
+        return spec(names, tree)
+
+    return walk(params, [])

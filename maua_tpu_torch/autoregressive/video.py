@@ -20,8 +20,9 @@ Port of `maua_tpu/autoregressive/video.py`:
 The KV-cached fill (`cached=True`, the default) prefills the given context
 once and pays one cached step per token; `cached=False` recomputes the
 prefix for every token. Both take one draw a step (see `transformer.py`) and
-sample the same tokens for the same draws. maua_tpu's tensor-parallel
-`sharded_generate*` wait for the port of its parallel layer and raise.
+sample the same tokens for the same draws. `sharded_generate*` place the
+parameters for a mesh (`transformer.tp_shardings`' rule, on the mesh's one
+device) and sample the same tokens as the unsharded functions.
 """
 
 from __future__ import annotations
@@ -201,11 +202,24 @@ def generate_video(params: Dict, text_tokens, cfg: ARConfig, vq_params: Dict, vq
     return torch.round((imgs + 1.0) * 127.5).to(torch.uint8).permute(0, 1, 3, 4, 2).cpu().numpy()
 
 
+def _shard_params(params, mesh):
+    from ..parallel.mesh import shard_params
+    from .transformer import tp_shardings
+
+    tp_shardings(params, mesh)  # maua_tpu's rule; over the mesh's one device every shard is the whole leaf
+    return shard_params(mesh, params)
+
+
 def sharded_generate(params, text_tokens, cfg: ARConfig, mesh, **kwargs):
-    raise NotImplementedError("tensor-parallel generation waits for the port of maua_tpu/parallel "
-                              "(ROADMAP §A, the platform layer)")
+    """`transformer.generate_tokens` with the parameters placed for `mesh`: the same tokens for the same
+    draws."""
+    from .transformer import generate_tokens
+
+    with mesh:
+        return generate_tokens(_shard_params(params, mesh), text_tokens, cfg, **kwargs)
 
 
 def sharded_generate_video(params, text_tokens, cfg: ARConfig, mesh, n_frames: int = 2, **kwargs):
-    raise NotImplementedError("tensor-parallel generation waits for the port of maua_tpu/parallel "
-                              "(ROADMAP §A, the platform layer)")
+    """`generate_video_tokens` with the parameters placed for `mesh`: the same tokens for the same draws."""
+    with mesh:
+        return generate_video_tokens(_shard_params(params, mesh), text_tokens, cfg, n_frames, **kwargs)

@@ -329,3 +329,14 @@ def ar_params_to_torch(jax_params: Dict, device: Optional[torch.device | str] = 
 def ar_params_to_jax(torch_params: Dict) -> Dict:
     """The port's autoregressive transformer dict -> a JAX-layout pytree of numpy arrays."""
     return _walk(torch_params, lambda name, v: np.array(v.detach().float().cpu().numpy(), order="C"))
+
+
+def moe_params_to_torch(jax_params: Dict, device: Optional[torch.device | str] = None) -> Dict:
+    """JAX mixture-of-experts FFN (`maua_tpu.parallel.moe`: router (W, E), w1 (E, W, H), b1 (E, H), w2 (E, H,
+    W), b2 (E, W)) -> the port's: the same layout, f32 tensors."""
+    return _walk(jax_params, lambda name, v: torch.from_numpy(np.array(v, np.float32, order="C")).to(device))
+
+
+def moe_params_to_jax(torch_params: Dict) -> Dict:
+    """The port's mixture-of-experts dict -> a JAX-layout dict of numpy arrays."""
+    return _walk(torch_params, lambda name, v: np.array(v.detach().float().cpu().numpy(), order="C"))

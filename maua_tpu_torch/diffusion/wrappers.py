@@ -38,8 +38,9 @@ class DiscreteSchedule:
         """Fractional timestep of each sigma (interpolation in log sigma)."""
         ls = self._log_sigmas_on.get(sigma.device)
         if ls is None:
-            ls = self._log_sigmas_on[sigma.device] = torch.tensor(self.log_sigmas, dtype=torch.float32,
-                                                                  device=sigma.device)
+            ls = torch.tensor(self.log_sigmas, dtype=torch.float32, device=sigma.device)
+            if not torch.compiler.is_compiling():  # a traced tensor (torch.export) is the trace's, not a cache's
+                self._log_sigmas_on[sigma.device] = ls
         log_sigma = torch.log(sigma.float().clamp_min(1e-10))
         dists = log_sigma[..., None] - ls
         low_idx = ((dists >= 0).sum(dim=-1) - 1).clamp(0, len(self.log_sigmas) - 2)

@@ -102,16 +102,19 @@ class ImageDataset:
     with `seed`), each batch's images read in sorted index order, augmented on the host, scaled to
     [-1, 1] and delivered as NCHW f32 on `device` (cuda unless told otherwise). With prefetch > 0 a
     background thread decodes and stages the next `prefetch` batches (a bounded queue), copying
-    through pinned host memory on a card; it stops when the consumer stops."""
+    through pinned host memory on a card; it stops when the consumer stops. With `mesh` the batches
+    are placed for its `data` axis (`parallel.mesh.shard_batch`: on the mesh's one device, which is
+    then the device)."""
 
-    def __init__(self, cache_file: str, batch_size: int, seed: int = 0, prefetch: int = 2,
+    def __init__(self, cache_file: str, batch_size: int, seed: int = 0, mesh=None, prefetch: int = 2,
                  data_augment=None, device=None):
         self.data = np.load(cache_file, mmap_mode="r")
         self.batch_size = batch_size
         self.rng = np.random.default_rng(seed)
+        self.mesh = mesh
         self.prefetch = prefetch
         self.data_augment = data_augment  # see make_data_augment
-        self.device = resolve_device(device)
+        self.device = mesh.single_device("a data-parallel batch") if mesh is not None else resolve_device(device)
 
     def __len__(self):
         return len(self.data) // self.batch_size
@@ -123,8 +126,14 @@ class ImageDataset:
             imgs = self.data_augment(imgs, self.rng)
         batch = torch.from_numpy(imgs.astype(np.float32) / 127.5 - 1.0).permute(0, 3, 1, 2).contiguous()
         if self.device.type == "cuda":
-            return batch.pin_memory().to(self.device, non_blocking=True)
-        return batch.to(self.device)
+            batch = batch.pin_memory().to(self.device, non_blocking=True)
+        else:
+            batch = batch.to(self.device)
+        if self.mesh is not None:
+            from ..parallel.mesh import shard_batch
+
+            batch = shard_batch(self.mesh, batch)
+        return batch
 
     def __iter__(self) -> Iterator[torch.Tensor]:
         order = self.rng.permutation(len(self.data))

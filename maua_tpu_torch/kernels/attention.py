@@ -24,7 +24,9 @@ tensor cores) for CUDA tensors and raises on what it does not take; CPU
 tensors take its plain PyTorch version,
 `flash_attention_plain`, which computes what the TPU kernel's bodies
 compute: f32 scores and row sums, p = exp(s - max) rounded to the input
-dtype before the p.v product, the output in q's dtype.
+dtype before the p.v product, the output in q's dtype. Both go through the
+custom op `torch.ops.maua_tpu_torch.flash_attention`
+(`flash_attention_op`), so a `torch.export` graph calls the kernel.
 
 The kernel computes the forward only. `FlashAttention`'s backward
 recomputes P = softmax(q k^T s) in f32 and returns the gradients of the
@@ -43,7 +45,9 @@ import math
 from typing import Optional
 
 import torch
-from torch.autograd import forward_ad
+
+from . import plain_on_cpu
+from . import transformed as _transformed
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 512
@@ -111,17 +115,19 @@ def _check(q, k, v):
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} and v {tuple(v.shape)} do not match")
 
 
-def _layout(t: torch.Tensor):
+def _layout(t: torch.Tensor, at_pointer: bool = True):
     """Batch, head and row strides in elements (0 along a dimension of size 1, whose stride is never used)
     where the kernel takes t's layout, else None. The kernel copies rows in 16-byte pieces: D at unit
     stride, other strides in multiples of 16 bytes (4 f32 or 8 bf16 elements; rows under 2^24 elements
-    apart), from 16-byte aligned storage."""
+    apart), from 16-byte aligned storage. Without `at_pointer` the alignment is read from the storage
+    offset (the allocator's blocks are aligned), which a traced tensor without storage also has."""
     n0, n1, n2, _ = t.shape
     s0, s1, s2, s3 = t.stride()
     strides = (0 if n0 == 1 else s0, 0 if n1 == 1 else s1, 0 if n2 == 1 else s2)
     e = t.element_size()
+    offset = t.data_ptr() if at_pointer else t.storage_offset() * e
     if s3 != 1 or strides[0] * e % 16 or strides[1] * e % 16 or strides[2] * e % 16 or strides[2] >= 2**24 \
-            or t.data_ptr() % 16:
+            or offset % 16:
         return None
     return strides
 
@@ -132,8 +138,26 @@ def flash_attention_fused(q, k, v, scale: Optional[float] = None) -> torch.Tenso
     q, k and v may be strided views, such as (B, N, H, D) viewed as
     (B, H, N, D), as long as D has unit stride; the output has q's layout."""
     _check(q, k, v)
+    if q.device.type == "cpu" and plain_on_cpu(q, k, v):
+        return flash_attention_plain(q, k, v, scale)
+    return flash_attention_op(q, k, v, _scale(q, scale))
+
+
+@torch.library.custom_op("maua_tpu_torch::flash_attention", mutates_args=())
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
+    """Flash attention as a custom op: the plain version for a CPU q, the kernel for a CUDA q."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale)
+    return _launch(q, k, v, scale)
+
+
+@flash_attention_op.register_fake
+def _(q, k, v, scale):
+    return torch.empty_like(q)
+
+
+def _launch(q, k, v, scale: float) -> torch.Tensor:
+    """The kernel's launch into a new tensor, for CUDA q, k and v."""
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(f"flash attention runs on one cuda device or on the cpu, got {q.device}, {k.device}, "
                          f"{v.device}")
@@ -159,7 +183,7 @@ def flash_attention_fused(q, k, v, scale: Optional[float] = None) -> torch.Tenso
         lay = _layout(o)
     strides = _STRIDES(*layouts[0], *layouts[1], *layouts[2], *lay)
     err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), _DTYPES[q.dtype], b, h, nq, nk, d,
-                    _scale(q, scale), strides, torch.cuda.current_stream(q.device).cuda_stream)
+                    scale, strides, torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash attention kernel launch failed: error {err}")
     global launches
@@ -179,10 +203,10 @@ def route(q_shape, k_shape) -> str:
 
 
 def _kernel_layout(t: torch.Tensor) -> torch.Tensor:
-    if _layout(t) is not None:
+    if _layout(t, at_pointer=False) is not None:
         return t
     t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
+    return t if t.storage_offset() * t.element_size() % 16 == 0 else t.clone()
 
 
 class FlashAttention(torch.autograd.Function):
@@ -234,12 +258,6 @@ class FlashAttention(torch.autograd.Function):
         if dv is not None:
             do = do + torch.matmul(p, dv.float())
         return do.to(q.dtype)
-
-
-def _transformed(*ts) -> bool:
-    """Whether a tensor is wrapped by a torch.func transform or carries a forward-mode tangent."""
-    return any(torch._C._functorch.is_functorch_wrapped_tensor(t) or forward_ad.unpack_dual(t).tangent is not None
-               for t in ts)
 
 
 def flash_attention(q, k, v, scale: Optional[float] = None) -> torch.Tensor:

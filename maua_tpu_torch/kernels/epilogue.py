@@ -15,7 +15,9 @@ The CUDA source is `maua_tpu_torch/csrc/epilogue.cu`: one pass over z,
 bound by memory bytes (read z, write y). `modconv_epilogue` launches it
 for CUDA tensors and raises on what it does not take; CPU tensors take
 the plain PyTorch version, `modconv_epilogue_plain`, which is also what
-the kernel is held against on the card. Where autograd records, the call
+the kernel is held against on the card. Both go through the custom op
+`torch.ops.maua_tpu_torch.modconv_epilogue` (`epilogue_op`), so a
+`torch.export` graph calls the kernel. Where autograd records, the call
 goes through `ModconvEpilogue`: the same forward (the launch writes an
 output with no `grad_fn`) and the plain version's autograd as its
 backward, recomputed in f32 from the saved inputs; under create_graph that
@@ -30,6 +32,8 @@ import math
 from typing import Optional
 
 import torch
+
+from . import plain_on_cpu
 
 _SQRT2 = math.sqrt(2.0)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -110,9 +114,7 @@ class ModconvEpilogue(torch.autograd.Function):
 
     @staticmethod
     def forward(z, post, noise, bias, pre_next, alpha, gain, clamp):
-        if z.device.type == "cpu":
-            return modconv_epilogue_plain(z, post, noise, bias, alpha, gain, clamp, pre_next)
-        return _launch(z, post, noise, bias, alpha, gain, clamp, pre_next)
+        return epilogue_op(z, post, noise, bias, pre_next, alpha, gain, clamp)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -150,9 +152,23 @@ def modconv_epilogue(
     inputs = [t for t in (z, post, noise, bias, pre_next) if t is not None]
     if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
         return ModconvEpilogue.apply(z, post, noise, bias, pre_next, alpha, gain, clamp)
+    if z.device.type == "cpu" and plain_on_cpu(*inputs):
+        return modconv_epilogue_plain(z, post, noise, bias, alpha, gain, clamp, pre_next)
+    return epilogue_op(z, post, noise, bias, pre_next, alpha, gain, clamp)
+
+
+@torch.library.custom_op("maua_tpu_torch::modconv_epilogue", mutates_args=())
+def epilogue_op(z: torch.Tensor, post: torch.Tensor, noise: Optional[torch.Tensor], bias: torch.Tensor,
+                pre_next: Optional[torch.Tensor], alpha: float, gain: float, clamp: Optional[float]) -> torch.Tensor:
+    """The epilogue as a custom op: the plain version for a CPU z, the kernel for a CUDA z."""
     if z.device.type == "cpu":
         return modconv_epilogue_plain(z, post, noise, bias, alpha, gain, clamp, pre_next)
     return _launch(z, post, noise, bias, alpha, gain, clamp, pre_next)
+
+
+@epilogue_op.register_fake
+def _(z, post, noise, bias, pre_next, alpha, gain, clamp):
+    return torch.empty_like(z)
 
 
 def _launch(z, post, noise, bias, alpha, gain, clamp, pre_next):

@@ -23,21 +23,22 @@ columns).
 `filtered_lrelu` launches it for CUDA tensors and raises on what it does
 not take; CPU tensors take the plain PyTorch version,
 `filtered_lrelu_plain`, which is also what the kernel is held against on
-the card.
+the card. Both go through the custom op
+`torch.ops.maua_tpu_torch.filtered_lrelu` (`filtered_lrelu_op`), so a
+`torch.export` graph calls the kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..gan import ops
-from . import refuse_autograd
+from . import plain_on_cpu, refuse_autograd
 
 _SQRT2 = math.sqrt(2.0)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -77,6 +78,8 @@ def filtered_lrelu_plain(x, up_f, down_f, up: int, down: int, pre_scale=None, pr
                          crop=None):
     """The same function in plain PyTorch ops, in f32, cast back to x's dtype
     (the `crop` window of it, contiguous)."""
+    from ..gan import ops  # imported here: an exported graph's loader imports this module, and no model module
+
     y = x.float()
     if pre_scale is not None:
         y = y * _plane_scale(pre_scale)
@@ -134,10 +137,40 @@ def filtered_lrelu(
     planes = {"pre_scale": pre_scale, "pre_add": pre_add, "post_scale": post_scale}
     _check(x, up_f, down_f, up, down, planes, crop)
     if x.device.type == "cpu":
+        if plain_on_cpu(x, pre_scale, pre_add, post_scale):
+            return filtered_lrelu_plain(x, up_f, down_f, up, down, pre_scale, pre_add, post_scale, crop)
+    else:
+        if x.device.type != "cuda":
+            raise ValueError(f"filtered_lrelu runs on cuda or cpu tensors, got {x.device}")
+        refuse_autograd("filtered_lrelu", x, pre_scale, pre_add, post_scale)
+    return filtered_lrelu_op(x, [float(f) for f in np.asarray(up_f, np.float32)],
+                             [float(f) for f in np.asarray(down_f, np.float32)], int(up), int(down),
+                             pre_scale, pre_add, post_scale, None if crop is None else [int(c) for c in crop])
+
+
+@torch.library.custom_op("maua_tpu_torch::filtered_lrelu", mutates_args=())
+def filtered_lrelu_op(x: torch.Tensor, up_f: List[float], down_f: List[float], up: int, down: int,
+                      pre_scale: Optional[torch.Tensor], pre_add: Optional[torch.Tensor],
+                      post_scale: Optional[torch.Tensor], crop: Optional[List[int]]) -> torch.Tensor:
+    """The filtered leaky ReLU as a custom op: the plain version for a CPU x, the kernel for a CUDA x."""
+    up_f, down_f = np.asarray(up_f, np.float32), np.asarray(down_f, np.float32)
+    if x.device.type == "cpu":
         return filtered_lrelu_plain(x, up_f, down_f, up, down, pre_scale, pre_add, post_scale, crop)
+    return _launch(x, up_f, down_f, up, down, pre_scale, pre_add, post_scale, crop)
+
+
+@filtered_lrelu_op.register_fake
+def _(x, up_f, down_f, up, down, pre_scale, pre_add, post_scale, crop):
+    b, c, h, w = x.shape
+    ho, wo = (h * up // down, w * up // down) if crop is None else crop[2:]
+    return x.new_empty((b, c, ho, wo))
+
+
+def _launch(x, up_f, down_f, up, down, pre_scale, pre_add, post_scale, crop):
+    """The kernel's launch into a new tensor, for a CUDA x."""
+    planes = {"pre_scale": pre_scale, "pre_add": pre_add, "post_scale": post_scale}
     if x.device.type != "cuda":
         raise ValueError(f"filtered_lrelu runs on cuda or cpu tensors, got {x.device}")
-    refuse_autograd("filtered_lrelu", x, pre_scale, pre_add, post_scale)
     if x.dtype not in _DTYPES:
         raise TypeError(f"filtered_lrelu takes float32 or bfloat16, got {x.dtype}")
     if not x.is_contiguous():

@@ -1,6 +1,6 @@
 """Out-of-memory ladders: catch the card running out of memory and retry smaller.
 
-Port of `maua_tpu/oom.py` (is_oom_error, run_with_oom_fallback). The
+Port of `maua_tpu/oom.py` (is_oom_error, run_with_oom_fallback, shrinking_batches). The
 reference walks these ladders at its loop sites (the upscaler's tile
 rungs, the diffusion pipeline's skipped super-resolution and halved tile
 batches, the GAN renderers' halved batches); the port keeps them as they
@@ -40,3 +40,12 @@ def run_with_oom_fallback(attempts: Iterable[Tuple[str, Callable]], verbose: boo
                 print(f"device OOM at {desc}; retrying smaller")
     raise last  # every rung ran out of memory
 
+
+def shrinking_batches(n: int, batch_size: int, min_batch: int = 1):
+    """Candidate batch sizes batch_size, batch_size // 2, ..., min_batch for halve-and-retry loops."""
+    b = batch_size
+    while True:
+        yield b
+        if b <= min_batch:
+            return
+        b = max(b // 2, min_batch)

@@ -1,7 +1,7 @@
 """Host-side image IO: PIL <-> NHWC float arrays.
 
-Port of `maua_tpu/ops/io.py` (img2tensor, tensor2img, save_image,
-load_image, load_images). Arrays are numpy NHWC float32; `save_image` takes [-1, 1]
+Port of `maua_tpu/ops/io.py` (img2tensor, tensor2img, tensor2imgs,
+tensor2bytes, save_image, load_image, load_images, content_hash). Arrays are numpy NHWC float32; `save_image` takes [-1, 1]
 and also accepts a torch tensor on any device. PIL is imported inside
 the functions that read or write a file.
 """
@@ -9,6 +9,7 @@ the functions that read or write a file.
 from __future__ import annotations
 
 from pathlib import Path
+from typing import List, Tuple
 
 import numpy as np
 
@@ -44,6 +45,21 @@ def tensor2img(tensor, format: str = "RGB"):
     return _pil().fromarray(arr, format if arr.ndim == 3 else "L").convert(format)
 
 
+def tensor2imgs(tensor, format: str = "RGB") -> List:
+    """(B, H, W, C) in [0, 1] -> a PIL image each."""
+    return [tensor2img(img, format) for img in _numpy(tensor)]
+
+
+def tensor2bytes(tensor, value_range: Tuple[float, float] = (0, 1)) -> bytes:
+    """(1, H, W, C) or (H, W, C) in value_range -> raw uint8 RGB bytes (a video pipe's frame)."""
+    mn, mx = value_range
+    arr = _numpy(tensor)
+    if arr.ndim == 4:
+        arr = arr[0]
+    arr = (np.clip(arr, mn, mx) - mn) / (mx - mn)
+    return np.round(arr * 255).astype(np.uint8).tobytes()
+
+
 def save_image(tensor, filename: str):
     """Save a [-1, 1] NHWC image as a file."""
     tensor2img((_numpy(tensor) + 1.0) / 2.0).save(filename)
@@ -70,3 +86,20 @@ def load_images(*inputs):
         else:
             results.append(load_image(item))
     return results
+
+
+def content_hash(obj) -> str:
+    """A cheap rolling hash of an array's contents (its first 1024 bytes, every fourth, of the min-max
+    scaled uint8 values) for cache keys; scalars and strings as their text."""
+    if isinstance(obj, (float, int, str, bool)):
+        return str(obj)
+    arr = _numpy(obj)
+    arr = arr - arr.min()
+    mx = arr.max()
+    if mx > 0:
+        arr = arr / mx
+    byte = (arr * 255).ravel().astype(np.uint8)
+    h = 0
+    for ch in byte[:1024:4]:
+        h = (h * 281 ^ int(ch) * 997) & 0xFFFFFFFF
+    return str(hex(h)[2:].upper().zfill(8))

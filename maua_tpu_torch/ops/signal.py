@@ -1,7 +1,9 @@
 """Time-axis signal ops for audio-reactive envelopes (time is axis 0).
 
-Port of `maua_tpu/ops/signal.py`: linear resampling, min-max
-normalization, peak-percentile clipping, compression, causal or
+Port of `maua_tpu/ops/signal.py`: linear resampling (`resample`, the
+reference's name, is `resample_1d`), min-max normalization, the
+reference's percentile, peak-percentile clipping, compression (and its
+alias `expand`), causal or
 circular gaussian smoothing and peak emphasis, on tensors of any device.
 """
 
@@ -26,10 +28,21 @@ def resample_1d(x: torch.Tensor, size: int) -> torch.Tensor:
     return xf[lo] * (1 - frac) + xf[hi] * frac
 
 
+# the reference's name for it
+resample = resample_1d
+
+
 def normalize(x: torch.Tensor) -> torch.Tensor:
     """Min-max normalize to [0, 1]."""
     y = x - x.min()
     return y / y.max()
+
+
+def percentile(signal: torch.Tensor, p: float) -> torch.Tensor:
+    """The k-th smallest value, k = 1 + round(0.01 * p * (n - 1)) (the reference's kthvalue rounding)."""
+    flat = signal.reshape(-1)
+    k = 1 + int(round(0.01 * float(p) * (flat.shape[0] - 1)))
+    return torch.sort(flat).values[k - 1]
 
 
 def percentile_clip(signal: torch.Tensor, percent: float = 95.0) -> torch.Tensor:
@@ -57,6 +70,10 @@ def compress(signal: torch.Tensor, threshold: float, ratio: float, invert: bool 
     """Multiply values above (below, if invert) threshold by ratio, then normalize."""
     cond = signal < threshold if invert else signal > threshold
     return normalize(torch.where(cond, signal * ratio, signal))
+
+
+def expand(signal, threshold, ratio, invert=False):
+    return compress(signal, threshold, ratio, invert)
 
 
 def _pad_time(x: torch.Tensor, radius: int, mode: str) -> torch.Tensor:

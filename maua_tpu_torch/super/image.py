@@ -10,8 +10,8 @@ dict), the official SwinIR `.pth`, waifu2x `.json`. As in the reference,
 a checkpoint that fails to load prints a warning and the model runs
 random weights (drawn from `seed`). The `latent-diffusion` entry upscales
 by lanczos x4 and a partial denoise through the LatentDiffusion processor.
-Not ported yet, and raising: `upscale_bulk_sharded` (it waits for
-`parallel/*`).
+`upscale_bulk_sharded` upscales in batches placed on a device mesh's
+`data` axis (`parallel/mesh.py`: one device, the axis logical).
 
     python -m maua_tpu_torch super image in.png --model_name RealESRGAN-x4plus --out_dir output/
 """
@@ -228,9 +228,34 @@ def upscale_image(image, model_name: str = "RealESRGAN-x4plus", model: Optional[
     return model(load_image(image) if isinstance(image, (str, Path)) else image)
 
 
-def upscale_bulk_sharded(images: Iterable, model_name: str = "RealESRGAN-x4plus", batch_size: int = 8, mesh=None):
-    raise NotImplementedError("upscale_bulk_sharded needs maua_tpu's parallel/* (the device mesh), "
-                              "which is not ported yet; use upscale")
+def upscale_bulk_sharded(images: Iterable, model_name: str = "RealESRGAN-x4plus", batch_size: int = 8, mesh=None,
+                         model: Optional[Upscaler] = None, **kw):
+    """Bulk upscaling over a device mesh: images gathered `batch_size` at a time, each batch padded by
+    repeating its last image to a multiple of the `data` axis and placed for it (`shard_batch`), one
+    upscale a batch; yields a (1, H*scale, W*scale, C) numpy array in [0, 1] per image. The mesh defaults
+    to `make_mesh()` on the model's device."""
+    from ..parallel.mesh import make_mesh, shard_batch
+
+    model = model or Upscaler(model_name, **kw)
+    mesh = mesh or make_mesh(devices=[model.device])
+    batch = []
+
+    def flush():
+        arr = np.concatenate(batch)
+        n = arr.shape[0]
+        pad = (-n) % mesh.shape["data"]
+        if pad:
+            arr = np.concatenate([arr, np.repeat(arr[-1:], pad, 0)])
+        out = model(shard_batch(mesh, torch.from_numpy(arr))).cpu().numpy()
+        return [out[i : i + 1] for i in range(n)]
+
+    for img in images:
+        batch.append(load_image(img))
+        if len(batch) >= batch_size:
+            yield from flush()
+            batch = []
+    if batch:
+        yield from flush()
 
 
 def compare(image, model_names=None, out_dir: str = "output/comparison", **kw):

@@ -203,7 +203,8 @@ def encode_text(params: Dict, tokens, cfg: CLIPTextConfig = CLIPTextConfig()) ->
     conditioning tensor (FrozenCLIPEmbedder semantics)."""
     dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
     emb = params["token_embedding"]
-    tokens = torch.as_tensor(np.asarray(tokens), dtype=torch.long, device=emb.device)
+    tokens = tokens.to(device=emb.device, dtype=torch.long) if isinstance(tokens, torch.Tensor) \
+        else torch.as_tensor(np.asarray(tokens), dtype=torch.long, device=emb.device)
     x = emb[tokens].to(dtype)
     x = x + params["positional_embedding"][: x.shape[1]].to(dtype)
     n, length, w = x.shape

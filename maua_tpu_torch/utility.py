@@ -1,12 +1,20 @@
-"""Device selection, stage timing, prompt and CLI kwarg parsing and the
-model directory shared by the port's entry points."""
+"""Device selection, stage timing, prompt and CLI kwarg parsing, seeding,
+hashing and the model directory shared by the port's entry points.
+
+Port of `maua_tpu/utility.py` but its `download` and `fetch` (there is no
+network) and `enable_compilation_cache` (XLA's)."""
 
 from __future__ import annotations
 
+import hashlib
 import os
+import random
+import tarfile
 import time
+import zipfile
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 # where checkpoints are looked up by file name, as in maua_tpu
@@ -121,3 +129,63 @@ def parse_kwarg_list(items) -> dict:
             raise ValueError(f"unsupported kwarg type {t!r} (one of {sorted(casts)})")
         out[k] = casts[t](v)
     return out
+
+
+def name(s: str) -> str:
+    """Basename without extension."""
+    return s.split("/")[-1].split(".")[0]
+
+
+def _host(x) -> np.ndarray:
+    return x.detach().float().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def info(x, y=None, label=None):
+    """Print min / mean / max / shape of one or two arrays or tensors."""
+    x = _host(x)
+    parts = [] if label is None else [label]
+    parts += [f"{x.min():.2f}", f"{float(x.mean()):.2f}", f"{x.max():.2f}", tuple(x.shape)]
+    if y is not None:
+        y = _host(y)
+        parts += [f"{y.min():.2f}", f"{float(y.mean()):.2f}", f"{y.max():.2f}", tuple(y.shape)]
+    print(*parts)
+
+
+def seed_everything(seed: int):
+    """Seed Python, numpy and torch's default generators (every device's)."""
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+
+
+def rng(seed: int, device="cpu") -> torch.Generator:
+    """A torch.Generator seeded with `seed` on `device` (the port draws from explicit generators)."""
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def unzip(file: str, path: str):
+    """Extract a .tar.gz, .tar or .zip archive into `path`."""
+    if file.endswith("tar.gz"):
+        with tarfile.open(file, "r:gz") as tar:
+            tar.extractall(path)
+    elif file.endswith("tar"):
+        with tarfile.open(file, "r:") as tar:
+            tar.extractall(path)
+    elif file.endswith("zip"):
+        with zipfile.ZipFile(file) as zf:
+            zf.extractall(path)
+
+
+def content_hash(*arrays, length: int = 16) -> str:
+    """A stable content hash (blake2b) of arrays, tensors and strings, for cache keys: each array's
+    shape, dtype and bytes (a tensor's as numpy holds them)."""
+    h = hashlib.blake2b(digest_size=length)
+    for a in arrays:
+        if isinstance(a, (str, bytes)):
+            h.update(a.encode() if isinstance(a, str) else a)
+        else:
+            arr = a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+            h.update(str(arr.shape).encode())
+            h.update(str(arr.dtype).encode())
+            h.update(np.ascontiguousarray(arr).tobytes())
+    return h.hexdigest()

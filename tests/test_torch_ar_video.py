@@ -158,8 +158,12 @@ def test_generate_video_frames(ar, vq):
     got = TVID.generate_video(tparams, text, cfg, tvparams, vcfg, n_keyframes=3, top_k=9, draw=draws_of(gumbels))
     assert got.shape == want.shape == (5, 1, 8, 8, 3) and got.dtype == np.uint8
     assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
-    with pytest.raises(NotImplementedError, match="platform layer"):
-        TVID.sharded_generate(tparams, text, cfg, None)
+    from maua_tpu_torch.autoregressive import transformer as TT
+    from maua_tpu_torch.parallel.mesh import make_mesh
+
+    sharded = TVID.sharded_generate(tparams, text, cfg, make_mesh(devices=["cpu"]), top_k=9, draw=draws_of(gumbels))
+    np.testing.assert_array_equal(sharded.numpy(), TT.generate_tokens(tparams, text, cfg, top_k=9,
+                                                                        draw=draws_of(gumbels)).numpy())
 
 
 def test_video_command(tmp_path):

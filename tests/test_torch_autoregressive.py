@@ -260,8 +260,10 @@ def test_generate_from_a_generator_is_reproducible(ar):
     b = TT.generate_tokens(tparams, text, cfg, torch.Generator().manual_seed(3), top_k=8, cached=False)
     assert a.shape == (2, TINY.image_length) and int(a.min()) >= 0 and int(a.max()) < TINY.vocab_size
     np.testing.assert_array_equal(a.numpy(), b.numpy())
-    with pytest.raises(NotImplementedError, match="platform layer"):
-        TT.tp_shardings(tparams, None)
+    from maua_tpu_torch.parallel.mesh import make_mesh
+
+    specs = TT.tp_shardings(tparams, make_mesh(devices=["cpu"]))  # tests/test_torch_parallel.py: leaf by leaf
+    assert specs["blocks"][0]["qkv"]["w"] == (None, "tensor") and specs["blocks"][0]["fc2"]["w"] == ("tensor", None)
 
 
 # ------------------------------------------------------------------ oversampling and masks

@@ -51,7 +51,9 @@ biases before one-channel groups have a gradient of exactly 0, computed as
 f32 noise). The DCT frame codec on the card: the CPU's plan, bytes and
 delivered frames exactly (its arithmetic is elementwise f32 in a fixed
 order); the sort-based quantiles past 2^24 elements within 1e-5 of numpy's
-(positions q * (n - 1) in f32, as jnp.quantile computes them).
+(positions q * (n - 1) in f32, as jnp.quantile computes them). The kernels'
+custom ops (what a torch.export graph calls) and an exported program of each,
+saved and loaded, are held to their wrappers' bars at f32, one launch a call.
 """
 
 import pytest
@@ -1159,3 +1161,85 @@ def test_quantile_device_on_the_card_matches_numpy(cuda_device):
     got = native.quantile_device(x.to(cuda_device), qs).cpu().numpy()
     want = np.quantile(x.numpy(), qs)
     assert np.allclose(got, want, atol=1e-5, rtol=0)
+
+
+# ------------------------------------------------------------------ the custom ops and serving (platform layer)
+def _op_cases(device):
+    gen = torch.Generator(device=device).manual_seed(0)
+
+    def rnd(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device=device).to(dtype)
+
+    up_f, down_f = _lowpass(12, 6.0, 64.0, 32.0), _lowpass(12, 3.0, 32.0, 16.0)
+    z, post, noise, bias = rnd(2, 32, 16, 16), rnd(2, 32), rnd(1, 1, 16, 16), rnd(32)
+    q, k, v = rnd(1, 2, 256, 64), rnd(1, 2, 256, 64), rnd(1, 2, 256, 64)
+    x = rnd(2, 4, 16, 16)
+    return [
+        ("modconv_epilogue", E, lambda: E.epilogue_op(z, post, noise, bias, None, 0.2, 2 ** 0.5, 256.0),
+         lambda: E.modconv_epilogue_plain(z, post, noise, bias), (z, post, noise, bias), 1e-5),
+        ("flash_attention", A, lambda: A.flash_attention_op(q, k, v, 0.125),
+         lambda: A.flash_attention_plain(q, k, v, 0.125), (q, k, v), 1e-4),
+        ("filtered_lrelu", FL, lambda: FL.filtered_lrelu_op(x, [float(f) for f in up_f], [float(f) for f in down_f],
+                                                          2, 2, None, None, None, None),
+         lambda: FL.filtered_lrelu_plain(x, up_f, down_f, 2, 2), (x,), 1e-4),
+    ]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [0, 1, 2])
+def test_custom_op_launches_its_kernel_on_the_card(cuda_device, case):
+    name, module, op, plain, _, tol = _op_cases(cuda_device)[case]
+    module.reset_launches()
+    got, want = op(), plain()
+    assert module.launches == 1, name
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [0, 1, 2])
+def test_exported_graph_calls_the_kernel(cuda_device, case, tmp_path):
+    """A torch.export program of each op, saved and loaded, launches the kernel when it runs on the card."""
+    from maua_tpu_torch import export as EX
+
+    name, module, _, plain, inputs, tol = _op_cases(cuda_device)[case]
+    wrappers = {
+        "modconv_epilogue": lambda z, post, noise, bias: E.modconv_epilogue(z, post, noise, bias),
+        "flash_attention": lambda q, k, v: A.flash_attention_fused(q, k, v, 0.125),
+        "filtered_lrelu": lambda x: FL.filtered_lrelu(x, _lowpass(12, 6.0, 64.0, 32.0), _lowpass(12, 3.0, 32.0, 16.0),
+                                                      2, 2),
+    }
+    path = EX.export_fn(wrappers[name], inputs, str(tmp_path / f"{name}.pt2"))
+    call = EX.load_exported(path)
+    module.reset_launches()
+    got = call(*inputs)
+    assert module.launches == 1, name
+    torch.testing.assert_close(got, plain(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_gan_service_batches_run_bare_on_the_worker_thread(cuda_device):
+    """The batcher's worker starts with grad enabled (grad mode is thread-local): the service enters
+    inference mode itself, so its kernels launch bare and no autograd graph is recorded."""
+    from maua_tpu_torch import serve as SV
+    from maua_tpu_torch.gan import stylegan2 as TG
+    from maua_tpu_torch.gan import wrappers as TGW
+
+    gen = TGW.StyleGAN2(cfg=TG.SG2Config(img_resolution=32, z_dim=16, w_dim=16, channel_base=1024, channel_max=32,
+                                         num_fp16_res=0), device=cuda_device)
+    outs = []
+    synth = gen.synthesizer
+
+    def spy(ws, **kw):
+        out = synth(ws, **kw)
+        outs.append((out.is_inference(), out.requires_grad, out.grad_fn))
+        return out
+
+    gen.synthesizer = spy
+    svc = SV.GANImageService(generator=gen, max_batch=4, max_wait_ms=10.0)
+    try:
+        E.reset_launches()
+        frame = svc.submit({"seed": 2}).result(timeout=300)
+    finally:
+        svc.close()
+    assert frame.shape == (32, 32, 3) and outs == [(True, False, None)]
+    assert E.launches == 7  # b4 conv1 and two convs in each of b8, b16 and b32

@@ -470,13 +470,23 @@ def test_generate_needs_a_card_unless_told_otherwise(monkeypatch):
 
 
 def test_port_imports_neither_jax_nor_maua_tpu():
-    """Import every module of the port, and chip_smoke.py, in a fresh
-    interpreter; neither jax, optax, orbax nor any maua_tpu module may be loaded."""
+    """Import every module of the port (the platform layer's among them), and chip_smoke.py, in a fresh
+    interpreter; neither jax, optax, orbax nor any maua_tpu module may be loaded. The exported-artifact
+    loader alone loads the kernels' ops and no model module."""
     code = (
         "import importlib, pkgutil, sys\n"
+        "from maua_tpu_torch import export\n"
+        "export.register_kernel_ops()\n"
+        "models = [k for k in sys.modules if k.startswith(('maua_tpu_torch.gan', 'maua_tpu_torch.diffusion'))]\n"
+        "assert not models, models\n"
         "import maua_tpu_torch\n"
-        "for m in pkgutil.walk_packages(maua_tpu_torch.__path__, 'maua_tpu_torch.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "names = [m.name for m in pkgutil.walk_packages(maua_tpu_torch.__path__, 'maua_tpu_torch.')]\n"
+        "platform = ['maua_tpu_torch.' + n for n in ('serve', 'export', 'parallel.mesh', 'parallel.moe',\n"
+        "            'parallel.pipeline', 'cli.entrypoint', 'dataset.laion_clip_retrieval', 'dataset.multicrop',\n"
+        "            'dataset.ranker')]\n"
+        "assert set(platform) <= set(names), sorted(set(platform) - set(names))\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
         "import chip_smoke\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'maua_tpu', 'optax', 'orbax')]\n"
         "assert not bad, bad\n"

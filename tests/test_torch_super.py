@@ -339,14 +339,16 @@ def test_upscaler_oom_ladder(tiny_registry, rrdb, monkeypatch, capsys):
 
 
 def test_not_ported_entries_raise(monkeypatch):
-    """upscale_bulk_sharded still raises; the latent-diffusion entry now builds its processor
-    (tests/test_torch_guided_diffusion.py holds it against maua_tpu at a tiny size)."""
+    """upscale_bulk_sharded now runs over a mesh (tests/test_torch_platform.py holds it against upscale);
+    the latent-diffusion entry builds its processor (tests/test_torch_guided_diffusion.py holds it against
+    maua_tpu at a tiny size); an unknown name raises."""
     built = {}
     monkeypatch.setattr(TI, "_LDMUpscale", lambda **kw: built.update(kw) or (lambda img: img))
     up = TI.Upscaler("latent-diffusion", device="cpu", seed=3)
     assert up.scale == 4 and built == {"device": torch.device("cpu"), "seed": 3}
-    with pytest.raises(NotImplementedError, match="parallel"):
-        TI.upscale_bulk_sharded([np.zeros((1, 8, 8, 3), np.float32)])
+    (out,) = TI.upscale_bulk_sharded([np.zeros((1, 8, 8, 3), np.float32)], model_name="waifu2x-anime-noise0",
+                                     device="cpu")
+    assert out.shape == (1, 16, 16, 3)
     with pytest.raises(ValueError):
         TI.Upscaler("no-such-model", device="cpu")
 
