@@ -6,7 +6,7 @@
 Phases, each printed as one JSON line with its elapsed seconds:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA.
-2. build: nvcc builds every CUDA kernel of the paths from the sources
+2. build: nvcc builds every CUDA kernel of the paths from the six sources
    under maua_tpu_torch/csrc into maua_tpu_torch/_build, all at once, and
    g++ the host kernels of maua_tpu_torch/native.py beside them.
 3. kernel: the modulated-conv epilogue kernel against its plain PyTorch
@@ -306,6 +306,21 @@ Phases, each printed as one JSON line with its elapsed seconds:
    logits' peak; sharded_generate's tokens equal generate_tokens'; moe_apply_ep
    over a 4-way logical expert axis (8 experts, 1024 -> 4096, top-2, 8192
    tokens) against moe_apply; upscale_bulk_sharded on 8 frames against upscale.
+68. int8 (after fast): the W8A8 plans. StyleGAN2 config-f 1024^2 (seed 0,
+   bf16 top resolutions): make_fast_synthesis(int8=True) (calibration
+   seconds), one batch of 8 with noise and motion on int8 cells: 17
+   epilogue launches (4 on cells, 2 int8-out) and 4 conv_i8; StyleGAN3
+   config T 1024^2 (bf16 trunk): quantize_sg3, one batch of 8: 13
+   filtered-lrelu and 13 conv_i8 launches; any other count fails. Each
+   route's PSNR against the f32 route; card vs CPU on one plan (f32, TF32
+   off) >= 40 dB: StyleGAN2 at 1024^2, StyleGAN3 at 256^2 on the plan the
+   background CPU reference calibrated; A/Bs in turns against the bf16 s2d
+   route and the fused bf16 StyleGAN3 route, one profiled batch each; then
+   conv_i8 bit-equal to its plain version at the 4 + 13 conv shapes of
+   those batches and at all +-127 (Ci 512), timed beside its bound,
+   torch._int_mm over F.unfold and cuDNN's bf16 conv; every epilogue case
+   of the StyleGAN2 batch against its plain version (check_epilogue_cases:
+   the int8-out ones within one code, and timed).
 Phases that upscale fail if an out-of-memory ladder took a rung past its
 first.
 
@@ -654,6 +669,15 @@ def flrelu_cases():
     return cases
 
 
+def flrelu_agrees(out, ref):
+    """check_flrelu's bar for the kernel's output against its plain version's: (agrees, max abs err)."""
+    import torch
+
+    diff = (out.float() - ref.float()).abs()
+    rtol = 2.0**-7 if ref.dtype == torch.bfloat16 else 0.0
+    return bool((diff <= rtol * ref.float().abs() + 1e-4).all()), float(diff.max())
+
+
 def check_flrelu():
     """The filtered-lrelu kernel against its plain version. Tolerances:
     f32 1e-4 absolute (summation order; outputs are O(10)); bf16 one bf16
@@ -682,14 +706,11 @@ def check_flrelu():
             torch.cuda.synchronize()
             if out.shape != ref.shape or out.dtype != ref.dtype:
                 raise AssertionError(f"flrelu {label}: {tuple(out.shape)} {out.dtype} vs {tuple(ref.shape)} {ref.dtype}")
-            diff = (out.float() - ref.float()).abs()
-            rtol = 2.0**-7 if dtype == torch.bfloat16 else 0.0
-            ok = bool((diff <= rtol * ref.float().abs() + 1e-4).all())
-            err = float(diff.max())
+            ok, err = flrelu_agrees(out, ref)
             worst = max(worst, err)
             if not ok:
                 raise AssertionError(f"flrelu {label} disagrees with its plain version: max abs err {err}")
-            del ref, diff, out
+            del ref, out
             # read x once, write the kept window of y once, and the per-plane scalars
             kept = crop[2] * crop[3] if crop else h * w * up * up // 4
             nbytes = (x.numel() + b * c * kept) * x.element_size() + 4 * b * c * len(kw)
@@ -1003,7 +1024,8 @@ def epilogue_cases_recorded():
     StyleGAN2 synthesis makes, by where it comes from ("cells":
     gan/fast_synthesis.py's s2d cells; "plain": gan/stylegan2.py's layers)
     and by case: (z's shape, its dtype, the noise's shape or None, whether
-    a next style scale is applied, alpha, gain, clamp)."""
+    a next style scale is applied, alpha, gain, clamp, whether the output is
+    int8)."""
     import collections
     import inspect
 
@@ -1023,7 +1045,7 @@ def epilogue_cases_recorded():
             if a["z"].is_cuda:
                 counted[(tuple(a["z"].shape), str(a["z"].dtype).removeprefix("torch."),
                        None if a["noise"] is None else tuple(a["noise"].shape), a["pre_next"] is not None,
-                       a["alpha"], a["gain"], a["clamp"])] += 1
+                       a["alpha"], a["gain"], a["clamp"], a["quant_out"])] += 1
             return wrapper(*args, **kwargs)
         return recording
 
@@ -1038,9 +1060,12 @@ def epilogue_cases_recorded():
 
 def epilogue_agrees(out, ref) -> bool:
     """The epilogue kernel's bar against its plain version: both compute in
-    f32 and round once, so bf16 storage allows one bf16 ulp."""
+    f32 and round once, so bf16 storage allows one bf16 ulp; int8 codes
+    (quant_out) within one code."""
     import torch
 
+    if ref.dtype == torch.int8:
+        return out.shape == ref.shape and out.dtype == ref.dtype and int((out.int() - ref.int()).abs().max()) <= 1
     rtol = 2.0**-7 if ref.dtype == torch.bfloat16 else 1e-5
     return out.shape == ref.shape and out.dtype == ref.dtype and \
         bool(((out.float() - ref.float()).abs() <= rtol * ref.float().abs() + 1e-6).all())
@@ -1049,8 +1074,11 @@ def epilogue_agrees(out, ref) -> bool:
 def check_epilogue_cases(recorded, what: str):
     """The epilogue kernel against its plain version at every case that
     epilogue_cases_recorded counted (on either route), on random card tensors of that case's
-    shapes and options, with epilogue_agrees: (rows, largest error). The
-    comparison launches do not count."""
+    shapes and options, with epilogue_agrees: (rows, largest error). An
+    int8-out case must also reach the clip (codes of +-127), and its row
+    gains the share of codes that differ and its time (CUDA events) beside
+    the bytes bound (z and the noise read once, the codes written once) and
+    the plain version's time. The comparison launches do not count."""
     import torch
 
     from maua_tpu_torch.kernels import epilogue as E
@@ -1062,17 +1090,25 @@ def check_epilogue_cases(recorded, what: str):
 
     rows, worst = [], 0.0
     cases = recorded["cells"] + recorded["plain"]
-    for (shape, dtype, noise_shape, pre, alpha, gain, clamp), n in sorted(cases.items(), key=lambda c: -c[1]):
+    for (shape, dtype, noise_shape, pre, alpha, gain, clamp, quant), n in sorted(cases.items(), key=lambda c: -c[1]):
         b, c = shape[:2]
         z = (rnd(*shape) * 4).to(getattr(torch, dtype))
+        # an int8 output's pre_next carries the next conv's quantization scale, 127 / amax
         args = (z, rnd(b, c).abs() + 0.1, None if noise_shape is None else rnd(*noise_shape), rnd(c) * 0.1, alpha,
-                gain, clamp, rnd(b, c).abs() + 0.5 if pre else None)
+                gain, clamp, (rnd(b, c).abs() + 0.5) * (10.0 if quant else 1.0) if pre else None, quant)
         out, ref = E.modconv_epilogue(*args), E.modconv_epilogue_plain(*args)
         err = float((out.float() - ref.float()).abs().max())
         row = {"shape": list(shape), "dtype": dtype, "noise": noise_shape and list(noise_shape), "pre_next": pre,
-               "gain": gain, "clamp": clamp, "launches": n, "max_abs_err": err}
-        if not epilogue_agrees(out, ref):
+               "gain": gain, "clamp": clamp, "int8_out": quant, "launches": n, "max_abs_err": err}
+        if not epilogue_agrees(out, ref) or (quant and int(ref.abs().max()) != 127):
             raise AssertionError(f"{what}: the epilogue disagrees with its plain version at {row}")
+        if quant:
+            nbytes = z.numel() * z.element_size() + out.numel() + (0 if args[2] is None else 4 * args[2].numel())
+            row.update(share_differing=float((out != ref).float().mean()),
+                       ms=cuda_time_ms(lambda: E.modconv_epilogue(*args)),
+                       plain_ms=cuda_time_ms(lambda: E.modconv_epilogue_plain(*args), iters=3),
+                       bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+        del args, z, out, ref
         rows.append(row)
         worst = max(worst, err)
     E.reset_launches()
@@ -3882,6 +3918,15 @@ def psnr_db(a, b, peak: float) -> float:
     return 10 * math.log10(peak**2 / max(mse, 1e-20))
 
 
+def snr_db(a, ref) -> float:
+    """10 log10 of ref's mean square over the mean squared difference: the PSNR of an image that does not
+    keep to its nominal range (a random-init net's output) read against its own signal."""
+    import numpy as np
+
+    ref = np.asarray(ref, np.float64)
+    return 10 * math.log10(float(np.mean(ref**2)) / max(float(np.mean((np.asarray(a, np.float64) - ref) ** 2)), 1e-30))
+
+
 def tail_macs(plan, cfg) -> dict:
     """Multiply-adds per frame of the s2d blocks, from the plan's kernel shapes
     (kh, kw, ci, co) over each block's (res / 2)^2 cells, beside the plain
@@ -3921,40 +3966,47 @@ def quartiles(values):
     return [float(v) for v in np.percentile(values, [25, 50, 75])]
 
 
-def route_pair(model, batch: int, gen):
-    """The s2d and plain routes of the facade `model` as zero-argument calls
-    on one batch of `batch` frames with the noise pyramid and the motion a
-    render batch has."""
+def route_inputs(model, batch: int, gen):
+    """The inputs of one render batch of `batch` frames for the facade `model`: w latents, the noise pyramid
+    and the motion, as synthesis keywords."""
     import torch
-
-    from maua_tpu_torch.gan.wrappers import synthesize
 
     ws = model.get_w_latents(f"0-{batch}")
     noises = model.make_noise_pyramid(torch.randn(batch, 1, 64, 64, generator=gen, device="cuda"))
     motion = dict(translation=torch.full((batch, 2), 0.05, device="cuda"),
                   zoom=torch.full((batch,), 0.9, device="cuda"), rotation=torch.full((batch,), 3.0, device="cuda"))
+    return ws, dict(noises=noises, **motion)
+
+
+def route_pair(model, batch: int, gen):
+    """The s2d and plain routes of the facade `model` as zero-argument calls
+    on one batch of `batch` frames with the noise pyramid and the motion a
+    render batch has."""
+    from maua_tpu_torch.gan.wrappers import synthesize
+
+    ws, kw = route_inputs(model, batch, gen)
     fast = model._get_fast()
-    return {"s2d": lambda: fast(ws, noise_mode="const", noises=noises, rcfg=model.rcfg, **motion),
-            "plain": lambda: synthesize(model.params, ws, model.cfg, model.rcfg, noises=noises, **motion)}
+    return {"s2d": lambda: fast(ws, noise_mode="const", rcfg=model.rcfg, **kw),
+            "plain": lambda: synthesize(model.params, ws, model.cfg, model.rcfg, **kw)}
 
 
-def route_ab(routes, batch: int, pairs: int) -> dict:
-    """fps of the two routes in turns (P N N P P N ...), each turn the median
-    of S2D_AB_BATCHES batches; their quartiles, the ratio of the medians and
-    whether s2d's median lies below plain's by more than plain's quartile
-    spread."""
+def route_ab(routes, batch: int, pairs: int, base: str = "plain", new: str = "s2d") -> dict:
+    """fps of the two routes in turns (base first, then new first: P N N P P
+    N ...), each turn the median of S2D_AB_BATCHES batches; their quartiles,
+    the ratio of the medians and whether new's median lies below base's by
+    more than base's quartile spread."""
     import torch
 
     turns = []
     with torch.no_grad():
         for i in range(pairs):
             turn = {}
-            for name in (("plain", "s2d") if i % 2 == 0 else ("s2d", "plain")):
+            for name in ((base, new) if i % 2 == 0 else (new, base)):
                 turn[name] = batch / batch_median_ms(routes[name], S2D_AB_BATCHES) * 1e3
             turns.append(turn)
     q = {name: quartiles([t[name] for t in turns]) for name in routes}
-    return {"fps_pairs": turns, "fps_quartiles": q, "s2d_over_plain": q["s2d"][1] / q["plain"][1],
-            "s2d_loses_beyond_spread": q["s2d"][1] < q["plain"][1] - (q["plain"][2] - q["plain"][0])}
+    return {"fps_pairs": turns, "fps_quartiles": q, f"{new}_over_{base}": q[new][1] / q[base][1],
+            f"{new}_loses_beyond_spread": q[new][1] < q[base][1] - (q[base][2] - q[base][0])}
 
 
 def run_fast():
@@ -4052,6 +4104,303 @@ def run_fast():
             "bf16_s2d_vs_plain_psnr_db": bf16_psnr, **ab,
             "faster_route": "s2d" if q["s2d"][1] >= q["plain"][1] else "plain",
             "breakdown": breakdown, "other_ab": others, "f32_frame": f32}
+
+
+INT8_OPS = 1979e12  # H100 SXM dense int8 tensor-core operations per second
+INT8_AB_PAIRS = 3  # int8 / bf16 pairs of each of the int8 phase's A/Bs, in the order P N N P P N
+INT8_CARD_BAR = 40.0  # an int8 route card vs CPU on one plan, f32 with TF32 off: dB over the [-1, 1] range
+
+
+def conv_i8_library(x, w):
+    """The same integer function through one PyTorch integer matmul: F.unfold of x (in fp16, which holds
+    int8 values exactly; PyTorch's unfold takes no int8) as int8 rows, channels padded to multiples of 8,
+    times w by torch._int_mm, int32 (B, Co, H, W) as f32. None where _int_mm does not run."""
+    import torch
+    import torch.nn.functional as F
+
+    b, ci, h, wd = x.shape
+    co, _, k, _ = w.shape
+    cip, cop = -(-ci // 8) * 8, -(-co // 8) * 8
+    xp = F.pad(x, (0, 0, 0, 0, 0, cip - ci)) if cip != ci else x
+    wp = torch.zeros(cop, cip, k, k, dtype=torch.int8, device=w.device)
+    wp[:co, :ci] = w
+    cols = F.unfold(xp.half(), k, padding=k // 2)  # (B, cip k k, H W)
+    rows = cols.transpose(1, 2).reshape(b * h * wd, cip * k * k).to(torch.int8)
+    y = torch._int_mm(rows, wp.reshape(cop, -1).t())  # (B H W, cop) int32
+    return y[:, :co].reshape(b, h, wd, co).permute(0, 3, 1, 2).float()
+
+
+def check_conv_i8(cases):
+    """conv_i8 against its plain version (F.conv2d in float64 on the card, exact), bit for bit, at each case
+    (label, B, Ci, H, W, Co, k) on random int8 tensors, with the all +-127 case at the widest K; ms (CUDA
+    events) beside the bound: the larger of 2 B H W k^2 Ci Co operations at 1979 TOPS (dense int8) and x and
+    w read once and y (f32) written once at 3.35 TB/s; the plain version's ms (one warm call); the library
+    route (conv_i8_library: the same integer function, timed, unused by the port) and cuDNN's bf16
+    F.conv2d at the same shape (a different function: bf16 operands, f32 accumulation), each timed only."""
+    import torch
+    import torch.nn.functional as F
+
+    from maua_tpu_torch.kernels import conv_i8 as CI
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = {}
+    for label, b, ci, h, w, co, k in cases:
+        x = torch.randint(-127, 128, (b, ci, h, w), generator=gen, device="cuda", dtype=torch.int8)
+        wt = torch.randint(-127, 128, (co, ci, k, k), generator=gen, device="cuda", dtype=torch.int8)
+        if label == "extreme":
+            x.fill_(127)
+            wt[co // 2 :] = -127
+            wt[: co // 2] = 127
+        out = CI.conv_i8(x, wt)
+        ref = CI.conv_i8_plain(x, wt)
+        err = float((out - ref).abs().max())
+        if not torch.equal(out, ref):
+            raise AssertionError(f"conv_i8 {label} differs from its plain version: max abs err {err}")
+        del ref
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        CI.conv_i8_plain(x, wt)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
+        ops = 2 * b * h * w * k * k * ci * co
+        nbytes = x.numel() + wt.numel() + 4 * out.numel()
+        ops_ms, bytes_ms = ops / INT8_OPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        iters = 5 if ops > 1e12 else 20
+        ms = cuda_time_ms(lambda: CI.conv_i8(x, wt), iters=iters)
+        try:
+            lib_equal = torch.equal(conv_i8_library(x, wt), out)
+            library_ms = cuda_time_ms(lambda: conv_i8_library(x, wt), iters=3)
+        except (RuntimeError, NotImplementedError) as e:  # _int_mm refuses the shape or the device
+            lib_equal, library_ms = str(e).splitlines()[0][:120], None
+        del out
+        torch.cuda.empty_cache()
+        xb, wb = x.to(torch.bfloat16), wt.to(torch.bfloat16)
+        cudnn_bf16_ms = cuda_time_ms(lambda: F.conv2d(xb, wb, padding=k // 2), iters=iters)
+        rows[label] = {"shape": [b, ci, h, w, co, k], "bit_equal": True, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                       "library_ms": library_ms, "library_equal": lib_equal, "cudnn_bf16_conv_ms": cudnn_bf16_ms,
+                       "bound_ms": max(ops_ms, bytes_ms), "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                       "ops_ms": ops_ms, "bytes_ms": bytes_ms, "tops": ops / ms / 1e9, "share_of_bound":
+                       max(ops_ms, bytes_ms) / ms}
+        del x, wt, xb, wb
+        torch.cuda.empty_cache()
+    CI.reset_launches()  # the comparison launches do not count
+    for label, r in rows.items():
+        print(json.dumps({"conv_i8": {"case": label, **r}}), flush=True)
+    return rows
+
+
+def conv_i8_sums(rows, labels) -> dict:
+    """The conv cases' times and bounds summed over `labels` (one launch each), the bound's kind by the larger
+    share; library_ms None where a case has none."""
+    out = {k: sum(rows[c][k] for c in labels) for k in ("ms", "plain_ms", "bound_ms", "ops_ms", "bytes_ms",
+                                                          "cudnn_bf16_conv_ms")}
+    libs = [rows[c]["library_ms"] for c in labels]
+    out["library_ms"] = None if any(v is None for v in libs) else sum(libs)
+    out["bound_by"] = "operations" if out["ops_ms"] >= out["bytes_ms"] else "bytes"
+    return out
+
+
+def run_int8(reference):
+    """The int8 (W8A8) plans on the card. StyleGAN2 config-f 1024^2 (seed-0 weights, bf16 top resolutions):
+    make_fast_synthesis(int8=True) -> quantize_plan's calibration -> synthesis_fast with b512 and b1024 on
+    int8 cells, one render batch of 8 (the fast phase's noise pyramid and motion): 17 epilogue launches (4 on
+    cells, 2 of them int8-out) and 4 conv_i8. StyleGAN3 config T 1024^2 (seed 0, bf16 trunk): quantize_sg3
+    -> synthesis(int8_plan=), one batch of 8: 13 filtered-lrelu and 13 conv_i8 launches. Any other count
+    fails. conv_i8 is held bit-equal to its plain version at every conv of those two batches (and at all
+    +-127), every epilogue case of the StyleGAN2 batch against its plain version (check_epilogue_cases; the
+    int8-out ones within one code) and each filtered lrelu of the StyleGAN3 batch, on its own input, against
+    the plain version (flrelu_agrees); each route's PSNR over [-1, 1] and SNR against the f32
+    route (recorded, and again on a plan calibrated on the batch's own latents);
+    card vs CPU on one plan, f32 with TF32 off, >= INT8_CARD_BAR (StyleGAN2 at 1024^2, batch 1;
+    StyleGAN3 at 256^2 against sg3_reference_child's CPU frame on the plan it calibrated); an A/B in turns
+    against the bf16 s2d route and the fused bf16 StyleGAN3 route, with one profiled batch of each."""
+    import numpy as np
+    import torch
+
+    from maua_tpu_torch.gan import fast_synthesis as FS
+    from maua_tpu_torch.gan import stylegan3 as S3
+    from maua_tpu_torch.gan.stylegan2 import SG2Config
+    from maua_tpu_torch.gan.wrappers import StyleGAN2, synthesize
+    from maua_tpu_torch.kernels import conv_i8 as CI
+    from maua_tpu_torch.kernels import epilogue as E
+    from maua_tpu_torch.kernels import filtered_lrelu as FL
+    from maua_tpu_torch.utility import to_device
+
+    def to_uint8(img):
+        return ((img + 1.0) * 127.5).clamp(0, 255).to(torch.uint8).permute(0, 2, 3, 1).cpu()
+
+    # ---- StyleGAN2: the s2d tail on int8 cells
+    model = StyleGAN2(device="cuda", seed=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn, plan = FS.make_fast_synthesis(model.params, model.cfg, int8=True)
+    torch.cuda.synchronize()
+    make_seconds = time.perf_counter() - t0
+    first = {res: {k: e[k].copy() for k in ("q0", "q1", "s0", "s1", "a0", "a1")} for res, e in plan["blocks"].items()}
+    t0 = time.perf_counter()
+    FS.quantize_plan(model.params, plan, model.cfg)  # a recalibration: the calibration alone
+    calibration_seconds = time.perf_counter() - t0
+    recalibrated_equal = all(np.array_equal(plan["blocks"][r][k], v) for r, e in first.items() for k, v in e.items())
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    ws, kw = route_inputs(model, BATCH, gen)
+    bf16_fast = model._get_fast()
+    sg2_routes = {"int8": lambda: fn(ws, noise_mode="const", rcfg=model.rcfg, **kw),
+                  "bf16_s2d": lambda: bf16_fast(ws, noise_mode="const", rcfg=model.rcfg, **kw)}
+    with torch.no_grad():
+        sg2_routes["int8"]()  # warm-up: the comparison below counts one batch
+        with epilogue_cases_recorded() as cases:
+            E.reset_launches(), CI.reset_launches()
+            img = sg2_routes["int8"]()
+            torch.cuda.synchronize()
+            sg2_launches = {"epilogue": E.launches, "on_cells": cases["cells"].total(), "int8_out": E.int8_launches,
+                            "conv_i8": CI.launches}
+        bf16_img = sg2_routes["bf16_s2d"]()
+        with tf32_off():
+            f32_img = synthesize(model.params, ws, SG2Config(dtype="float32"), model.rcfg, **kw)
+    n_blocks = len(s2d_blocks(model.cfg))
+    if sg2_launches != {"epilogue": 17, "on_cells": 2 * n_blocks, "int8_out": n_blocks, "conv_i8": 2 * n_blocks}:
+        raise AssertionError(f"one int8 StyleGAN2 batch launched {sg2_launches}, want 17 epilogues ({2 * n_blocks} on "
+                             f"cells, {n_blocks} int8-out) and {2 * n_blocks} conv_i8")
+    if img.shape != (BATCH, 3, 1024, 1024) or not bool(torch.isfinite(img).all()):
+        raise AssertionError(f"the int8 StyleGAN2 batch: {tuple(img.shape)}, finite {bool(torch.isfinite(img).all())}")
+    epilogue_rows, _ = check_epilogue_cases(cases, "int8")  # every case of that batch, at its own shapes
+    sg2 = {"make_fast_synthesis_seconds": make_seconds, "calibration_seconds": calibration_seconds,
+           "recalibrated_plan_equal": recalibrated_equal, "launches": sg2_launches,
+           "epilogue_cases": epilogue_rows,
+           "psnr_vs_f32_db": psnr_db(img.cpu().numpy(), f32_img.cpu().numpy(), 2.0),
+           "bf16_s2d_psnr_vs_f32_db": psnr_db(bf16_img.cpu().numpy(), f32_img.cpu().numpy(), 2.0),
+           "snr_vs_f32_db": snr_db(img.cpu().numpy(), f32_img.cpu().numpy()),
+           "bf16_s2d_snr_vs_f32_db": snr_db(bf16_img.cpu().numpy(), f32_img.cpu().numpy()),
+           "f32_rms": float(f32_img.pow(2).mean().sqrt())}
+    with torch.no_grad():  # the same batch on a plan calibrated on its own latents: what the calibration's draw costs
+        own = FS.quantize_plan(model.params, FS.build_fast_plan(model.params, model.cfg), model.cfg, ws=ws)
+        own_img = FS.synthesis_fast(model.params, FS.device_plan(own, model.cfg, "cuda"), ws, model.cfg,
+                                    noise_mode="const", rcfg=model.rcfg, **kw)
+    sg2["own_latents_psnr_vs_f32_db"] = psnr_db(own_img.cpu().numpy(), f32_img.cpu().numpy(), 2.0)
+    sg2["own_latents_snr_vs_f32_db"] = snr_db(own_img.cpu().numpy(), f32_img.cpu().numpy())
+    del img, bf16_img, f32_img, own_img
+    cases_sg2 = []
+    for res, e in sorted(FS.device_plan(plan, model.cfg, "cpu")["blocks"].items()):
+        convs = ((e["q0"], model.cfg.channels(res // 2)), (e["q1"], 4 * model.cfg.channels(res)))
+        for conv, (q, ci) in enumerate(convs):
+            if q.shape[1] != ci or q.shape[2] != q.shape[3]:
+                raise AssertionError(f"b{res} q{conv}: {tuple(q.shape)}")
+            cases_sg2.append((f"sg2-b{res}-conv{conv}", BATCH, ci, res // 2, res // 2, q.shape[0], q.shape[2]))
+    sg2["ab"] = route_ab(sg2_routes, BATCH, INT8_AB_PAIRS, base="bf16_s2d", new="int8")
+    sg2["profiles"] = {name: profile_batch(lambda f=f: to_uint8(f()), "conv_i8") for name, f in sg2_routes.items()}
+    del sg2_routes, bf16_fast, fn
+    model._fast_synth = None
+    release_memory()
+
+    # one f32 frame with noise and motion on one plan (calibrated on the card), card vs CPU, TF32 off
+    with tf32_off(), torch.no_grad():
+        cfg32 = SG2Config(dtype="float32")
+        fn32, plan32 = FS.make_fast_synthesis(model.params, cfg32, int8=True)
+        w1 = model.get_w_latents("7")
+        noise1 = model.make_noise_pyramid(torch.randn(1, 1, 64, 64, generator=gen, device="cuda"))
+        motion1 = dict(translation=torch.tensor([[0.05, 0.0]]), zoom=torch.tensor([0.9]), rotation=torch.tensor([3.0]))
+        card = fn32(w1, noise_mode="const", noises=noise1, rcfg=model.rcfg, **{k: v.cuda() for k, v in motion1.items()})
+        t0 = time.perf_counter()
+        host = FS.synthesis_fast(to_device(model.params, "cpu"), FS.device_plan(plan32, cfg32, "cpu"), w1.cpu(), cfg32,
+                                 noise_mode="const", noises={k: v.cpu() for k, v in noise1.items()}, rcfg=model.rcfg,
+                                 **motion1)
+        sg2["card_vs_cpu"] = {"psnr_db": psnr_db(card.cpu().numpy(), host.numpy(), 2.0),
+                              "max_abs": float((card.cpu() - host).abs().max()), "cpu_seconds": time.perf_counter() - t0}
+    if sg2["card_vs_cpu"]["psnr_db"] < INT8_CARD_BAR:
+        raise AssertionError(f"the int8 StyleGAN2 frame card vs CPU: {sg2['card_vs_cpu']}")
+    del model, fn32, card, host
+    release_memory()
+
+    # ---- StyleGAN3: the trunk on int8 convs
+    cfg3 = S3.SG3Config(dtype="bfloat16")
+    model3 = S3.StyleGAN3(cfg=cfg3, device="cuda", seed=0)
+    ws3 = model3.mapper(model3.get_z_latents(f"0-{BATCH}"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plan3 = S3.quantize_sg3(model3.params, cfg3)
+    torch.cuda.synchronize()
+    sg3 = {"calibration_seconds": time.perf_counter() - t0}
+    sg3_routes = {"int8": lambda: S3.synthesis(model3.params, ws3, cfg3, int8_plan=plan3),
+                  "fused_bf16": lambda: S3.synthesis(model3.params, ws3, cfg3)}
+    flrelu_rows = []
+
+    def flrelu_checked(y, up_f, down_f, up, down, crop=None, **kw):
+        # the kernel's output on the batch's own input against the plain version's
+        out = FL.filtered_lrelu(y, up_f, down_f, up, down, crop=crop, **kw)
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):  # check_flrelu's plain convs, full f32
+            ref = FL.filtered_lrelu_plain(y, up_f, down_f, up, down, crop=crop, **kw)
+        ok, err = flrelu_agrees(out, ref)
+        flrelu_rows.append({"shape": list(y.shape), "dtype": str(y.dtype).removeprefix("torch."), "up": up,
+                            "crop": crop, "affines": sorted(kw), "max_abs_err": err})
+        if not ok:
+            raise AssertionError(f"the int8 StyleGAN3 batch: the filtered lrelu disagrees with its plain version at "
+                                 f"{flrelu_rows[-1]}")
+        return out
+
+    with torch.no_grad():
+        sg3_routes["int8"]()
+        FL.reset_launches(), CI.reset_launches()
+        wrapper, S3.filtered_lrelu = S3.filtered_lrelu, flrelu_checked
+        try:
+            img = sg3_routes["int8"]()
+        finally:
+            S3.filtered_lrelu = wrapper
+        torch.cuda.synchronize()
+        sg3["launches"] = {"filtered_lrelu": FL.launches, "conv_i8": CI.launches}
+        sg3["filtered_lrelu_cases"] = flrelu_rows
+        bf16_img = sg3_routes["fused_bf16"]()
+        with tf32_off():
+            f32_img = S3.synthesis(model3.params, ws3, S3.SG3Config(dtype="float32"))
+    n3 = cfg3.num_layers - 1
+    if sg3["launches"] != {"filtered_lrelu": n3, "conv_i8": n3}:
+        raise AssertionError(f"one int8 StyleGAN3 batch launched {sg3['launches']}, want {n3} of each")
+    if img.shape != (BATCH, 3, 1024, 1024) or not bool(torch.isfinite(img).all()):
+        raise AssertionError(f"the int8 StyleGAN3 batch: {tuple(img.shape)}, finite {bool(torch.isfinite(img).all())}")
+    sg3["psnr_vs_f32_db"] = psnr_db(img.cpu().numpy(), f32_img.cpu().numpy(), 2.0)
+    sg3["fused_bf16_psnr_vs_f32_db"] = psnr_db(bf16_img.cpu().numpy(), f32_img.cpu().numpy(), 2.0)
+    sg3["snr_vs_f32_db"] = snr_db(img.cpu().numpy(), f32_img.cpu().numpy())
+    sg3["fused_bf16_snr_vs_f32_db"] = snr_db(bf16_img.cpu().numpy(), f32_img.cpu().numpy())
+    sg3["f32_rms"] = float(f32_img.pow(2).mean().sqrt())
+    with torch.no_grad():
+        own_img = S3.synthesis(model3.params, ws3, cfg3, int8_plan=S3.quantize_sg3(model3.params, cfg3, ws=ws3))
+    sg3["own_latents_psnr_vs_f32_db"] = psnr_db(own_img.cpu().numpy(), f32_img.cpu().numpy(), 2.0)
+    sg3["own_latents_snr_vs_f32_db"] = snr_db(own_img.cpu().numpy(), f32_img.cpu().numpy())
+    del img, bf16_img, f32_img, own_img
+    _, _, _, _, sizes, _ = cfg3.layer_plan()
+    cases_sg3 = []
+    for i in range(n3):
+        co, ci, k, _ = plan3[f"L{i}"]["q"].shape
+        cases_sg3.append((f"sg3-L{i}", BATCH, ci, int(sizes[i]), int(sizes[i]), co, k))
+    sg3["ab"] = route_ab(sg3_routes, BATCH, INT8_AB_PAIRS, base="fused_bf16", new="int8")
+    sg3["profiles"] = {name: profile_batch(lambda f=f: f().cpu(), "conv_i8") for name, f in sg3_routes.items()}
+    del sg3_routes, model3, plan3, ws3
+    release_memory()
+
+    # the 256^2 f32 frame on the plan that sg3_reference_child calibrated on the CPU, card vs CPU
+    ref, wait_s = sg3_reference_result(reference)
+    cfg256 = S3.SG3Config(img_resolution=256, dtype="float32")
+    plan256 = {f"L{i}": {k: torch.from_numpy(ref[f"int8_L{i}_{k}"]) for k in ("q", "s", "a")}  # q in OIHW
+               for i in range(cfg256.num_layers - 1)}
+    with tf32_off(), torch.no_grad():
+        params256 = to_device(S3.StyleGAN3(cfg=cfg256, device="cpu", seed=0).params, "cuda")
+        card = S3.synthesis(params256, torch.from_numpy(ref["w"]).cuda(), cfg256,
+                            int8_plan=S3.int8_plan_to_device(plan256, "cuda"))
+    sg3["card_vs_cpu"] = {"psnr_db": psnr_db(card.cpu().numpy(), ref["int8_image"], 2.0),
+                          "max_abs": float(np.abs(card.cpu().numpy() - ref["int8_image"]).max()),
+                          "cpu_calibration_seconds": float(ref["int8_calibration_seconds"]),
+                          "cpu_seconds": float(ref["int8_seconds"]), "cpu_reference_wait_seconds": wait_s}
+    if sg3["card_vs_cpu"]["psnr_db"] < INT8_CARD_BAR:
+        raise AssertionError(f"the int8 StyleGAN3 frame card vs CPU: {sg3['card_vs_cpu']}")
+    del params256, card
+    release_memory()
+
+    # the kernels at the shapes of those two batches
+    # conv_i8 at the shapes of those two batches
+    conv_rows = check_conv_i8(cases_sg2 + cases_sg3 + [("extreme", 1, 512, 36, 36, 64, 3)])
+    return {"sg2": sg2, "sg3": sg3, "conv_i8_sg2_batch": conv_i8_sums(conv_rows, [c[0] for c in cases_sg2]),
+            "conv_i8_sg3_batch": conv_i8_sums(conv_rows, [c[0] for c in cases_sg3]),
+            "conv_i8_max_abs_err": max(r["max_abs_err"] for r in conv_rows.values())}
 
 
 GAN_GENERATE_IMAGES = 2  # PNGs of each `gan generate` sampling (cut from 8 for time)
@@ -4160,29 +4509,56 @@ SG3_REFERENCE_THREADS = 4  # the CPU reference frame's process runs beside the c
 
 
 def sg3_reference_child(path: str):
-    """The CPU side of sg3_resize's card-vs-CPU frame, in its own process: the StyleGAN3 facade at 256^2,
-    f32, seed 0 (parameters drawn on the CPU), output 480 x 270; the w of seed 7 and its frame, written to
-    `path` (.npz)."""
+    """The CPU side of sg3_resize's and int8's card-vs-CPU frames, in its own process: the StyleGAN3 facade at
+    256^2, f32, seed 0 (parameters drawn on the CPU), output 480 x 270; the w of seed 7 and its frame; then an
+    int8 plan calibrated on that w (quantize_sg3) and the int8 synthesis of it, written to `path` (.npz: the
+    plan as int8_L{i}_{q,s,a}, q in OIHW)."""
     import numpy as np
     import torch
 
-    from maua_tpu_torch.gan.stylegan3 import SG3Config, StyleGAN3
+    from maua_tpu_torch.gan.stylegan3 import SG3Config, StyleGAN3, quantize_sg3, synthesis
 
     torch.set_num_threads(SG3_REFERENCE_THREADS)
-    cpu = StyleGAN3(cfg=SG3Config(img_resolution=256, dtype="float32"), device="cpu", seed=0, output_size=(480, 270))
+    cfg = SG3Config(img_resolution=256, dtype="float32")
+    cpu = StyleGAN3(cfg=cfg, device="cpu", seed=0, output_size=(480, 270))
     w1 = cpu.mapper(cpu.get_z_latents("7"))
     t0 = time.perf_counter()
     frame = np.stack(list(cpu.render(w1)))
-    np.savez(path, w=w1.numpy(), frame=frame, seconds=time.perf_counter() - t0)
+    seconds = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plan = quantize_sg3(cpu.params, cfg, ws=w1)
+    calibration_seconds = time.perf_counter() - t0
+    with torch.no_grad():
+        int8_image = synthesis(cpu.params, w1, cfg, int8_plan=plan)
+    np.savez(path, w=w1.numpy(), frame=frame, seconds=seconds, int8_image=int8_image.numpy(),
+             int8_calibration_seconds=calibration_seconds, int8_seconds=time.perf_counter() - t0,
+             **{f"int8_{name}_{k}": v.numpy() for name, e in plan.items() for k, v in e.items()})
 
 
 def start_sg3_reference(tmp: str):
-    """Start sg3_reference_child at the start of the run, so that its ~50 s of CPU work overlaps the card's
+    """Start sg3_reference_child at the start of the run, so that its ~4 minutes of CPU work overlap the card's
     phases: {"proc": the process, "path": its output}."""
     path = os.path.join(tmp, "sg3_reference.npz")
     proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--sg3-reference-child", path],
                             stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
     return {"proc": proc, "path": path}
+
+
+def sg3_reference_result(reference):
+    """sg3_reference_child's output (a dict of arrays) and the seconds this process waited for it: the first
+    caller waits, later callers get the same."""
+    import numpy as np
+
+    if "result" not in reference:
+        proc = reference["proc"]
+        t0 = time.perf_counter()
+        _, err = proc.communicate(timeout=900)
+        reference["wait_seconds"] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise RuntimeError(f"the StyleGAN3 reference process failed:\n{err[-4000:]}")
+        with np.load(reference["path"]) as z:
+            reference["result"] = dict(z)
+    return reference["result"], reference["wait_seconds"]
 
 
 def run_sg3_resize(reference):
@@ -4214,13 +4590,7 @@ def run_sg3_resize(reference):
     resized_card = W.resize(native, (1080, 1920), "bilinear").cpu().numpy()
     resize_err = float(np.abs(resized_card - W.resize(native.cpu(), (1080, 1920), "bilinear").numpy()).max())
 
-    proc, path = reference["proc"], reference["path"]
-    t0 = time.perf_counter()
-    _, err = proc.communicate(timeout=600)
-    wait_s = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"the sg3_resize reference process failed:\n{err[-4000:]}")
-    ref = np.load(path)
+    ref, wait_s = sg3_reference_result(reference)
     with tf32_off():
         cfg256 = SG3Config(img_resolution=256, dtype="float32")
         params = StyleGAN3(cfg=cfg256, device="cpu", seed=0).params
@@ -7188,7 +7558,7 @@ def main() -> int:
               "av_correlation,sd_guided,sd_paths,sd_glide,sd_animation,sd_video,flow_neural,style,style_video,"
               "epilogue_grad,gan_langevin,style_zoo,nca,video_vit,optimizers,gan_train,gan_langevin_d,"
               "gan_train_reference,autoreg,autoreg_reference,autoreg_video,autoreg_finetune,gan_icgan,sd_finetune,"
-              "transport,delivery,codec,native,profiling,serve,export,parallel]",
+              "transport,delivery,codec,native,profiling,serve,export,parallel,int8]",
               file=sys.stderr)
         return 2
 
@@ -7205,7 +7575,7 @@ def main() -> int:
 
         from maua_tpu_torch import native
 
-        names = ("epilogue", "filtered_lrelu", "attention", "spectrogram", "kconv")
+        names = ("epilogue", "filtered_lrelu", "attention", "spectrogram", "kconv", "conv_i8")
         with ThreadPoolExecutor(len(names) + 1) as pool:  # one nvcc per source and the host g++, all started together
             host = pool.submit(native.build)
             libs = list(pool.map(build.build, names))
@@ -7245,7 +7615,7 @@ def main() -> int:
                                  ("gan_langevin", lambda: run_gan_langevin(tmp)), ("style_zoo", lambda: run_style_zoo(tmp)),
                                  ("nca", lambda: run_nca(tmp)), ("gan_train", lambda: run_gan_train(tmp)),
                                  ("gan_langevin_d", lambda: run_gan_langevin_d(tmp))):
-                    if name == "gan_load" and want("sg3_resize"):  # its CPU reference overlaps the phases from here
+                    if name == "gan_load" and (want("sg3_resize") or want("int8")):  # its CPU reference from here
                         sg3_reference.update(start_sg3_reference(ref_dir))
                     if want(name):
                         results[name] = phase(name, fn)
@@ -7255,7 +7625,8 @@ def main() -> int:
             for name, fn in (("autoreg_video", in_temp_dir(run_autoreg_video)),
                              ("autoreg_finetune", in_temp_dir(run_autoreg_finetune)),
                              ("gan_icgan", in_temp_dir(run_gan_icgan)), ("sd_finetune", in_temp_dir(run_sd_finetune)),
-                             ("fast", run_fast), ("profile", profile_render_batch), ("sg3_profile", profile_sg3_render_batch),
+                             ("fast", run_fast), ("int8", lambda: run_int8(sg3_reference or start_sg3_reference(ref_dir))),
+                             ("profile", profile_render_batch), ("sg3_profile", profile_sg3_render_batch),
                              ("reference", card_vs_cpu), ("sg3_reference", sg3_card_vs_cpu), ("sd_e2e", run_sd_e2e),
                              ("sd_steps", run_sd_steps), ("sd_profile", profile_sd_step), ("sd_reference", sd_card_vs_cpu),
                              ("super", run_super), ("super_reference", super_card_vs_cpu), ("sd_multires", run_sd_multires),
@@ -7277,7 +7648,7 @@ def main() -> int:
     if phases is not None:
         return 0  # a partial run prints no record
 
-    kernel, flrelu, attn, mel, kconv = (results[k] for k in ("kernel", "flrelu", "attn", "mel", "kconv"))
+    kernel, flrelu, attn, mel, kconv, int8 = (results[k] for k in ("kernel", "flrelu", "attn", "mel", "kconv", "int8"))
     mel_launches, mel_cases = results["ar_e2e"]["spectrogram_launches"], results["ar_e2e"]["mel_cases"]
     mel_main = mel["cases"][max(mel_cases, key=lambda c: mel_cases[c] * mel["cases"][c]["bound_ms"])]
     song_cases = results["ar_features"]["warm"]["mel_cases"]
@@ -7288,6 +7659,7 @@ def main() -> int:
     for r in grad_rows:
         grad_errs[r["dtype"]] = max(grad_errs.get(r["dtype"], 0.0), *r["grad_rel_err"].values())
     ss_cases = results["ss_mir"]["song"]["warm"]["mel_cases"]
+    int8_epilogue = results["int8"]["sg2"]["epilogue_cases"]
     record = {"kernels": [{
         "name": "modconv_epilogue",
         "route": "cuda",
@@ -7328,6 +7700,12 @@ def main() -> int:
         "serve_batches": results["serve"]["gan_batches"],
         "serve_max_abs_err": results["serve"]["epilogue_max_abs_err"],
         "export_launches": results["export"]["gan_child"]["launches"],
+        "int8_route_launches": results["int8"]["sg2"]["launches"]["epilogue"],
+        "int8_route_max_abs_err": max(r["max_abs_err"] for r in int8_epilogue if not r["int8_out"]),
+        "int8_out_launches": results["int8"]["sg2"]["launches"]["int8_out"],
+        **{f"int8_out_{k}": sum(r[k] * r["launches"] for r in int8_epilogue if r["int8_out"])
+           for k in ("ms", "plain_ms", "bound_ms")},
+        "int8_out_max_code_diff": max(r["max_abs_err"] for r in int8_epilogue if r["int8_out"]),
         "langevin_d_launches": results["gan_langevin_d"]["launches"],
         "second_order_cases": results["epilogue_grad"]["second_order_cases"],
         "second_order_max_rel_err": results["epilogue_grad"]["second_order_max_rel_err"],
@@ -7368,7 +7746,11 @@ def main() -> int:
                  f"serve_launches: `serve http`'s GANImageService at config-f 1024^2 over {SERVE_GAN_REQUESTS + 1} "
                  f"requests in serve_batches batches (17 a batch; serve), every case held with serve_max_abs_err; "
                  f"export_launches: one batch of {BATCH} replayed from the export_generator artifact in a process "
-                 f"that imports no model module (export)",
+                 f"that imports no model module (export); int8_route_launches: one batch of {BATCH} on the int8 "
+                 f"s2d route (int8; 4 on cells), every case of it held against the plain version "
+                 f"(int8_route_max_abs_err over the float outputs), int8_out_launches those of them with an int8 "
+                 f"output; int8_out_*: those int8-out launches timed at their own cases, the codes against the "
+                 f"plain version's (int8_out_max_code_diff)",
     }, {
         "name": "filtered_lrelu",
         "route": "cuda",
@@ -7377,6 +7759,8 @@ def main() -> int:
         "launches": results["sg3_e2e"]["launches"],
         "loaded_launches": results["gan_load"]["sg3_nvidia.pt"]["launches"],
         "serve_launches": results["serve"]["sg3_flrelu_launches"],
+        "int8_route_launches": results["int8"]["sg3"]["launches"]["filtered_lrelu"],
+        "int8_route_max_abs_err": max(r["max_abs_err"] for r in results["int8"]["sg3"]["filtered_lrelu_cases"]),
         "max_abs_err": flrelu["max_abs_err"],
         "ms": flrelu["frame_batch_ms"],
         "plain_ms": flrelu["frame_batch_plain_ms"],
@@ -7385,7 +7769,9 @@ def main() -> int:
         "library_ms": None,
         "scope": f"the 13 launches of one 1024^2 StyleGAN3 frame batch of {BATCH} in bf16; loaded_launches: the e2e "
                  f"clip rendered from an NVIDIA-named .pt (gan_load); serve_launches: one batch of {BATCH} of "
-                 f"`serve http --architecture stylegan3` (serve)",
+                 f"`serve http --architecture stylegan3` (serve); int8_route_launches: one batch of {BATCH} on "
+                 f"quantize_sg3's int8 plan (int8; no affines in the call, the legacy structure), each launch's "
+                 f"output on the batch's own input held against the plain version (int8_route_max_abs_err)",
     }, {
         "name": "flash_attention",
         "route": "cuda",
@@ -7503,6 +7889,27 @@ def main() -> int:
                  f"three last 3x3 layers of a 1024^2 StyleGAN3 frame batch of {BATCH} in bf16; f32_*: the sum over "
                  f"the f32 cases at batch 1 (the same three layers and RRDB's five growth convs at 512^2, on the "
                  f"CUDA cores); library: F.conv2d (f32 with TF32 off)",
+    }, {
+        "name": "conv_i8",
+        "route": "cuda",
+        "source": "maua_tpu_torch/csrc/conv_i8.cu",
+        "replaces": "maua_tpu/gan/fast_synthesis.py:179",
+        "replaces_also": "maua_tpu/gan/stylegan3.py:399",
+        "launches": results["int8"]["sg2"]["launches"]["conv_i8"],
+        "max_abs_err": int8["conv_i8_max_abs_err"],
+        **{k: int8["conv_i8_sg2_batch"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                                     "cudnn_bf16_conv_ms")},
+        "sg3_launches": results["int8"]["sg3"]["launches"]["conv_i8"],
+        **{f"sg3_{k}": int8["conv_i8_sg3_batch"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                                              "cudnn_bf16_conv_ms")},
+        "scope": f"not a Pallas kernel: the port's kernel for the XLA int8 convs of the W8A8 plans (PyTorch has "
+                 f"no int8 convolution on CUDA). The {results['int8']['sg2']['launches']['conv_i8']} launches of "
+                 f"one StyleGAN2 config-f 1024^2 batch of {BATCH} on the int8 s2d route (int8: b512 and b1024, "
+                 f"conv0 and conv1 on cells); max_abs_err: the largest over those, the StyleGAN3 trunk's and the all +-127 case, against the plain version; sg3_*: "
+                 f"the {results['int8']['sg3']['launches']['conv_i8']} trunk convs of one StyleGAN3 config T "
+                 f"1024^2 batch of {BATCH} on quantize_sg3's plan; library: torch._int_mm over F.unfold (the "
+                 f"same integer function, timed only); cudnn_bf16_conv_ms: cuDNN's bf16 F.conv2d at the same "
+                 f"shapes (a different function, timed only)",
     }]}
     print(card)
     print(json.dumps(record))

@@ -1,6 +1,6 @@
 """Space-to-depth (s2d) route of StyleGAN2 synthesis.
 
-Port of `maua_tpu/gan/fast_synthesis.py` without its int8 plan. Every op
+Port of `maua_tpu/gan/fast_synthesis.py`. Every op
 of a synthesis block's tail (transposed conv, FIR resample, 3x3 conv,
 1x1 torgb, image upsample) is a zero-padded linear convolution, so each
 layer equals a convolution between 2x2-cell grids at half resolution
@@ -22,6 +22,14 @@ convs take them as OIHW tensors (`device_plan`).
 After each s2d conv the fused epilogue kernel (`kernels/epilogue.py`)
 applies the demodulation and bias tiled 4x, the cell noise as four
 groups (one per phase) and, after conv0, conv1's input style.
+
+The opt-in int8 plan (`quantize_plan`, W8A8): the tail's cell convs run int8
+x int8 -> int32 through the kernel of `kernels/conv_i8.py`, on activations
+quantized per channel against amax calibrated over a batch, with weights
+quantized per output channel; the dequant scales fold into the epilogue's
+demodulation, and conv0's epilogue writes conv1's int8 operand directly
+(`quant_out`). Not exact: maua_tpu's tests hold it above 30 dB PSNR from the
+f32 synthesis.
 """
 
 from __future__ import annotations
@@ -33,9 +41,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..kernels.conv_i8 import conv_i8
 from ..kernels.epilogue import modconv_epilogue
 from . import ops
-from .stylegan2 import SG2Config, _layer_noise, fc_forward, layer_noise_input, synthesis_layer, torgb_layer
+from .stylegan2 import SG2Config, _layer_noise, fc_forward, layer_noise_input, mapping, synthesis_layer, torgb_layer
+
+_QUANT_KEYS = ("q0", "q1", "s0", "s1", "a0", "a1")
 
 
 def space_to_depth(x: torch.Tensor) -> torch.Tensor:
@@ -224,21 +235,70 @@ def build_fast_plan(params: Dict, cfg: SG2Config, min_channels: int = 128) -> Di
     return plan
 
 
-def quantize_plan(params: Dict, plan: Dict, cfg: SG2Config, ws=None, batch: int = 8, seed: int = 0,
-                  margin: float = 1.05) -> Dict:
-    """maua_tpu's int8 plan (calibrated W8A8 tail convs) is not ported: it
-    needs a hand-written int8 implicit-GEMM conv kernel for this card,
-    since PyTorch has no int8 convolution on CUDA."""
-    raise NotImplementedError("quantize_plan (the int8 s2d tail) is not ported: it waits for an int8 "
-                              "implicit-GEMM conv kernel under maua_tpu_torch/csrc/")
+def _quantize_act(x: torch.Tensor, amax: torch.Tensor) -> torch.Tensor:
+    """Per-channel symmetric int8 quantization of x (B, C, H, W) with calibrated amax (C,): clip(round(x *
+    127 / amax), -127, 127), the scale in f32, ties to even."""
+    s = 127.0 / amax.float()
+    return torch.round(x.float() * s[None, :, None, None]).clamp_(-127.0, 127.0).to(torch.int8)
+
+
+def quantize_plan(params: Dict, plan: Dict, cfg: SG2Config, ws: Optional[torch.Tensor] = None, batch: int = 8,
+                  seed: int = 0, margin: float = 1.05) -> Dict:
+    """Calibrate and quantize the s2d tail's cell convs to int8 (opt-in, W8A8).
+
+    The amax of each quantized conv's input, per channel, is recorded over
+    one float synthesis of `ws` (by default `batch` mapped latents) with
+    random noise, times `margin`; each kernel takes the activation dequant
+    (a / 127 per input channel) and is quantized per output channel. Mutates
+    and returns `plan` (maua_tpu's numpy layout) with q0, s0, a0, q1, s1, a1 per
+    block, which `device_plan` carries to a device; `synthesis_fast` then runs
+    the quantized branch. An already quantized plan is recalibrated.
+
+    Two departures follow from the random number generators, so a plan
+    calibrated here differs from maua_tpu's on the same net: with ws=None the
+    latents (and the one-hot labels of a conditional net) come from a
+    torch.Generator seeded with `seed` on the parameters' device, where
+    maua_tpu uses jax.random; the calibration's random noise comes from one
+    seeded with seed + 1. Given the same ws and zero noise strengths, the two
+    plans agree."""
+    if not plan["blocks"]:
+        return plan
+    for entry in plan["blocks"].values():  # recalibration: the calibration takes the float path
+        for k in _QUANT_KEYS:
+            entry.pop(k, None)
+    device = params["synthesis"]["b4"]["const"].device
+    with torch.no_grad():
+        if ws is None:
+            gen = torch.Generator(device=device).manual_seed(seed)
+            z = torch.randn(batch, cfg.z_dim, generator=gen, device=device)
+            c = None
+            if cfg.c_dim > 0:  # a conditional net: calibrate over random one-hot labels
+                labels = torch.randint(0, cfg.c_dim, (batch,), generator=gen, device=device)
+                c = F.one_hot(labels, cfg.c_dim).float()
+            ws = mapping(params, z, cfg, c)
+        tape: Dict = {}
+        synthesis_fast(params, device_plan(plan, cfg, device), ws, cfg, noise_mode="random",
+                       gen=torch.Generator(device=device).manual_seed(seed + 1), _amax_tape=tape)
+    for res, entry in plan["blocks"].items():
+        a0 = np.maximum(tape[f"{res}.a0"].cpu().numpy().astype(np.float32) * margin, 1e-6)
+        a1 = np.maximum(tape[f"{res}.a1"].cpu().numpy().astype(np.float32) * margin, 1e-6)
+        for kname, a, sk, qk in (("k0", a0, "s0", "q0"), ("k1", a1, "s1", "q1")):
+            # the activation dequant (a / 127 per input channel) folds into the weight, quantized per output
+            # channel
+            w = entry[kname] * (a / 127.0)[None, None, :, None]
+            s = np.maximum(np.abs(w).max(axis=(0, 1, 2)) / 127.0, 1e-12).astype(np.float32)
+            entry[qk] = np.clip(np.round(w / s), -127, 127).astype(np.int8)
+            entry[sk] = s
+        entry["a0"], entry["a1"] = a0, a1
+    return plan
 
 
 def device_plan(plan: Dict, cfg: SG2Config, device) -> Dict:
-    """A plan of `build_fast_plan` as `synthesis_fast` takes it: its kernels
-    as OIHW tensors on `device`, each block's convs in its compute dtype and
-    the image kernel in f32, and its demodulation sums as f32 tensors."""
-    if any("q0" in e for e in plan["blocks"].values()):
-        raise NotImplementedError("a quantized plan needs quantize_plan's int8 convs, which are not ported")
+    """A plan of `build_fast_plan` (or `quantize_plan`) as `synthesis_fast` takes it: its kernels as OIHW
+    tensors on `device`, each block's convs in its compute dtype and the image kernel in f32, its int8 kernels
+    q0 and q1 as int8, and its demodulation sums and quantization scales as f32 tensors. A maua_tpu plan
+    (numpy, HWIO) converts the same way."""
+    f32_keys = ("kimg", "w0_sq", "w1_sq", "s0", "s1", "a0", "a1")
 
     def convert(a, dtype):
         t = torch.from_numpy(np.ascontiguousarray(a))
@@ -249,7 +309,7 @@ def device_plan(plan: Dict, cfg: SG2Config, device) -> Dict:
     blocks = {}
     for res, e in plan["blocks"].items():
         dtype = cfg.compute_dtype(res)
-        blocks[res] = {k: convert(a, torch.float32 if k in ("kimg", "w0_sq", "w1_sq") else dtype)
+        blocks[res] = {k: convert(a, torch.int8 if k in ("q0", "q1") else torch.float32 if k in f32_keys else dtype)
                        for k, a in e.items()}
     return {**plan, "blocks": blocks}
 
@@ -303,6 +363,7 @@ def synthesis_fast(
     zoom: Optional[torch.Tensor] = None,
     rotation: Optional[torch.Tensor] = None,
     rcfg=None,
+    _amax_tape: Optional[Dict] = None,
 ) -> torch.Tensor:
     """The synthesis of `stylegan2.synthesis` with the plan's blocks on
     s2d grids: ws (B, num_ws, w_dim) -> image (B, C, H, W) in f32.
@@ -310,7 +371,10 @@ def synthesis_fast(
     `plan` is a `device_plan` on ws's device. Translation, zoom and
     rotation apply at `rcfg`'s layers, which must lie below
     `motion_layer_bound` (in the plain head); random noise is drawn from
-    `gen` (seed 0 when None)."""
+    `gen` (seed 0 when None). A quantized plan (`quantize_plan`) runs its
+    blocks' cell convs in int8. `_amax_tape` is the calibration's hook: a
+    dict given there receives the per-channel |max| of each quantizable conv
+    input on the float path."""
     from .wrappers import RenderConfig, apply_motion
 
     if cfg.architecture == "resnet":
@@ -367,17 +431,31 @@ def synthesis_fast(
         # conv0 (up): from the res/2 grid to cells; its epilogue also applies conv1's input style
         styles0 = fc_forward(p0["affine"], block_ws[:, 0].float())
         x_in = x.to(dtype) * styles0.to(dtype)[:, :, None, None]
+        if _amax_tape is not None:
+            _amax_tape[f"{res}.a0"] = x_in.float().abs().amax(dim=(0, 2, 3))
         d0 = torch.rsqrt(styles0.square() @ entry["w0_sq"] + 1e-8)
         styles1 = fc_forward(p1["affine"], block_ws[:, 1].float())
         d1 = torch.rsqrt(styles1.square() @ entry["w1_sq"] + 1e-8)
         # the epilogue on cells: demod and bias tiled 4x, the noise as 4 phase groups; conv0's also applies
         # conv1's input style (pre_next)
         n0 = _cell_noise(p0, f"b{res}.conv0", res, batch, noise_mode, noises, gen, dtype, device)
-        y = modconv_epilogue(_conv(x_in, entry["k0"]), d0.repeat(1, 4), n0, p0["bias"].repeat(4), clamp=clamp,
-                             pre_next=styles1.repeat(1, 4))
-        # conv1 (same size): cells to cells
-        n1 = _cell_noise(p1, f"b{res}.conv1", res, batch, noise_mode, noises, gen, dtype, device)
-        x = modconv_epilogue(_conv(y, entry["k1"]), d1.repeat(1, 4), n1, p1["bias"].repeat(4), clamp=clamp)
+        if "q0" in entry:
+            # int8 cell convs: each dequant scale (per output channel) folds into its demod, and conv1's
+            # quantization (127 / a1) into pre_next, so conv0's epilogue writes conv1's int8 operand
+            y = conv_i8(_quantize_act(x_in, entry["a0"]), entry["q0"])
+            y = modconv_epilogue(y, d0.repeat(1, 4) * entry["s0"][None], n0, p0["bias"].repeat(4), clamp=clamp,
+                                 pre_next=styles1.repeat(1, 4) * (127.0 / entry["a1"])[None], quant_out=True)
+            n1 = _cell_noise(p1, f"b{res}.conv1", res, batch, noise_mode, noises, gen, torch.float32, device)
+            x = modconv_epilogue(conv_i8(y, entry["q1"]), d1.repeat(1, 4) * entry["s1"][None], n1,
+                                 p1["bias"].repeat(4), clamp=clamp).to(dtype)
+        else:
+            y = modconv_epilogue(_conv(x_in, entry["k0"]), d0.repeat(1, 4), n0, p0["bias"].repeat(4), clamp=clamp,
+                                 pre_next=styles1.repeat(1, 4))
+            if _amax_tape is not None:
+                _amax_tape[f"{res}.a1"] = y.float().abs().amax(dim=(0, 2, 3))
+            # conv1 (same size): cells to cells
+            n1 = _cell_noise(p1, f"b{res}.conv1", res, batch, noise_mode, noises, gen, dtype, device)
+            x = modconv_epilogue(_conv(y, entry["k1"]), d1.repeat(1, 4), n1, p1["bias"].repeat(4), clamp=clamp)
 
         if img is not None:
             if s2d_mode:
@@ -401,8 +479,9 @@ def synthesis_fast(
 def make_fast_synthesis(params: Dict, cfg: SG2Config, min_channels: int = 128, int8: bool = False):
     """Build the plan and return (synthesis closure, plan): the closure maps
     ws and `synthesis_fast`'s keywords to images, with the plan's kernels
-    converted once to the device of the parameters. int8=True asks for
-    `quantize_plan`, which is not ported and raises."""
+    converted once to the device of the parameters. int8=True also
+    calibrates and quantizes the tail's convs (`quantize_plan`): int8 W8A8
+    cell convs, no longer exact (their speed on the card: PERF.md, Findings)."""
     plan = build_fast_plan(params, cfg, min_channels)
     if int8:
         plan = quantize_plan(params, plan, cfg)

@@ -2,7 +2,8 @@
 over a parameter dict.
 
 Port of `maua_tpu/gan/stylegan3.py` (SG3Config, _lowpass, init_params,
-mapping, synthesis_input, synthesis, make_transform_mat, StyleGAN3).
+mapping, synthesis_input, synthesis, _modconv_int8, quantize_sg3,
+make_transform_mat, StyleGAN3).
 Activations are NCHW; parameters keep the JAX pytree's structure with
 PyTorch layouts (conv OIHW, fc (out, in)); `maua_tpu_torch.bridge`
 converts the JAX package's pytree into this form.
@@ -13,6 +14,12 @@ the filtered nonlinearity that follows it: the conv's demodulation and
 bias as its pre affine, the next conv's style as its post scale. Every
 filtered nonlinearity is one launch of the CUDA kernel of
 `kernels/filtered_lrelu.py` (13 per frame batch at the default config).
+
+The opt-in int8 plan (`quantize_sg3`, W8A8) and its calibration take the
+JAX package's legacy structure instead: each conv modulated and
+demodulated, its bias added, then the filtered nonlinearity without
+affines (still the kernel, with the crop inside it). Under a plan the
+trunk's convs run int8 x int8 -> int32 through `kernels/conv_i8.py`.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..kernels.conv_i8 import conv_i8
 from ..kernels.filtered_lrelu import filtered_lrelu
 from ..oom import is_oom_error
 from ..ops import warp as W
@@ -193,11 +201,21 @@ def synthesis_input(params: Dict, w0: torch.Tensor, cfg: SG3Config, size: int, s
     return F.conv2d(feats, p["weight"])
 
 
-def synthesis(params: Dict, ws: torch.Tensor, cfg: SG3Config, transform: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """ws (B, num_ws, w_dim) -> image (B, C, H, W), f32, about [-1, 1]."""
+def synthesis(params: Dict, ws: torch.Tensor, cfg: SG3Config, transform: Optional[torch.Tensor] = None,
+              int8_plan: Optional[Dict] = None, _amax_tape: Optional[Dict] = None) -> torch.Tensor:
+    """ws (B, num_ws, w_dim) -> image (B, C, H, W), f32, about [-1, 1].
+
+    `int8_plan` (from `quantize_sg3`, or a maua_tpu plan: see
+    `int8_plan_to_device`) runs the trunk's modulated convs in int8 on the
+    legacy structure; `_amax_tape` is the calibration's hook: a dict given
+    there receives the per-channel |max| of each trunk conv's styled input,
+    recorded on the legacy float path."""
     _, _, srates, _, sizes, channels = cfg.layer_plan()
     plan = resample_plan(cfg)
     x = synthesis_input(params, ws[:, 0], cfg, int(sizes[0]), float(srates[0]), transform)
+    legacy = int8_plan is not None or _amax_tape is not None
+    if int8_plan is not None:
+        int8_plan = int8_plan_to_device(int8_plan, x.device)
 
     # styles per layer up front; torgb folds its fan-in gain into its styles
     n = cfg.num_layers
@@ -215,30 +233,104 @@ def synthesis(params: Dict, ws: torch.Tensor, cfg: SG3Config, transform: Optiona
         if not is_torgb:
             w = w * (1.0 / math.sqrt(w[0].numel()))
         w = w / layer["magnitude_ema"].sqrt().clamp_min(1e-8)
-        if i == 0:
-            x = x * styles_all[0].to(x.dtype)[:, :, None, None]
-        # x already carries this conv's style (above, or the previous
-        # nonlinearity's post scale): one shared-weight conv for the batch
-        if w.shape[-1] == 1:
-            y = torch.einsum("bchw,oc->bohw", x, w[:, :, 0, 0].to(x.dtype))
+        styles = styles_all[i]
+        bias = layer["bias"]
+        if legacy:
+            # modulated and demodulated conv, then its bias
+            if _amax_tape is not None and not is_torgb:
+                _amax_tape[f"L{i}"] = (x.float() * styles.float()[:, :, None, None]).abs().amax(dim=(0, 2, 3))
+            if int8_plan is not None and f"L{i}" in int8_plan:
+                x = _modconv_int8(x, int8_plan[f"L{i}"], w, styles)
+            else:
+                x = ops.modulated_conv2d(x, w.to(x.dtype), styles, padding=w.shape[-1] // 2, demodulate=not is_torgb)
+            x = x + bias.to(x.dtype)[None, :, None, None]
+            if is_torgb:
+                break
+            y, pre = x, {}
         else:
-            y = F.conv2d(x, w.to(x.dtype), padding=w.shape[-1] // 2)
-        if is_torgb:
-            x = y + layer["bias"].to(y.dtype)[None, :, None, None]
-            break
-        demod = torch.rsqrt(styles_all[i].float().square() @ w.float().square().sum(dim=(2, 3)).t() + 1e-8)
+            if i == 0:
+                x = x * styles.to(x.dtype)[:, :, None, None]
+            # x already carries this conv's style (above, or the previous
+            # nonlinearity's post scale): one shared-weight conv for the batch
+            if w.shape[-1] == 1:
+                y = torch.einsum("bchw,oc->bohw", x, w[:, :, 0, 0].to(x.dtype))
+            else:
+                y = F.conv2d(x, w.to(x.dtype), padding=w.shape[-1] // 2)
+            if is_torgb:
+                x = y + bias.to(y.dtype)[None, :, None, None]
+                break
+            demod = torch.rsqrt(styles.float().square() @ w.float().square().sum(dim=(2, 3)).t() + 1e-8)
+            pre = dict(pre_scale=demod, pre_add=bias.float()[None].expand(x.shape[0], -1),
+                       post_scale=styles_all[i + 1])
         up, down, up_f, down_f, out_size = plan[i]
-        bias = layer["bias"].float()[None].expand(x.shape[0], -1)
         # centre crop (inside the kernel, which writes only the kept window) or pad to the next canvas
         h = y.shape[2] * up // down
         o = (h - out_size) // 2
         crop = (o, o, out_size, out_size) if h > out_size else None
-        x = filtered_lrelu(y.contiguous(), up_f, down_f, up, down, pre_scale=demod, pre_add=bias,
-                           post_scale=styles_all[i + 1], crop=crop)
+        x = filtered_lrelu(y.contiguous(), up_f, down_f, up, down, crop=crop, **pre)
         if h < out_size:
             o = (out_size - h) // 2
             x = F.pad(x, (o, out_size - h - o, o, out_size - h - o))
     return x.float()
+
+
+def _modconv_int8(x: torch.Tensor, entry: Dict, w_runtime: torch.Tensor, styles: torch.Tensor) -> torch.Tensor:
+    """The modulated conv with the conv itself in int8: the styled input
+    quantized per input channel against the calibrated amax (folded into
+    the weights), the weights per output channel; the demodulation stays f32
+    (the math of ops.modulated_conv2d up to the quantization)."""
+    from .fast_synthesis import _quantize_act
+
+    xq = _quantize_act(x.float() * styles.float()[:, :, None, None], entry["a"])
+    y = conv_i8(xq, entry["q"]) * entry["s"][None, :, None, None]
+    d = torch.rsqrt(styles.float().square() @ w_runtime.float().square().sum(dim=(2, 3)).t() + 1e-8)
+    return (y * d[:, :, None, None]).to(x.dtype)
+
+
+def int8_plan_to_device(plan: Dict, device) -> Dict:
+    """An int8 plan as `synthesis` takes it: {"L{i}": {"q": int8 OIHW, "s", "a": f32}} on `device`. Takes
+    the port's plan or maua_tpu's (numpy, q in HWIO); tensors already there are kept as they are."""
+    out = {}
+    for name, e in plan.items():
+        q = e["q"]
+        if not isinstance(q, torch.Tensor):
+            q = torch.from_numpy(np.ascontiguousarray(q)).permute(3, 2, 0, 1)  # HWIO -> OIHW
+        out[name] = {"q": q.to(device=device, dtype=torch.int8).contiguous(),
+                     **{k: torch.as_tensor(e[k]).to(device=device, dtype=torch.float32) for k in ("s", "a")}}
+    return out
+
+
+def quantize_sg3(params: Dict, cfg: SG3Config, ws: Optional[torch.Tensor] = None, batch: int = 4, seed: int = 0,
+                 margin: float = 1.05) -> Dict:
+    """Calibrate an int8 plan for the trunk's convs (every modulated conv
+    but torgb): {"L{i}": {"q", "s", "a"}} on the parameters' device, to pass
+    as `synthesis(..., int8_plan=plan)`. The amax of each conv's styled
+    input, per channel, is recorded over one legacy float synthesis of `ws`,
+    times `margin`; each weight takes the activation dequant (a / 127 per
+    input channel) and is quantized per output channel, in numpy as maua_tpu
+    computes it. With ws=None the `batch` latents come from a torch.Generator
+    seeded with `seed` on the parameters' device, where maua_tpu draws them
+    with jax.random: the same seed gives another plan."""
+    device = params["layers"][0]["weight"].device
+    with torch.no_grad():
+        if ws is None:
+            z = torch.randn(batch, cfg.z_dim, generator=torch.Generator(device=device).manual_seed(seed),
+                            device=device)
+            ws = mapping(params, z, cfg)
+        tape: Dict = {}
+        synthesis(params, ws, cfg, _amax_tape=tape)
+    plan: Dict = {}
+    for i, layer in enumerate(params["layers"]):
+        if i == cfg.num_layers - 1:
+            continue  # torgb stays float
+        a = np.maximum(tape[f"L{i}"].cpu().numpy().astype(np.float32) * margin, 1e-6)
+        w = layer["weight"].detach().float().cpu().numpy().transpose(2, 3, 1, 0)  # OIHW -> HWIO
+        w = w * (1.0 / math.sqrt(np.prod(w.shape[:3])))
+        w = w / max(float(np.sqrt(layer["magnitude_ema"].detach().float().cpu().numpy())), 1e-8)
+        wf = w * (a / 127.0)[None, None, :, None]
+        s = np.maximum(np.abs(wf).max(axis=(0, 1, 2)) / 127.0, 1e-12).astype(np.float32)
+        plan[f"L{i}"] = {"q": np.clip(np.round(wf / s), -127, 127).astype(np.int8), "s": s, "a": a}
+    return int8_plan_to_device(plan, device)
 
 
 def make_transform_mat(translate: Tuple[float, float], angle_deg: float) -> torch.Tensor:

@@ -9,7 +9,11 @@ Port of the Pallas TPU kernel `maua_tpu/kernels/epilogue.py`
 
 where noise (B|1, G, H, W) covers channels [g*C/G, (g+1)*C/G) with group
 g. StyleGAN2's synthesis layers call it with per-pixel noise (G = 1) and
-no pre_next.
+no pre_next. With `quant_out` (the JAX chain's int8 output, which the W8A8
+plans use) the result is stored as int8, clip(round(y), -127, 127) with
+ties rounded to even: the caller folds the next conv's activation scale
+into pre_next, so the output is that conv's operand. The int8 mode has no
+gradient and refuses autograd; it bypasses the custom op.
 
 The CUDA source is `maua_tpu_torch/csrc/epilogue.cu`: one pass over z,
 bound by memory bytes (read z, write y). `modconv_epilogue` launches it
@@ -33,19 +37,20 @@ from typing import Optional
 
 import torch
 
-from . import plain_on_cpu
+from . import plain_on_cpu, refuse_autograd
 
 _SQRT2 = math.sqrt(2.0)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-# launches of the CUDA kernel since the last reset (the plain path does not count)
+# launches of the CUDA kernel since the last reset (the plain path does not count), and those with an int8 output
 launches = 0
+int8_launches = 0
 _fn = None
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    global launches, int8_launches
+    launches = int8_launches = 0
 
 
 def _kernel():
@@ -54,7 +59,7 @@ def _kernel():
         from .build import load
 
         fn = load("epilogue").maua_modconv_epilogue
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
                        ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_int,
@@ -64,8 +69,9 @@ def _kernel():
     return _fn
 
 
-def modconv_epilogue_plain(z, post, noise, bias, alpha=0.2, gain=_SQRT2, clamp=256.0, pre_next=None):
-    """The same function in plain PyTorch ops, in f32, cast back to z's dtype."""
+def modconv_epilogue_plain(z, post, noise, bias, alpha=0.2, gain=_SQRT2, clamp=256.0, pre_next=None,
+                           quant_out: bool = False):
+    """The same function in plain PyTorch ops, in f32, cast back to z's dtype (int8 codes with quant_out)."""
     b, c, h, w = z.shape
     y = z.float() * post.float()[:, :, None, None]
     if noise is not None:
@@ -77,6 +83,8 @@ def modconv_epilogue_plain(z, post, noise, bias, alpha=0.2, gain=_SQRT2, clamp=2
         y = _clip(y, clamp)
     if pre_next is not None:
         y = y * pre_next.float()[:, :, None, None]
+    if quant_out:
+        return _clip(torch.round(y), 127.0).to(torch.int8)
     return y.to(z.dtype)
 
 
@@ -145,11 +153,17 @@ def modconv_epilogue(
     gain: float = _SQRT2,
     clamp: Optional[float] = 256.0,
     pre_next: Optional[torch.Tensor] = None,  # (B, C) next layer's input scale
+    quant_out: bool = False,  # int8 codes clip(round(y), -127, 127) in place of z's dtype
 ) -> torch.Tensor:
-    """demod * z + grouped noise + bias -> lrelu * gain -> clamp [-> * pre_next]; through
+    """demod * z + grouped noise + bias -> lrelu * gain -> clamp [-> * pre_next] [-> int8]; through
     `ModconvEpilogue` where autograd records (grad enabled and an input that requires grad)."""
     _check(z, post, noise, bias, pre_next)
     inputs = [t for t in (z, post, noise, bias, pre_next) if t is not None]
+    if quant_out:
+        refuse_autograd("modconv_epilogue(quant_out=True)", *inputs)
+        if z.device.type == "cpu":
+            return modconv_epilogue_plain(z, post, noise, bias, alpha, gain, clamp, pre_next, quant_out=True)
+        return _launch(z, post, noise, bias, alpha, gain, clamp, pre_next, quant_out=True)
     if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
         return ModconvEpilogue.apply(z, post, noise, bias, pre_next, alpha, gain, clamp)
     if z.device.type == "cpu" and plain_on_cpu(*inputs):
@@ -171,8 +185,8 @@ def _(z, post, noise, bias, pre_next, alpha, gain, clamp):
     return torch.empty_like(z)
 
 
-def _launch(z, post, noise, bias, alpha, gain, clamp, pre_next):
-    """The kernel's launch into a new tensor, for a CUDA z."""
+def _launch(z, post, noise, bias, alpha, gain, clamp, pre_next, quant_out=False):
+    """The kernel's launch into a new tensor (int8 with quant_out), for a CUDA z."""
     if z.device.type != "cuda":
         raise ValueError(f"modconv_epilogue runs on cuda or cpu tensors, got {z.device}")
     if z.dtype not in _DTYPES:
@@ -190,9 +204,9 @@ def _launch(z, post, noise, bias, alpha, gain, clamp, pre_next):
     pre32 = None if pre_next is None else pre_next.float().contiguous()
     noise32 = None if noise is None else noise.float().contiguous()
     b, c, h, w = z.shape
-    y = torch.empty_like(z)
+    y = torch.empty_like(z, dtype=torch.int8 if quant_out else z.dtype)
     err = _kernel()(
-        z.data_ptr(), y.data_ptr(), _DTYPES[z.dtype],
+        z.data_ptr(), y.data_ptr(), _DTYPES[z.dtype], int(quant_out),
         post32.data_ptr(), 0 if noise32 is None else noise32.data_ptr(),
         bias32.data_ptr(), 0 if pre32 is None else pre32.data_ptr(),
         b, c, h * w, 1 if noise32 is None else noise32.shape[1],
@@ -202,6 +216,7 @@ def _launch(z, post, noise, bias, alpha, gain, clamp, pre_next):
     )
     if err != 0:
         raise RuntimeError(f"modconv_epilogue kernel launch failed: cudaError {err}")
-    global launches
+    global launches, int8_launches
     launches += 1
+    int8_launches += int(quant_out)
     return y

@@ -54,7 +54,16 @@ order); the sort-based quantiles past 2^24 elements within 1e-5 of numpy's
 (positions q * (n - 1) in f32, as jnp.quantile computes them). The kernels'
 custom ops (what a torch.export graph calls) and an exported program of each,
 saved and loaded, are held to their wrappers' bars at f32, one launch a call.
+The int8 conv sums exactly in int32 on both sides: the kernel equals its plain
+version bit for bit. The epilogue's int8 output: codes within 1 of the plain
+version's (the kernel rounds each product and sum on its own, as the plain
+ops do, so they are expected equal). The int8 routes (StyleGAN2's s2d tail,
+StyleGAN3's trunk) on a plan carried from the CPU, card vs CPU with TF32 off:
+>= 40 dB PSNR over the [-1, 1] range (an activation that lands on the other
+side of a quantization step moves one code).
 """
+
+import math
 
 import pytest
 import torch
@@ -62,6 +71,7 @@ import torch
 from maua_tpu_torch.audio import spectral as S
 from maua_tpu_torch.gan.stylegan3 import _lowpass
 from maua_tpu_torch.kernels import attention as A
+from maua_tpu_torch.kernels import conv_i8 as CI
 from maua_tpu_torch.kernels import epilogue as E
 from maua_tpu_torch.kernels import filtered_lrelu as FL
 from maua_tpu_torch.kernels import kconv as K
@@ -1243,3 +1253,122 @@ def test_gan_service_batches_run_bare_on_the_worker_thread(cuda_device):
         svc.close()
     assert frame.shape == (32, 32, 3) and outs == [(True, False, None)]
     assert E.launches == 7  # b4 conv1 and two convs in each of b8, b16 and b32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,ci,h,w,co,k", [
+    (2, 128, 32, 32, 256, 3),  # the s2d tail's b512 conv0 cells, cut in size
+    (1, 256, 20, 24, 256, 3),  # its conv1
+    (2, 64, 33, 35, 128, 3),  # b1024 conv0, sizes off the 16-pixel tile
+    (1, 323, 36, 36, 203, 3),  # StyleGAN3 T's ragged trunk channels
+    (2, 81, 37, 45, 51, 3),
+    (1, 51, 52, 52, 3, 3),  # Co below one n8 tile
+    (2, 40, 19, 23, 70, 1),  # a 1x1 kernel
+    (1, 33, 1, 17, 32, 3),  # one row
+])
+def test_conv_i8_kernel_matches_plain(cuda_device, b, ci, h, w, co, k):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randint(-127, 128, (b, ci, h, w), generator=gen, device=cuda_device, dtype=torch.int8)
+    wt = torch.randint(-127, 128, (co, ci, k, k), generator=gen, device=cuda_device, dtype=torch.int8)
+    CI.reset_launches()
+    out = CI.conv_i8(x, wt)
+    torch.cuda.synchronize()
+    assert CI.launches == 1 and out.dtype == torch.float32 and out.shape == (b, co, h, w)
+    assert torch.equal(out, CI.conv_i8_plain(x, wt))
+
+
+@pytest.mark.cuda
+def test_conv_i8_kernel_sums_exactly_at_the_widest_k(cuda_device):
+    """All +-127 at Ci 512, k 3: sums up to 9 * 512 * 127^2 = 74,322,432, past f32's 2^24, exact in int32 and
+    rounded to even once."""
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    sign = lambda *s: torch.randint(0, 2, s, generator=gen, device=cuda_device, dtype=torch.int8) * 2 - 1
+    x = torch.full((1, 512, 12, 20), 127, dtype=torch.int8, device=cuda_device)
+    x[:, :, :, 10:] *= sign(1, 512, 12, 10)
+    wt = torch.full((40, 512, 3, 3), 127, dtype=torch.int8, device=cuda_device)
+    wt[20:] = -127
+    out = CI.conv_i8(x, wt)
+    want = CI.conv_i8_int32(x, wt)
+    assert int(want.abs().max()) == 9 * 512 * 127**2
+    assert torch.equal(out, want.float())
+
+
+@pytest.mark.cuda
+def test_conv_i8_kernel_rejects_what_it_does_not_take(cuda_device):
+    x = torch.zeros(1, 8, 6, 6, dtype=torch.int8, device=cuda_device)
+    w = torch.zeros(4, 8, 3, 3, dtype=torch.int8, device=cuda_device)
+    with pytest.raises(TypeError, match="int8"):
+        CI.conv_i8(x.float(), w)
+    with pytest.raises(ValueError, match="1x1 and 3x3"):
+        CI.conv_i8(x, torch.zeros(4, 8, 5, 5, dtype=torch.int8, device=cuda_device))
+    with pytest.raises(ValueError, match="contiguous"):
+        CI.conv_i8(x.transpose(2, 3), w)
+    with pytest.raises(ValueError, match="device"):
+        CI.conv_i8(x, w.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,noise_shape,use_pre,clamp", [
+    ((8, 256, 64, 64), (1, 4, 64, 64), True, 256.0),  # the s2d route's int8 cells: 16 codes a store
+    ((2, 128, 32, 32), (2, 4, 32, 32), True, None),
+    ((3, 5, 7, 9), (3, 1, 7, 9), True, 256.0),  # H*W not a multiple of 16: the scalar path
+    ((2, 16, 8, 8), None, False, 256.0),
+])
+def test_epilogue_int8_output_matches_plain(cuda_device, dtype, shape, noise_shape, use_pre, clamp):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    b, c = shape[:2]
+    z = (torch.randn(*shape, generator=gen, device=cuda_device) * 4).to(dtype)
+    post = torch.rand(b, c, generator=gen, device=cuda_device) + 0.5
+    noise = None if noise_shape is None else torch.randn(*noise_shape, generator=gen, device=cuda_device)
+    bias = torch.randn(c, generator=gen, device=cuda_device)
+    pre = (torch.rand(b, c, generator=gen, device=cuda_device) + 0.5) * 20 if use_pre else None
+    E.reset_launches()
+    out = E.modconv_epilogue(z, post, noise, bias, clamp=clamp, pre_next=pre, quant_out=True)
+    torch.cuda.synchronize()
+    assert E.launches == 1 and E.int8_launches == 1 and out.dtype == torch.int8
+    ref = E.modconv_epilogue_plain(z, post, noise, bias, clamp=clamp, pre_next=pre, quant_out=True)
+    diff = (out.int() - ref.int()).abs()
+    assert int(diff.max()) <= 1 and (not use_pre or int(ref.abs().max()) == 127)  # the large pre_next clips
+
+
+def _int8_routes():
+    """A 32^2 StyleGAN2 on s2d cells throughout and a 64^2 StyleGAN3, parameters from seed 0 on the CPU, with
+    int8 plans calibrated there."""
+    from maua_tpu_torch.gan import fast_synthesis as FS
+    from maua_tpu_torch.gan import stylegan2 as S2
+    from maua_tpu_torch.gan import stylegan3 as S3
+
+    cfg2 = S2.SG2Config(img_resolution=32, channel_base=1024, channel_max=64, z_dim=32, w_dim=32, mapping_layers=2)
+    p2 = S2.init_params(cfg2, torch.Generator().manual_seed(0))
+    plan2 = FS.quantize_plan(p2, FS.build_fast_plan(p2, cfg2, min_channels=9999), cfg2, batch=2)
+    cfg3 = S3.SG3Config(z_dim=32, w_dim=32, img_resolution=64, channel_base=1024, channel_max=64, num_layers=6,
+                        mapping_layers=2, margin_size=4)
+    p3 = S3.init_params(cfg3, torch.Generator().manual_seed(0))
+    plan3 = S3.quantize_sg3(p3, cfg3, batch=2)
+    return (cfg2, p2, plan2), (cfg3, p3, plan3)
+
+
+@pytest.mark.cuda
+def test_int8_routes_on_the_card_match_the_cpu(cuda_device, no_tf32):
+    from maua_tpu_torch.gan import fast_synthesis as FS
+    from maua_tpu_torch.gan import stylegan2 as S2
+    from maua_tpu_torch.gan import stylegan3 as S3
+    from maua_tpu_torch.utility import to_device
+
+    (cfg2, p2, plan2), (cfg3, p3, plan3) = _int8_routes()
+    ws2 = S2.mapping(p2, torch.randn(2, cfg2.z_dim, generator=torch.Generator().manual_seed(1)), cfg2)
+    ws3 = S3.mapping(p3, torch.randn(2, cfg3.z_dim, generator=torch.Generator().manual_seed(1)), cfg3)
+    E.reset_launches(), CI.reset_launches(), FL.reset_launches()
+    with torch.no_grad():
+        card2 = FS.synthesis_fast(to_device(p2, cuda_device), FS.device_plan(plan2, cfg2, cuda_device),
+                                  ws2.to(cuda_device), cfg2, noise_mode="const")
+        assert (E.launches, E.int8_launches, CI.launches) == (1 + 2 * 3, 3, 2 * 3)  # b4 plain, b8..b32 on cells
+        card3 = S3.synthesis(to_device(p3, cuda_device), ws3.to(cuda_device), cfg3,
+                             int8_plan=S3.int8_plan_to_device(plan3, cuda_device))
+        assert CI.launches == 2 * 3 + cfg3.num_layers - 1 and FL.launches == cfg3.num_layers - 1
+        host2 = FS.synthesis_fast(p2, FS.device_plan(plan2, cfg2, "cpu"), ws2, cfg2, noise_mode="const")
+        host3 = S3.synthesis(p3, ws3, cfg3, int8_plan=plan3)
+    for card, host in ((card2, host2), (card3, host3)):
+        mse = float((card.cpu().double() - host.double()).pow(2).mean())
+        assert 10 * math.log10(4.0 / max(mse, 1e-20)) >= 40.0

@@ -160,12 +160,15 @@ def test_the_facade_dispatches_as_maua_tpu_does(monkeypatch):
 
 
 def test_quantized_plans_and_resnet_raise():
+    # the int8 plan is ported (tests/test_torch_int8.py holds it against maua_tpu): a quantized plan converts,
+    # its int8 kernels as int8 OIHW tensors and its scales as f32; only the resnet architecture still raises
     _, tcfg, _, tparams, ws, plan = make_net("64-top")
-    with pytest.raises(NotImplementedError, match="int8"):
-        TF.make_fast_synthesis(tparams, tcfg, int8=True)
-    quantized = {**plan, "blocks": {r: {**e, "q0": np.zeros(1, np.int8)} for r, e in plan["blocks"].items()}}
-    with pytest.raises(NotImplementedError, match="quantize_plan"):
-        TF.device_plan(quantized, tcfg, "cpu")
+    fn, qplan = TF.make_fast_synthesis(tparams, tcfg, min_channels=48, int8=True)
+    assert all({"q0", "q1", "s0", "s1", "a0", "a1"} <= set(e) for e in qplan["blocks"].values())
+    dplan = TF.device_plan(qplan, tcfg, "cpu")
+    for e, q in ((dplan["blocks"][r], qplan["blocks"][r]) for r in qplan["blocks"]):
+        assert e["q0"].dtype == e["q1"].dtype == torch.int8 and e["s0"].dtype == e["a1"].dtype == torch.float32
+        assert tuple(e["q0"].shape) == tuple(q["q0"].shape[i] for i in (3, 2, 0, 1))  # HWIO -> OIHW
     resnet = dataclasses.replace(tcfg, architecture="resnet")
     with pytest.raises(ValueError, match="resnet"):
         TF.synthesis_fast(tparams, TF.device_plan(plan, resnet, "cpu"), torch.from_numpy(ws), resnet)
