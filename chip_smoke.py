@@ -4132,7 +4132,8 @@ def conv_i8_library(x, w):
 
 def check_conv_i8(cases):
     """conv_i8 against its plain version (F.conv2d in float64 on the card, exact), bit for bit, at each case
-    (label, B, Ci, H, W, Co, k) on random int8 tensors, with the all +-127 case at the widest K; ms (CUDA
+    (label, B, Ci, H, W, Co, k) on random int8 tensors, with the all +-127 case at the widest K; the staging route
+    the kernel took (CI.staging_route: "tma" or "cp.async"); ms (CUDA
     events) beside the bound: the larger of 2 B H W k^2 Ci Co operations at 1979 TOPS (dense int8) and x and
     w read once and y (f32) written once at 3.35 TB/s; the plain version's ms (one warm call); the library
     route (conv_i8_library: the same integer function, timed, unused by the port) and cuDNN's bf16
@@ -4177,7 +4178,8 @@ def check_conv_i8(cases):
         torch.cuda.empty_cache()
         xb, wb = x.to(torch.bfloat16), wt.to(torch.bfloat16)
         cudnn_bf16_ms = cuda_time_ms(lambda: F.conv2d(xb, wb, padding=k // 2), iters=iters)
-        rows[label] = {"shape": [b, ci, h, w, co, k], "bit_equal": True, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        rows[label] = {"shape": [b, ci, h, w, co, k], "route": CI.staging_route(x), "bit_equal": True,
+                       "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                        "library_ms": library_ms, "library_equal": lib_equal, "cudnn_bf16_conv_ms": cudnn_bf16_ms,
                        "bound_ms": max(ops_ms, bytes_ms), "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
                        "ops_ms": ops_ms, "bytes_ms": bytes_ms, "tops": ops / ms / 1e9, "share_of_bound":
@@ -4198,6 +4200,7 @@ def conv_i8_sums(rows, labels) -> dict:
     libs = [rows[c]["library_ms"] for c in labels]
     out["library_ms"] = None if any(v is None for v in libs) else sum(libs)
     out["bound_by"] = "operations" if out["ops_ms"] >= out["bytes_ms"] else "bytes"
+    out["routes"] = {r: sum(rows[c]["route"] == r for c in labels) for r in sorted({rows[c]["route"] for c in labels})}
     return out
 
 
@@ -4398,6 +4401,10 @@ def run_int8(reference):
     # the kernels at the shapes of those two batches
     # conv_i8 at the shapes of those two batches
     conv_rows = check_conv_i8(cases_sg2 + cases_sg3 + [("extreme", 1, 512, 36, 36, 64, 3)])
+    print(json.dumps({"int8_ab": {"sg2_int8_over_bf16_s2d": sg2["ab"]["int8_over_bf16_s2d"],
+                                  "sg3_int8_over_fused_bf16": sg3["ab"]["int8_over_fused_bf16"],
+                                  "fps_quartiles": {"sg2": sg2["ab"]["fps_quartiles"], "sg3": sg3["ab"]["fps_quartiles"]}}}),
+          flush=True)
     return {"sg2": sg2, "sg3": sg3, "conv_i8_sg2_batch": conv_i8_sums(conv_rows, [c[0] for c in cases_sg2]),
             "conv_i8_sg3_batch": conv_i8_sums(conv_rows, [c[0] for c in cases_sg3]),
             "conv_i8_max_abs_err": max(r["max_abs_err"] for r in conv_rows.values())}
@@ -7899,9 +7906,11 @@ def main() -> int:
         "max_abs_err": int8["conv_i8_max_abs_err"],
         **{k: int8["conv_i8_sg2_batch"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                                      "cudnn_bf16_conv_ms")},
+        "staging_routes": int8["conv_i8_sg2_batch"]["routes"],
         "sg3_launches": results["int8"]["sg3"]["launches"]["conv_i8"],
         **{f"sg3_{k}": int8["conv_i8_sg3_batch"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                                               "cudnn_bf16_conv_ms")},
+        "sg3_staging_routes": int8["conv_i8_sg3_batch"]["routes"],
         "scope": f"not a Pallas kernel: the port's kernel for the XLA int8 convs of the W8A8 plans (PyTorch has "
                  f"no int8 convolution on CUDA). The {results['int8']['sg2']['launches']['conv_i8']} launches of "
                  f"one StyleGAN2 config-f 1024^2 batch of {BATCH} on the int8 s2d route (int8: b512 and b1024, "
@@ -7909,7 +7918,8 @@ def main() -> int:
                  f"the {results['int8']['sg3']['launches']['conv_i8']} trunk convs of one StyleGAN3 config T "
                  f"1024^2 batch of {BATCH} on quantize_sg3's plan; library: torch._int_mm over F.unfold (the "
                  f"same integer function, timed only); cudnn_bf16_conv_ms: cuDNN's bf16 F.conv2d at the same "
-                 f"shapes (a different function, timed only)",
+                 f"shapes (a different function, timed only); staging_routes: the cases by how the kernel staged x "
+                 f"(tma where W % 16 == 0, else cp.async)",
     }]}
     print(card)
     print(json.dumps(record))

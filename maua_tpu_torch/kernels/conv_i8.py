@@ -15,14 +15,23 @@ exact in int32, converted with round-to-nearest-even. (An even k pads one
 more before than after, as the JAX package's padding does; the kernel takes
 k of 1 and 3, the sizes the plans hold.)
 
-The CUDA source is `maua_tpu_torch/csrc/conv_i8.cu`: an implicit GEMM on the
-tensor cores (mma.sync m16n8k32 s8), reading the NCHW activations directly
-(transposed while staged) and the weights in the tile layout that
-`pack_weights` makes (one small copy per call). `conv_i8` launches it for
-CUDA tensors and raises on what it does not take; CPU tensors take the plain
-version, `conv_i8_plain` (`F.conv2d` in float64 of the int8 values, exact,
-then int32 and f32), which is also what the kernel is held against on the
-card, bit for bit. int8 has no gradient: the wrapper refuses autograd.
+The CUDA source is `maua_tpu_torch/csrc/conv_i8.cu`: an implicit GEMM on
+the tensor cores (wgmma m64nNk32 s8, both operands in shared memory) in a
+persistent block of three warpgroups. A producer warpgroup stages each
+32-channel slab of the NCHW activations asynchronously, two chunks ahead in
+a ring of three stages (one TMA box where W % 16 == 0, else 16-byte
+cp.async), transposes it once in shared memory into channel-contiguous
+pixels, and loads the chunk's weight tile, in the layout that
+`pack_weights` makes (one small copy per call), by one bulk copy; two
+consumer warpgroups run the wgmmas of up to 256 output channels on the
+same staged halo and store the f32 result through shared memory as
+16-byte pieces of NCHW rows. At the plans' shapes it is bound by the bytes
+of its f32 output, or by its operations at the widest layers. `conv_i8`
+launches it for CUDA tensors and raises on what it does not take; CPU
+tensors take the plain version, `conv_i8_plain` (`F.conv2d` in float64 of
+the int8 values, exact, then int32 and f32), which is also what the kernel
+is held against on the card, bit for bit. int8 has no gradient: the wrapper
+refuses autograd.
 """
 
 from __future__ import annotations
@@ -58,21 +67,49 @@ def _kernel():
     return _fn
 
 
-def tile_co(co: int) -> int:
-    """The kernel's output channels per block: 32 where Co <= 32, else 64."""
-    return 32 if co <= 32 else 64
+def _route():
+    from .build import load
+
+    fn = load("conv_i8").maua_conv_i8_route
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn
 
 
-def pack_weights(w: torch.Tensor) -> torch.Tensor:
-    """OIHW int8 (Co, Ci, k, k) -> (ceil(Co / T), ceil(Ci / 32), k * k, T, 32), zero-padded, T = tile_co(Co):
-    tile [n, c, tap, j, i] is w[T n + j, 32 c + i, tap // k, tap % k], the kernel's weight slice for output
-    tile n and input chunk c, whole and contiguous."""
+def wide_patches(width: int) -> bool:
+    """Whether the kernel takes 1 x 64 pixel patches (whole 256-byte pieces of each output row) for an image of
+    this width, in place of 8 x 8 ones: where W % 64 == 0 or W >= 256 (the csrc's `wide_patches`)."""
+    return width % 64 == 0 or width >= 256
+
+
+def tile_co(co: int, wide: bool) -> int:
+    """The kernel's output channels per block (the csrc's `tile_co`): 32, 64 or 128 up to those widths; past
+    128, 128 with wide patches, else 256 unless 128-wide tiles pad Co less (323 -> 3 x 128, not 2 x 256)."""
+    for t in (32, 64, 128):
+        if co <= t:
+            return t
+    return 128 if wide or -(-co // 128) * 128 < -(-co // 256) * 256 else 256
+
+
+def pack_weights(w: torch.Tensor, wide: bool) -> torch.Tensor:
+    """OIHW int8 (Co, Ci, k, k) -> (ceil(Co / T), ceil(Ci / 32), k * k, 2, T, 16), zero-padded, T = tile_co(Co,
+    wide): tile [n, c, tap, h, j, i] is w[T n + j, 32 c + 16 h + i, tap // k, tap % k]. The slice [n, c] is the
+    kernel's weight stage for output tile n and input chunk c, whole and contiguous; each [n, c, tap] is wgmma's
+    B operand for that tap, K-major without swizzle: 16-byte rows of 16 input channels, the two halves of the
+    chunk T rows apart."""
     co, ci, kh, kw = w.shape
-    t = tile_co(co)
+    t = tile_co(co, wide)
     nci, nco = -(-ci // TILE_CI), -(-co // t)
     wp = torch.zeros(nco * t, nci * TILE_CI, kh * kw, dtype=torch.int8, device=w.device)
     wp[:co, :ci] = w.reshape(co, ci, kh * kw)
-    return wp.view(nco, t, nci, TILE_CI, kh * kw).permute(0, 2, 4, 1, 3).contiguous()
+    return wp.view(nco, t, nci, 2, TILE_CI // 2, kh * kw).permute(0, 2, 5, 3, 1, 4).contiguous()
+
+
+def staging_route(x: torch.Tensor) -> str:
+    """How the kernel stages x: "tma" (one tensor-map box a chunk) where W % 16 == 0 and x is 16-byte aligned,
+    else "cp.async" (16-byte copies of the aligned units around each row). The kernel's own rule, read from the
+    library: it needs the card's build."""
+    return "tma" if _route()(x.data_ptr(), x.shape[3]) else "cp.async"
 
 
 def conv_i8_int32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -114,7 +151,7 @@ def conv_i8(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if kh != kw or kh not in (1, 3):
         raise ValueError(f"the conv_i8 kernel takes 1x1 and 3x3 kernels, got {kh}x{kw}")
     b, ci, h, wd = x.shape
-    wk = pack_weights(w)
+    wk = pack_weights(w, wide_patches(wd))
     y = torch.empty(b, co, h, wd, dtype=torch.float32, device=x.device)
     err = _kernel()(x.data_ptr(), wk.data_ptr(), y.data_ptr(), b, ci, h, wd, co, kh,
                     torch.cuda.current_stream(x.device).cuda_stream)

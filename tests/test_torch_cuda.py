@@ -1265,6 +1265,14 @@ def test_gan_service_batches_run_bare_on_the_worker_thread(cuda_device):
     (1, 51, 52, 52, 3, 3),  # Co below one n8 tile
     (2, 40, 19, 23, 70, 1),  # a 1x1 kernel
     (1, 33, 1, 17, 32, 3),  # one row
+    (2, 40, 13, 48, 200, 3),  # W % 16 == 0: the TMA route, H and Co off the tile
+    (1, 51, 20, 36, 81, 3),  # W % 4 == 0 but not % 16 (StyleGAN3 T's 36 and 52): cp.async, 16-byte row stores
+    (2, 60, 10, 52, 96, 3),
+    (1, 64, 12, 20, 512, 3),  # Co 512: two 256-channel tiles
+    (5, 16, 3, 5, 24, 3),  # a batch of small images: each block's tiles span images
+    (1, 40, 5, 64, 70, 3),  # W % 64 == 0: 1 x 64 pixel patches, TMA
+    (1, 20, 6, 532, 51, 3),  # W >= 256 (StyleGAN3 T's 532): 1 x 64 patches, cp.async
+    (1, 64, 4, 256, 256, 3),  # StyleGAN2's b512 cells: 1 x 64 patches, two 128-channel tiles, TMA
 ])
 def test_conv_i8_kernel_matches_plain(cuda_device, b, ci, h, w, co, k):
     gen = torch.Generator(device=cuda_device).manual_seed(0)
@@ -1275,6 +1283,7 @@ def test_conv_i8_kernel_matches_plain(cuda_device, b, ci, h, w, co, k):
     torch.cuda.synchronize()
     assert CI.launches == 1 and out.dtype == torch.float32 and out.shape == (b, co, h, w)
     assert torch.equal(out, CI.conv_i8_plain(x, wt))
+    assert CI.staging_route(x) == ("tma" if w % 16 == 0 else "cp.async")  # x from torch is 16-byte aligned
 
 
 @pytest.mark.cuda

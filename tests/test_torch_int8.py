@@ -67,6 +67,8 @@ def assert_codes_close(got, want, share: float, what: str):
     (1, 7, 5, 51, 24, 3, False),
     (2, 6, 8, 40, 70, 1, False),  # a 1x1 kernel
     (1, 4, 6, 512, 8, 3, True),  # all +-127 at the widest K: sums past 2^24
+    (1, 36, 36, 51, 81, 3, False),  # StyleGAN3 T's L10 channels at its first width (W % 4 == 0, not % 16)
+    (1, 12, 20, 323, 203, 3, False),  # its L7 channels, cut in size
 ])
 def test_conv_i8_plain_equals_maua_tpus(b, h, w, ci, co, k, extreme):
     rs = np.random.RandomState(ci + co)
@@ -85,6 +87,40 @@ def test_conv_i8_plain_equals_maua_tpus(b, h, w, ci, co, k, extreme):
     np.testing.assert_array_equal(nhwc(CI.conv_i8(xt, wtt)), np.asarray(want.astype(jnp.float32)))
     if extreme:
         assert int(got.abs().max()) == k * k * ci * 127**2
+
+
+@pytest.mark.parametrize("co,ci,k,wide,tile", [
+    (3, 33, 3, False, 32),  # Co below one n8 tile
+    (51, 20, 3, True, 64),
+    (81, 51, 3, False, 128),
+    (203, 323, 3, False, 256),  # one 256-wide tile pads 203 as much as two of 128
+    (323, 64, 3, False, 128),  # three 128-wide tiles pad 323 less than two of 256
+    (512, 40, 1, False, 256),
+    (256, 128, 3, True, 128),  # 1 x 64 patches (StyleGAN2's b512 cells): 128 channels a block
+])
+def test_conv_i8_pack_weights_tiles_hold_their_slices(co, ci, k, wide, tile):
+    """pack_weights' docstring: tile [n, c, tap, h, j, i] is w[T n + j, 32 c + 16 h + i, tap // k, tap % k] (zero
+    past Co and Ci), T = tile_co(Co, wide), and the slice [n, c] is contiguous."""
+    assert CI.tile_co(co, wide) == tile
+    w = torch.from_numpy(np.random.RandomState(co + ci).randint(-127, 128, (co, ci, k, k)).astype(np.int8))
+    wp = CI.pack_weights(w, wide)
+    nco, nci = -(-co // tile), -(-ci // 32)
+    assert wp.shape == (nco, nci, k * k, 2, tile, 16) and wp.dtype == torch.int8 and wp.is_contiguous()
+    n, c, tap, h, j, i = np.meshgrid(*(np.arange(d) for d in wp.shape), indexing="ij")
+    o, ic = tile * n + j, 32 * c + 16 * h + i
+    inside = (o < co) & (ic < ci)
+    want = np.zeros(wp.shape, np.int8)
+    want[inside] = w.numpy()[o[inside], ic[inside], tap[inside] // k, tap[inside] % k]
+    np.testing.assert_array_equal(wp.numpy(), want)
+    stage = k * k * tile * 32  # the bytes of one (output tile, chunk) slice, the kernel's weight stage
+    assert wp[nco - 1, nci - 1].numel() == stage and wp.view(-1)[-stage:].equal(wp[nco - 1, nci - 1].reshape(-1))
+
+
+def test_conv_i8_wide_patches_follow_the_width():
+    """1 x 64 patches where W % 64 == 0 or W >= 256: StyleGAN2's cells and StyleGAN3 T's 276 and wider; 8 x 8
+    patches at StyleGAN3 T's 36 to 148."""
+    assert [CI.wide_patches(w) for w in (256, 512, 64, 276, 532, 1044)] == [True] * 6
+    assert [CI.wide_patches(w) for w in (36, 52, 84, 148, 17, 200)] == [False] * 6
 
 
 def test_quantize_act_equals_maua_tpus():
